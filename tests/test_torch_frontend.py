@@ -1,0 +1,91 @@
+"""``MelFrontendClassifier``: the port's forward vs the JAX model's, with
+the JAX model's own parameters loaded through ``from_jax_params``."""
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from torchaudio_contrib_tpu.models import MelFrontendClassifier as JModel
+from torchaudio_contrib_tpu_torch.models import MelFrontendClassifier as TModel
+from torchaudio_contrib_tpu_torch.models.frontend import _same_pad
+from torchaudio_contrib_tpu_torch.utils import from_jax_params
+
+CFG = dict(num_classes=10, num_mels=64, sample_rate=16000, fft_length=512,
+           hop_length=128)
+
+
+def _pair(fused, trainable=True):
+    jm = JModel(fused=fused, trainable_frontend=trainable, **CFG)
+    params = jax.tree_util.tree_map(np.asarray,
+                                    jm.init(jax.random.PRNGKey(0)))
+    tm = TModel(fused=fused, trainable_frontend=trainable, **CFG)
+    tm.load_state_dict(from_jax_params(params))
+    return jm, params, tm.eval()
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("n_samples", [16000, 16128, 16100])
+def test_logits_match_jax(rng, fused, n_samples):
+    """Batch 2 × ~1 s.  16000 samples give an even mel/frame grid at every
+    conv (64 mels; 126 frames center=True, 122 center=False), where XLA's
+    SAME padding is (0, 1): padding (1, 1) would shift every output.
+    16128/16100 give odd frame counts ((1, 1) padding)."""
+    jm, params, tm = _pair(fused)
+    x = rng.standard_normal((2, 1, n_samples)).astype(np.float32)
+    want = np.asarray(jm.apply(jax.tree_util.tree_map(jnp.asarray, params),
+                               jnp.asarray(x)))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, 10)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+def test_features_match_jax(rng):
+    jm, params, tm = _pair(fused=False, trainable=False)
+    x = rng.standard_normal((2, 2, 8000)).astype(np.float32)
+    want = np.asarray(jm.features(jax.tree_util.tree_map(jnp.asarray,
+                                                         params),
+                                  jnp.asarray(x)))
+    with torch.no_grad():
+        got = tm.features(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, 2, 64, 1 + 8000 // 128)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-5)
+
+
+def test_same_padding_matches_xla():
+    # XLA SAME at stride 2, kernel 3: even sizes pad (0, 1), odd (1, 1)
+    assert _same_pad(64, 3, 2) == (0, 1)
+    assert _same_pad(126, 3, 2) == (0, 1)
+    assert _same_pad(127, 3, 2) == (1, 1)
+    assert _same_pad(1, 3, 2) == (1, 1)
+    for size in (1, 2, 5, 8, 31, 64):
+        x = jnp.ones((1, size, 1, 1))
+        w = jnp.ones((3, 1, 1, 1))
+        y = jax.lax.conv_general_dilated(
+            x, w, (2, 1), "SAME", dimension_numbers=("NHWC", "HWIO", "NHWC"))
+        lo, hi = _same_pad(size, 3, 2)
+        want = np.convolve(np.pad(np.ones(size), (lo, hi)), np.ones(3),
+                           "valid")[::2]
+        np.testing.assert_array_equal(np.asarray(y).ravel(), want)
+
+
+def test_converted_state_dict_layout():
+    _, params, tm = _pair(fused=False)
+    sd = from_jax_params(params)
+    assert set(sd) == set(tm.state_dict())
+    assert "frontend.2.filterbank" in sd
+    assert tuple(sd["convs.1.weight"].shape) == (64, 32, 3, 3)
+    assert tuple(sd["head.weight"].shape) == (10, 128)
+    _, params_f, tm_f = _pair(fused=True)
+    assert set(from_jax_params(params_f)) == set(tm_f.state_dict())
+    assert "frontend.0.filterbank" in tm_f.state_dict()
+
+
+def test_seeded_init_is_deterministic():
+    a = TModel(fused=True, generator=torch.Generator().manual_seed(3), **CFG)
+    b = TModel(fused=True, generator=torch.Generator().manual_seed(3), **CFG)
+    for (ka, va), (kb, vb) in zip(a.state_dict().items(),
+                                  b.state_dict().items()):
+        assert ka == kb and torch.equal(va, vb)
+    assert not a.convs[0].bias.detach().any()

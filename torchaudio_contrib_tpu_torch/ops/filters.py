@@ -1,0 +1,129 @@
+"""Mel-scale conversion, mel filterbank construction, filterbank application.
+
+Port of ``torchaudio_contrib_tpu/ops/filters.py`` (mel part).  Filterbank
+matrices are built in float64 NumPy and cast to float32 at the edge;
+``apply_filterbank`` is one einsum in full float32.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+__all__ = [
+    "hertz_to_mel",
+    "mel_to_hertz",
+    "create_mel_filter",
+    "apply_filterbank",
+]
+
+_ArrayLike = Union[float, np.ndarray, torch.Tensor]
+
+_SLANEY_F_SP = 200.0 / 3.0               # Hz per mel below 1 kHz
+_SLANEY_LOGSTEP = np.log(6.4) / 27.0     # above 1 kHz
+
+
+def hertz_to_mel(freq: _ArrayLike, mel_scale: str = "htk") -> _ArrayLike:
+    """HTK mel scale ``2595·log10(1 + f/700)``, or ``mel_scale="slaney"``
+    for the librosa/Slaney-toolbox scale (linear below 1 kHz, log above).
+    Tensors stay tensors; anything else is computed in float64 NumPy."""
+    if mel_scale not in ("htk", "slaney"):
+        raise ValueError("mel_scale must be 'htk' or 'slaney'")
+    if isinstance(freq, torch.Tensor):
+        if mel_scale == "htk":
+            return 2595.0 * torch.log10(1.0 + freq / 700.0)
+        return torch.where(
+            freq >= 1000.0,
+            15.0 + torch.log(torch.clamp(freq, min=1e-10) / 1000.0)
+            / _SLANEY_LOGSTEP,
+            freq / _SLANEY_F_SP)
+    f = np.asarray(freq, dtype=np.float64)
+    if mel_scale == "htk":
+        return 2595.0 * np.log10(1.0 + f / 700.0)
+    return np.where(f >= 1000.0,
+                    15.0 + np.log(np.maximum(f, 1e-10) / 1000.0)
+                    / _SLANEY_LOGSTEP,
+                    f / _SLANEY_F_SP)
+
+
+def mel_to_hertz(mel: _ArrayLike, mel_scale: str = "htk") -> _ArrayLike:
+    """Inverse HTK mel scale ``700·(10^(m/2595) − 1)``, or the inverse
+    Slaney scale with ``mel_scale="slaney"``."""
+    if mel_scale not in ("htk", "slaney"):
+        raise ValueError("mel_scale must be 'htk' or 'slaney'")
+    if isinstance(mel, torch.Tensor):
+        if mel_scale == "htk":
+            return 700.0 * (10.0 ** (mel / 2595.0) - 1.0)
+        return torch.where(mel >= 15.0,
+                           1000.0 * torch.exp(_SLANEY_LOGSTEP * (mel - 15.0)),
+                           _SLANEY_F_SP * mel)
+    m = np.asarray(mel, dtype=np.float64)
+    if mel_scale == "htk":
+        return 700.0 * (10.0 ** (m / 2595.0) - 1.0)
+    return np.where(m >= 15.0,
+                    1000.0 * np.exp(_SLANEY_LOGSTEP * (m - 15.0)),
+                    _SLANEY_F_SP * m)
+
+
+@functools.lru_cache(maxsize=32)
+def _mel_filter_np(num_mels: int, sample_rate: float, f_min: float,
+                   f_max: float, num_bins: int,
+                   mel_scale: str = "htk",
+                   norm: Optional[str] = None) -> np.ndarray:
+    """Float64 triangular mel filterbank ``(num_bins, num_mels)``.
+
+    Linear-frequency bin centers ``linspace(0, sr/2, num_bins)``; triangle
+    corners linearly spaced on the chosen mel scale between
+    ``f_min``/``f_max``.  HTK scale with no area normalization by default;
+    ``mel_scale="slaney"`` / ``norm="slaney"`` give librosa's default.
+    """
+    all_freqs = np.linspace(0.0, sample_rate / 2.0, num_bins)
+    m_min = float(hertz_to_mel(f_min, mel_scale))
+    m_max = float(hertz_to_mel(f_max, mel_scale))
+    m_pts = np.linspace(m_min, m_max, num_mels + 2)
+    f_pts = np.asarray(mel_to_hertz(m_pts, mel_scale), dtype=np.float64)
+
+    f_diff = f_pts[1:] - f_pts[:-1]                        # (num_mels+1,)
+    slopes = f_pts[None, :] - all_freqs[:, None]           # (num_bins, num_mels+2)
+    down = -slopes[:, :-2] / f_diff[None, :-1]             # rising edge
+    up = slopes[:, 2:] / f_diff[None, 1:]                  # falling edge
+    fb = np.maximum(0.0, np.minimum(down, up))
+    if norm == "slaney":
+        fb = fb * (2.0 / (f_pts[2:] - f_pts[:-2]))[None, :]
+    elif norm is not None:
+        raise ValueError("norm must be None or 'slaney'")
+    return fb
+
+
+def create_mel_filter(num_mels: int = 128,
+                      sample_rate: float = 22050,
+                      f_min: float = 0.0,
+                      f_max: Optional[float] = None,
+                      num_bins: int = 1025,
+                      mel_scale: str = "htk",
+                      norm: Optional[str] = None,
+                      dtype: torch.dtype = torch.float32,
+                      device=None) -> torch.Tensor:
+    """Mel filterbank matrix ``(num_bins, num_mels)``.
+
+    ``num_bins`` is the number of one-sided FFT bins (``fft_length//2+1``).
+    ``f_max`` defaults to the Nyquist frequency.
+    """
+    if f_max is None:
+        f_max = sample_rate / 2.0
+    fb = _mel_filter_np(int(num_mels), float(sample_rate), float(f_min),
+                        float(f_max), int(num_bins), str(mel_scale), norm)
+    return torch.as_tensor(fb, dtype=dtype, device=device)
+
+
+def apply_filterbank(mag_specgrams: torch.Tensor,
+                     filterbank: torch.Tensor) -> torch.Tensor:
+    """Project ``(..., freq, time)`` magnitudes through ``(freq, num_mels)``.
+
+    Returns ``(..., num_mels, time)``: one einsum over the frequency axis.
+    In float32 it is a full-precision product as long as
+    ``torch.backends.cuda.matmul.allow_tf32`` stays False (its default).
+    """
+    return torch.einsum("...ft,fm->...mt", mag_specgrams, filterbank)

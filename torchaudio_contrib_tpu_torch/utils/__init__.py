@@ -1,0 +1,4 @@
+"""Utilities of the PyTorch port."""
+from .convert import from_jax_params
+
+__all__ = ["from_jax_params"]
