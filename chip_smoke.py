@@ -1,4 +1,4 @@
-"""GPU smoke run of the PyTorch port's serving path.
+"""GPU smoke run of the PyTorch port's serving and training paths.
 
     python3 chip_smoke.py
 
@@ -8,19 +8,36 @@ imports no JAX.  Phases, each printing its lines:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: the kernels' ``nvcc`` build and its ptxas summary;
-3. kernel vs plain PyTorch at small shapes (config 2, Whisper, stereo with
-   a ragged frame count, ``to_db=False``, ``center=True``, a shorter
-   window, the classifier's shape): relative error to peak <= 1e-5;
-4. the main path, once, between a reset and a read of the kernel's launch
-   counter: BASELINE config 2 at full width (32 x 30 s at 22.05 kHz, fft
-   2048, hop 512, 128 mels) through
-   ``FusedMelspectrogram(precision="split3")``, then
-   ``MelFrontendClassifier(fused=True)`` answering 4 requests of
-   (8, 1, 16000) under ``torch.inference_mode()``;
-5. config 2 checked (shape, finiteness, parity) and timed against the
+3. forward kernel vs plain PyTorch at small shapes (config 2, Whisper,
+   stereo with a ragged frame count, ``to_db=False``, ``center=True``, a
+   shorter window, the classifier's shape): relative error to peak <= 1e-5;
+4. gradients through the kernels (forward with its residual, backward)
+   vs autograd of the plain chain at the same shapes, for the waveform and
+   the filterbank: relative error to peak <= 1e-4, and two backward runs
+   bitwise equal; then the filterbank-only case (the backward's frame
+   passes not launched) and silence (gradients exactly 0);
+5. the serving path, once, between a reset and a read of the launch
+   counters: BASELINE config 2 at full width (32 x 30 s at 22.05 kHz, fft
+   2048, hop 512, 128 mels) through ``FusedMelspectrogram(precision=
+   "split3")``, then ``MelFrontendClassifier(fused=True)`` answering 4
+   requests of (8, 1, 16000) under ``torch.inference_mode()``;
+6. config 2 checked (shape, finiteness, parity) and timed against the
    plain version (CUDA events);
-6. the 4 requests' logits checked against the same module run on a CPU
-   copy (the plain path).
+7. the 4 requests' logits checked against the same module run on a CPU
+   copy (the plain path);
+8. the training path, each part between a reset and a read of the
+   counters: config 2 forward + backward at full width through
+   ``FusedMelspectrogram(trainable=True)`` with the waveform requiring
+   grad, then BASELINE config 3 at full width: 4 ``train_step``s of
+   ``MelFrontendClassifier(fused=True, trainable_frontend=True)`` on 32 x
+   10 s at 16 kHz, each from the parameters the CPU copy had before its
+   own step;
+9. config 2's gradients checked against autograd of the plain chain; each
+   kernel checked against its plain version at config 2; fwd+bwd, the
+   forward with and without its residual and the backward timed against
+   their plain versions;
+10. config 3's losses and parameters checked against the CPU copy's
+    (the plain path), and ms per step timed on both.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -30,6 +47,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import statistics
 import subprocess
 import time
@@ -37,9 +55,44 @@ import time
 import torch
 
 F32_PARITY = 1e-5      # kernel vs plain, max|diff| / max|plain|
+GRAD_PARITY = 1e-4     # the same for gradients (BASELINE's bar)
 LOGIT_ATOL = 1e-4      # classifier logits, kernel path vs plain path
+LOSS_RTOL = 1e-5       # config 3, one step's loss, card vs CPU copy
+# Config 3, parameters after one step from the same parameters, against
+# the same step in float64 on the CPU: max|card - f64| / max|f64 update|.
+# The update is lr * gradient, so this is the gradient's error relative to
+# its peak, as GRAD_PARITY.  The filterbank's gradient is ill-conditioned
+# once the first step has made some of its entries negative: mel bins then
+# cancel towards 0, and d(dB)/d(mel) = 4.34 / mel amplifies the forward's
+# f32 rounding (on this script's data the CPU's f32 chain lands 3-6 % of
+# an update away from the float64 step there, the card up to 41 %; which
+# mel entries land near 0 decides it).  So it is held to STEP_PARITY_FB at
+# the first step and, after that, in l2 to FB_DRIFT_L2 of the update: a
+# filterbank gradient that is missing or has the wrong sign lands 1 or 2
+# away.
+STEP_PARITY = 1e-4
+STEP_PARITY_FB = 1e-3
+FB_DRIFT_L2 = 0.5
 # BASELINE.json config 2, the headline workload, at full width
 CFG2 = dict(batch=32, seconds=30, sr=22050, fft=2048, hop=512, mels=128)
+# BASELINE.json config 3 (trainable front end into the CNN), full width
+CFG3 = dict(batch=32, samples=160000, sr=16000, fft=512, hop=128, mels=64,
+            classes=10, steps=4, lr=1e-3)
+# name, shape, fft, hop, mels, sr, win_length, to_db, center
+PARITY_CASES = [
+    ("config 2, 2 x 4 s", (2, 4 * 22050), 2048, 512, 128, 22050,
+     None, True, False),
+    ("Whisper fft 400 hop 160", (2, 3 * 16000), 400, 160, 80, 16000,
+     None, True, False),
+    ("stereo (2, 2, T), ragged frames", (2, 2, 7000), 256, 64, 40,
+     16000, None, True, False),
+    ("to_db=False", (2, 20000), 512, 128, 64, 16000, None, False, False),
+    ("center=True", (3, 9000), 512, 200, 64, 16000, None, True, True),
+    ("win_length 300 < fft 512", (2, 9000), 512, 128, 64, 16000, 300,
+     True, False),
+    ("classifier shape (8, 1, 16000)", (8, 1, 16000), 512, 128, 64,
+     16000, None, True, False),
+]
 
 
 def _check(ok: bool, msg: str) -> None:
@@ -49,6 +102,27 @@ def _check(ok: bool, msg: str) -> None:
 
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def _counts() -> tuple:
+    from torchaudio_contrib_tpu_torch.ops import fused
+    return (fused.KERNEL_LAUNCHES, fused.BWD_KERNEL_LAUNCHES,
+            fused.BWD_DFRAMES_LAUNCHES)
+
+
+def _reset_counts() -> None:
+    from torchaudio_contrib_tpu_torch.ops import fused
+    fused.KERNEL_LAUNCHES = 0
+    fused.BWD_KERNEL_LAUNCHES = 0
+    fused.BWD_DFRAMES_LAUNCHES = 0
+
+
+def _grads(fn, x, fb, g, need=(True, True)):
+    """``(dx, dfb)`` of ``sum(fn(x, fb) * g)``; None where not needed."""
+    x = x.detach().clone().requires_grad_(need[0])
+    fb = fb.detach().clone().requires_grad_(need[1])
+    (fn(x, fb) * g).sum().backward()
+    return x.grad, fb.grad
 
 
 def _time_ms(fn, warmup: int = 3, iters: int = 15) -> float:
@@ -101,23 +175,8 @@ def phase_build() -> None:
 def phase_parity(gen: torch.Generator) -> None:
     from torchaudio_contrib_tpu_torch.ops import create_mel_filter, fused
     from torchaudio_contrib_tpu_torch.ops.stft import _pad_center
-    cases = [
-        # name, shape, fft, hop, mels, sr, win_length, to_db, center
-        ("config 2, 2 x 4 s", (2, 4 * 22050), 2048, 512, 128, 22050,
-         None, True, False),
-        ("Whisper fft 400 hop 160", (2, 3 * 16000), 400, 160, 80, 16000,
-         None, True, False),
-        ("stereo (2, 2, T), ragged frames", (2, 2, 7000), 256, 64, 40,
-         16000, None, True, False),
-        ("to_db=False", (2, 20000), 512, 128, 64, 16000, None, False,
-         False),
-        ("center=True", (3, 9000), 512, 200, 64, 16000, None, True, True),
-        ("win_length 300 < fft 512", (2, 9000), 512, 128, 64, 16000, 300,
-         True, False),
-        ("classifier shape (8, 1, 16000)", (8, 1, 16000), 512, 128, 64,
-         16000, None, True, False),
-    ]
-    for name, shape, n_fft, hop, mels, sr, wl, to_db, center in cases:
+    for name, shape, n_fft, hop, mels, sr, wl, to_db, center in \
+            PARITY_CASES:
         x = torch.randn(shape, generator=gen).cuda()
         fb = create_mel_filter(mels, sr, 0.0, None, n_fft // 2 + 1,
                                device="cuda")
@@ -144,7 +203,6 @@ def phase_main_path(gen: torch.Generator):
     launch counter: config 2 at full width, then the 4 classifier
     requests.  Checking and timing come after, outside the count."""
     import torchaudio_contrib_tpu_torch as tac
-    from torchaudio_contrib_tpu_torch.ops import fused
     layer = tac.FusedMelspectrogram(num_mels=CFG2["mels"],
                                     sample_rate=CFG2["sr"],
                                     fft_length=CFG2["fft"],
@@ -160,13 +218,13 @@ def phase_main_path(gen: torch.Generator):
     requests = [torch.randn((8, 1, 16000), generator=gen)
                 for _ in range(4)]
     with torch.inference_mode():
-        fused.KERNEL_LAUNCHES = 0
+        _reset_counts()
         y = layer(x)
         torch.cuda.synchronize()
-        cfg2_launches = fused.KERNEL_LAUNCHES
+        cfg2_launches = _counts()[0]
         logits = [model(r.cuda()) for r in requests]
         torch.cuda.synchronize()
-        launches = fused.KERNEL_LAUNCHES
+        launches = _counts()[0]
     print(f"main path: kernel launches {launches} (config 2: "
           f"{cfg2_launches}, serving: {launches - cfg2_launches})",
           flush=True)
@@ -219,23 +277,341 @@ def phase_serving(model_cpu, requests, logits) -> None:
     _check(worst <= LOGIT_ATOL, f"logits differ by {worst} > {LOGIT_ATOL}")
 
 
+def phase_grad_parity(gen: torch.Generator) -> None:
+    """Gradients through the kernels vs autograd of the plain chain at the
+    shapes of ``phase_parity``, then the filterbank-only and silent
+    cases."""
+    from torchaudio_contrib_tpu_torch.ops import create_mel_filter, fused
+    from torchaudio_contrib_tpu_torch.ops.stft import _pad_center
+    for name, shape, n_fft, hop, mels, sr, wl, to_db, center in \
+            PARITY_CASES:
+        x = torch.randn(shape, generator=gen).cuda()
+        fb = create_mel_filter(mels, sr, 0.0, None, n_fft // 2 + 1,
+                               device="cuda")
+
+        def kern(xv, fbv):
+            return fused.fused_melspectrogram(xv, fbv, n_fft, hop,
+                                              to_db=to_db, win_length=wl,
+                                              center=center)
+
+        def plain(xv, fbv):
+            xs = _pad_center(xv, n_fft // 2, "reflect") if center else xv
+            return fused._reference(xs, fbv, n_fft, hop, "hann", 2.0, to_db,
+                                    1.0, 1e-7, wl)
+
+        with torch.no_grad():
+            g = torch.randn(tuple(plain(x, fb).shape), generator=gen).cuda()
+        want = _grads(plain, x, fb, g)
+        before = _counts()
+        got, again = _grads(kern, x, fb, g), _grads(kern, x, fb, g)
+        torch.cuda.synchronize()
+        launched = [a - b for a, b in zip(_counts(), before)]
+        errs = [_rel(a, b) for a, b in zip(got, want)]
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"grad parity {name}: max|kernel-plain|/max|plain| dx "
+              f"{errs[0]:.3e}, dfb {errs[1]:.3e}; two runs bitwise equal "
+              f"{bitwise}; launches fwd/bwd/frame passes {launched}",
+              flush=True)
+        _check(launched == [2, 2, 2], f"{name}: launches {launched}")
+        _check(all(bool(torch.isfinite(t).all()) for t in got),
+               f"{name}: non-finite gradient")
+        _check(max(errs) <= GRAD_PARITY,
+               f"{name}: gradient error {errs} > {GRAD_PARITY}")
+        _check(bitwise, f"{name}: two backward runs differ")
+
+    # config 2 at 2 x 4 s: the filterbank alone, then silence
+    _, shape, n_fft, hop, mels, sr = PARITY_CASES[0][:6]
+    x = torch.randn(shape, generator=gen).cuda()
+    fb = create_mel_filter(mels, sr, 0.0, None, n_fft // 2 + 1, device="cuda")
+
+    def kern(xv, fbv):
+        return fused.fused_melspectrogram(xv, fbv, n_fft, hop)
+
+    def plain(xv, fbv):
+        return fused._reference(xv, fbv, n_fft, hop, "hann", 2.0, True, 1.0,
+                                1e-7)
+
+    with torch.no_grad():
+        g = torch.randn(tuple(plain(x, fb).shape), generator=gen).cuda()
+    _, want = _grads(plain, x, fb, g, need=(False, True))
+    before = _counts()
+    dx, got = _grads(kern, x, fb, g, need=(False, True))
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(_counts(), before)]
+    err = _rel(got, want)
+    print(f"grad parity filterbank only: dfb {err:.3e}; launches "
+          f"fwd/bwd/frame passes {launched}", flush=True)
+    _check(dx is None and launched == [1, 1, 0],
+           f"filterbank only: launches {launched} (frame passes must not run)")
+    _check(err <= GRAD_PARITY, f"filterbank only: {err} > {GRAD_PARITY}")
+    dx, dfb = _grads(kern, torch.zeros_like(x), fb, g)
+    zero = not bool(dx.any()) and not bool(dfb.any())
+    print(f"grad parity silence: gradients exactly 0: {zero}", flush=True)
+    _check(zero, "silent input gave non-zero gradients")
+
+
+def phase_train_path(gen: torch.Generator):
+    """Drive the training path: config 2 forward + backward once, then
+    config 3's train steps, each between a reset and a read of the
+    counters.
+
+    The CPU copy takes its steps first, outside the count, and each card
+    step starts from the parameters the CPU copy had before its own step.
+    Run free, the two drift apart for a reason that is not the kernels: at
+    lr 1e-3 the loss of this model swings by 2x from one step to the next,
+    and that amplifies rounding.  Compared one step at a time, each step's
+    difference is that step's error alone."""
+    import torchaudio_contrib_tpu_torch as tac
+    layer = tac.FusedMelspectrogram(num_mels=CFG2["mels"],
+                                    sample_rate=CFG2["sr"],
+                                    fft_length=CFG2["fft"],
+                                    hop_length=CFG2["hop"],
+                                    precision="split3",
+                                    trainable=True).cuda()
+    n_samples = CFG2["seconds"] * CFG2["sr"]
+    frames = 1 + (n_samples - CFG2["fft"]) // CFG2["hop"]
+    x = torch.randn((CFG2["batch"], 1, n_samples),
+                    generator=gen).cuda().requires_grad_()
+    g = torch.randn((CFG2["batch"], 1, CFG2["mels"], frames),
+                    generator=gen).cuda()
+
+    model_cpu = tac.MelFrontendClassifier(
+        num_classes=CFG3["classes"], num_mels=CFG3["mels"],
+        sample_rate=CFG3["sr"], fft_length=CFG3["fft"],
+        hop_length=CFG3["hop"], fused=True, trainable_frontend=True,
+        precision="split3", generator=torch.Generator().manual_seed(1))
+    model = copy.deepcopy(model_cpu).cuda()
+    xb = torch.randn((CFG3["batch"], 1, CFG3["samples"]), generator=gen)
+    labels = torch.randint(0, CFG3["classes"], (CFG3["batch"],),
+                           generator=gen)
+    snaps, cpu_losses = [], []
+    t0 = time.perf_counter()
+    for _ in range(CFG3["steps"]):
+        snaps.append({k: v.clone() for k, v in model_cpu.state_dict().items()})
+        cpu_losses.append(model_cpu.train_step(xb, labels, CFG3["lr"]).item())
+    cpu_ms = (time.perf_counter() - t0) * 1e3 / CFG3["steps"]
+    snaps.append(model_cpu.state_dict())
+    xb_c, labels_c = xb.cuda(), labels.cuda()
+
+    _reset_counts()
+    y = layer(x)
+    dx, dfb = torch.autograd.grad(y, (x, layer.filterbank), g)
+    torch.cuda.synchronize()
+    cfg2_counts = _counts()
+    _reset_counts()
+    losses, after = [], []
+    for k in range(CFG3["steps"]):
+        model.load_state_dict(snaps[k])
+        losses.append(model.train_step(xb_c, labels_c, CFG3["lr"]))
+        after.append({n: v.to("cpu", copy=True)
+                      for n, v in model.state_dict().items()})
+    torch.cuda.synchronize()
+    cfg3_counts = _counts()
+    print(f"training path: launches fwd/bwd/frame passes: config 2 fwd+bwd "
+          f"{list(cfg2_counts)}, config 3 {CFG3['steps']} steps "
+          f"{list(cfg3_counts)}", flush=True)
+    _check(min(cfg2_counts) >= 1,
+           f"config 2 fwd+bwd launches {cfg2_counts}: a kernel did not run")
+    _check(cfg3_counts[0] >= CFG3["steps"] and cfg3_counts[1] >= CFG3["steps"],
+           f"config 3 launches {cfg3_counts} < {CFG3['steps']} steps")
+    _check(cfg3_counts[2] == 0, "config 3's waveform needs no gradient, but "
+           "the backward ran its frame passes")
+    counts = [a + b for a, b in zip(cfg2_counts, cfg3_counts)]
+    return (counts, (layer, x, g, y, dx, dfb),
+            (model, xb_c, labels_c, snaps, cpu_losses, cpu_ms, losses, after))
+
+
+def phase_config2_train(layer, x, g, y, dx, dfb, card: str) -> tuple:
+    """Config 2's gradients vs autograd of the plain chain; each kernel vs
+    its plain version at config 2; timings.  Returns the forward with its
+    residual's and the backward's stats."""
+    from torchaudio_contrib_tpu_torch.ops import fused
+    n_fft, hop, batch = CFG2["fft"], CFG2["hop"], CFG2["batch"]
+    fb = layer.filterbank
+    frames = y.shape[-1]
+    args = (n_fft, hop, "hann", None, True, 1.0, 1e-7)
+    _check(y.shape == (batch, 1, CFG2["mels"], frames)
+           and dx.shape == x.shape and dfb.shape == fb.shape,
+           f"shapes {tuple(y.shape)} {tuple(dx.shape)} {tuple(dfb.shape)}")
+    _check(all(bool(torch.isfinite(t).all()) for t in (y, dx, dfb)),
+           "config 2 fwd+bwd: non-finite")
+    want = torch.autograd.grad(fused._reference(x, fb, *args[:3], 2.0,
+                                                *args[4:]), (x, fb), g)
+    errs = [_rel(dx, want[0]), _rel(dfb, want[1])]
+    print(f"config 2 fwd+bwd ({batch} x {CFG2['seconds']} s): "
+          f"max|kernel-plain|/max|plain| dx {errs[0]:.3e}, dfb "
+          f"{errs[1]:.3e}", flush=True)
+    _check(max(errs) <= GRAD_PARITY, f"config 2 gradients {errs}")
+
+    with torch.no_grad():
+        x2, fbd = x.detach().reshape(batch, -1), fb.detach()
+        out, reim = fused._fused_mel_fwd_cuda(x2, fbd, *args, save_spec=True)
+        out_serve, _ = fused._fused_mel_fwd_cuda(x2, fbd, *args)
+        out_p, reim_p = fused._fwd_res_plain(x2, fbd, *args, save_spec=True)
+        dmel = fused._dmel_from(g.reshape(out.shape), out, *args[4:])
+        reim2 = reim.reshape(dmel.shape[0], -1)
+        bargs = (fbd, n_fft, "hann", None)
+        dframes, dfb_k = fused._fused_mel_bwd_cuda(dmel, reim2, *bargs,
+                                                   True, True)
+        dframes_p, dfb_p = fused._bwd_plain(dmel, reim2, *bargs, True, True)
+        torch.cuda.synchronize()
+        fwd_err = [_rel(out, out_p), _rel(reim, reim_p)]
+        same = torch.equal(out, out_serve)
+        bwd_err = [_rel(dframes, dframes_p), _rel(dfb_k, dfb_p)]
+        fwd_abs = (out - out_p).abs().max().item()
+        bwd_abs = max((dframes - dframes_p).abs().max().item(),
+                      (dfb_k - dfb_p).abs().max().item())
+    print(f"kernels at config 2 vs their plain versions: forward out "
+          f"{fwd_err[0]:.3e}, residual {fwd_err[1]:.3e}, output with the "
+          f"residual bitwise equal to without: {same}; backward dframes "
+          f"{bwd_err[0]:.3e}, dfb {bwd_err[1]:.3e} (max abs {bwd_abs:.3e})",
+          flush=True)
+    _check(max(fwd_err) <= F32_PARITY and same,
+           f"forward with residual: {fwd_err}, same output {same}")
+    _check(max(bwd_err) <= GRAD_PARITY, f"backward kernel: {bwd_err}")
+
+    xg = x.detach().requires_grad_()
+
+    def kern_fb():
+        return torch.autograd.grad(layer(xg), (xg, fb), g)
+
+    def plain_fb():
+        ref = fused._reference(xg, fb, *args[:3], 2.0, *args[4:])
+        return torch.autograd.grad(ref, (xg, fb), g)
+
+    def fwd():
+        return fused._fused_mel_fwd_cuda(x2, fbd, *args)
+
+    def fwd_res():
+        return fused._fused_mel_fwd_cuda(x2, fbd, *args, save_spec=True)
+
+    def bwd(need_dx=True):
+        return fused._fused_mel_bwd_cuda(dmel, reim2, *bargs, need_dx, True)
+
+    def bwd_plain():
+        return fused._bwd_plain(dmel, reim2, *bargs, True, True)
+
+    def turns(plain, kern):
+        """(kernel ms, plain ms): in turns plain, kernel, kernel, plain;
+        the better median of each."""
+        a, b, c, d = (_time_ms(plain, 2, 10), _time_ms(kern, 2, 10),
+                      _time_ms(kern, 2, 10), _time_ms(plain, 2, 10))
+        return min(b, c), min(a, d)
+
+    ms_fb, plain_fb_ms = turns(plain_fb, kern_fb)
+    with torch.no_grad():
+        ms_res, ms_fwd = turns(fwd, fwd_res)
+        ms_bwd, plain_bwd = turns(bwd_plain, bwd)
+        ms_bwd_fb = _time_ms(lambda: bwd(False), 2, 10)
+        plain_fwd_res = _time_ms(lambda: fused._fwd_res_plain(
+            x2, fbd, *args, save_spec=True), 2, 10)
+    n = batch * frames
+    print(f"timing [{card}]: config 2 fwd+bwd kernels {ms_fb:.3f} ms "
+          f"({n / ms_fb * 1e3:,.0f} frames/s), plain chain autograd "
+          f"{plain_fb_ms:.3f} ms ({n / plain_fb_ms * 1e3:,.0f} frames/s)",
+          flush=True)
+    print(f"timing [{card}]: forward kernel {ms_fwd:.3f} ms, with residual "
+          f"{ms_res:.3f} ms (plain version {plain_fwd_res:.3f} ms); backward "
+          f"kernel {ms_bwd:.3f} ms, dFB only {ms_bwd_fb:.3f} ms, plain "
+          f"version {plain_bwd:.3f} ms", flush=True)
+    return ({"max_abs_err": fwd_abs, "ms": ms_res, "plain_ms": plain_fwd_res},
+            {"max_abs_err": bwd_abs, "ms": ms_bwd, "plain_ms": plain_bwd})
+
+
+def phase_config3(model, xb_c, labels_c, snaps, cpu_losses, cpu_ms, losses,
+                  after, card: str) -> None:
+    """Config 3's card steps vs the CPU copy's losses and vs the same steps
+    in float64 on the CPU (from the same parameters), then ms per step."""
+    import torchaudio_contrib_tpu_torch as tac
+    losses = [v.item() for v in losses]
+    _check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    print(f"config 3 ({CFG3['batch']} x 1 x {CFG3['samples']}, fft "
+          f"{CFG3['fft']}, hop {CFG3['hop']}, {CFG3['mels']} mels): losses "
+          f"card {[f'{v:.6f}' for v in losses]}, CPU "
+          f"{[f'{v:.6f}' for v in cpu_losses]}, max rel diff {loss_err:.3e}",
+          flush=True)
+    _check(loss_err <= LOSS_RTOL, f"config 3 losses differ by {loss_err}")
+
+    exact = tac.MelFrontendClassifier(
+        num_classes=CFG3["classes"], num_mels=CFG3["mels"],
+        sample_rate=CFG3["sr"], fft_length=CFG3["fft"],
+        hop_length=CFG3["hop"], fused=True, trainable_frontend=True,
+        precision="split3").double()
+    xb64, labels = xb_c.cpu().double(), labels_c.cpu()
+    fb_name = next(n for n in snaps[0] if n.endswith("filterbank"))
+    cnn_worst = 0.0
+    for k, got in enumerate(after):
+        exact.load_state_dict(snaps[k])
+        exact.train_step(xb64, labels, CFG3["lr"])
+        want = exact.state_dict()
+        line = []
+        for name, value in got.items():
+            update = want[name] - snaps[k][name].double()
+            err = value.double() - want[name]
+            cpu = snaps[k + 1][name].double() - want[name]
+            if name != fb_name:
+                ratio = err.abs().max().item() / update.abs().max().item()
+                cnn_worst = max(cnn_worst, ratio)
+                continue
+            if k == 0:
+                fb = err.abs().max().item() / update.abs().max().item()
+                fb_cpu = cpu.abs().max().item() / update.abs().max().item()
+                line.append(f"filterbank max {fb:.3e} (CPU f32 {fb_cpu:.3e})")
+                _check(fb <= STEP_PARITY_FB, f"step 0 filterbank {fb}")
+            else:
+                fb = (err.norm() / update.norm()).item()
+                fb_cpu = (cpu.norm() / update.norm()).item()
+                negative = int((snaps[k][name] < 0).sum())
+                line.append(f"filterbank l2 {fb:.3e} (CPU f32 {fb_cpu:.3e}; "
+                            f"{negative} entries < 0)")
+                _check(fb <= FB_DRIFT_L2, f"step {k} filterbank l2 {fb}")
+        print(f"config 3 step {k} vs float64: " + ", ".join(line), flush=True)
+        _check(all(bool(torch.isfinite(v).all()) for v in got.values()),
+               f"step {k}: non-finite parameters")
+    print(f"config 3 every other parameter, every step: max|card-f64|/max|"
+          f"update| {cnn_worst:.3e}", flush=True)
+    _check(cnn_worst <= STEP_PARITY,
+           f"config 3 CNN parameters differ: {cnn_worst}")
+
+    # lr 0 runs every kernel of a step and leaves the parameters as they are
+    ms = _time_ms(lambda: model.train_step(xb_c, labels_c, 0.0), 2, 8)
+    plain = tac.MelFrontendClassifier(
+        num_classes=CFG3["classes"], num_mels=CFG3["mels"],
+        sample_rate=CFG3["sr"], fft_length=CFG3["fft"],
+        hop_length=CFG3["hop"], fused=False, trainable_frontend=True,
+        generator=torch.Generator().manual_seed(1)).cuda()
+    plain_ms = _time_ms(lambda: plain.train_step(xb_c, labels_c, 0.0), 2, 8)
+    print(f"timing [{card}]: config 3 train step, fused kernels "
+          f"{ms:.3f} ms; plain STFT pipeline (fused=False) on the card "
+          f"{plain_ms:.3f} ms; plain path on the CPU {cpu_ms:.1f} ms "
+          f"(host clock)", flush=True)
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
     gen = torch.Generator().manual_seed(0)
     phase_parity(gen)
+    phase_grad_parity(gen)
     launches, cfg2_run, serving_run = phase_main_path(gen)
     stats = phase_config2(*cfg2_run, card)
     phase_serving(*serving_run)
-    kernel = {
-        "name": "fused_mel_fwd",
-        "route": "cuda",
-        "source": "torchaudio_contrib_tpu_torch/csrc/fused_mel_fwd.cu",
-        "replaces": "torchaudio_contrib_tpu/ops/fused.py:440",
-        "launches": launches,
-        **stats,
-    }
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    train_counts, cfg2_train, cfg3_train = phase_train_path(gen)
+    _, bwd_stats = phase_config2_train(*cfg2_train, card)
+    phase_config3(*cfg3_train, card)
+    source = "torchaudio_contrib_tpu_torch/csrc/"
+    kernels = [
+        {"name": "fused_mel_fwd", "route": "cuda",
+         "source": source + "fused_mel_fwd.cu",
+         "replaces": "torchaudio_contrib_tpu/ops/fused.py:440",
+         "launches": launches + train_counts[0], **stats},
+        {"name": "fused_mel_bwd", "route": "cuda",
+         "source": source + "fused_mel_bwd.cu",
+         "replaces": "torchaudio_contrib_tpu/ops/fused.py:604",
+         "launches": train_counts[1], **bwd_stats},
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,6 +6,8 @@ file imports no JAX (the GPU machine has none), so it runs there without
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +17,7 @@ from torchaudio_contrib_tpu_torch.ops import fused as tfused
 import torchaudio_contrib_tpu_torch as tat
 
 PARITY = 1e-5    # max |kernel - plain| / max |plain|: both are f32 chains
+GRAD_PARITY = 1e-4   # the same for gradients (the BASELINE bar)
 
 
 @pytest.fixture()
@@ -32,8 +35,9 @@ def _inputs(seed, shape, mels, sr, fft):
     return torch.from_numpy(x.astype(np.float32)), fb
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,fft,hop,mels,sr,kw", [
+# config 2, Whisper, stereo with ragged frames, to_db=False, center=True,
+# a shorter window, the smallest fft, the most mels
+CASES = [
     ((2, 88200), 2048, 512, 128, 22050, {}),
     ((2, 48000), 400, 160, 80, 16000, {}),
     ((2, 2, 7000), 256, 64, 40, 16000, {}),
@@ -44,7 +48,11 @@ def _inputs(seed, shape, mels, sr, fft):
     # the largest mel accumulator the kernel's shared memory holds (704
     # padded mels), at ~2.9 linear bins per band like Whisper's 2.5
     ((1, 40000), 4096, 1024, 700, 16000, {"db_ref": 0.5}),
-])
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,fft,hop,mels,sr,kw", CASES)
 def test_kernel_matches_plain(cuda_device, shape, fft, hop, mels, sr, kw):
     x, fb = _inputs(len(shape) * fft + hop, shape, mels, sr, fft)
     want = tops.fused_melspectrogram(x, fb, fft, hop, **kw)
@@ -60,15 +68,86 @@ def test_kernel_matches_plain(cuda_device, shape, fft, hop, mels, sr, kw):
     assert err <= PARITY, err
 
 
+def _grads(x, fb, fft, hop, g, need=(True, True), **kw):
+    """(out, dx, dfb) of ``sum(fused_melspectrogram(x, fb) * g)``."""
+    x = x.detach().clone().requires_grad_(need[0])
+    fb = fb.detach().clone().requires_grad_(need[1])
+    out = tops.fused_melspectrogram(x, fb, fft, hop, **kw)
+    (out * g).sum().backward()
+    return out.detach(), x.grad, fb.grad
+
+
+def _launches():
+    return (tfused.KERNEL_LAUNCHES, tfused.BWD_KERNEL_LAUNCHES,
+            tfused.BWD_DFRAMES_LAUNCHES)
+
+
 @pytest.mark.cuda
-def test_kernel_refuses_gradients(cuda_device):
-    x = torch.zeros((1, 4096), device=cuda_device)
+@pytest.mark.parametrize("shape,fft,hop,mels,sr,kw", CASES)
+def test_backward_kernel_matches_plain(cuda_device, shape, fft, hop, mels,
+                                       sr, kw):
+    """Kernel gradients against autograd of the plain chain (on the CPU),
+    and two backward runs bitwise equal."""
+    x, fb = _inputs(len(shape) * fft + hop + 1, shape, mels, sr, fft)
+    with torch.no_grad():
+        out = tops.fused_melspectrogram(x, fb, fft, hop, **kw)
+    g = torch.from_numpy(np.random.default_rng(hop).standard_normal(
+        tuple(out.shape)).astype(np.float32))
+    _, want_dx, want_dfb = _grads(x, fb, fft, hop, g, **kw)
+    xd, fbd, gd = x.to(cuda_device), fb.to(cuda_device), g.to(cuda_device)
+    before = _launches()
+    runs = [_grads(xd, fbd, fft, hop, gd, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert _launches() == tuple(b + 2 for b in before)
+    (_, dx, dfb), (_, dx2, dfb2) = runs
+    assert torch.equal(dx, dx2) and torch.equal(dfb, dfb2)
+    for got, want in ((dx.cpu(), want_dx), (dfb.cpu(), want_dfb)):
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        # relative to the peak; exact where the plain gradient is all zero
+        # (fft 2 with one mel: the filter is empty, every mel is clamped)
+        err = (got - want).abs().max().item()
+        assert err <= GRAD_PARITY * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_filterbank_only_skips_frame_passes(cuda_device):
+    x, fb = _inputs(5, (2, 1, 16000), 64, 16000, 512)
+    g = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, 1, 64, 122)).astype(np.float32))
+    _, _, want = _grads(x, fb, 512, 128, g, need=(False, True))
+    before = _launches()
+    _, dx, got = _grads(x.to(cuda_device), fb.to(cuda_device), 512, 128,
+                        g.to(cuda_device), need=(False, True))
+    assert _launches() == (before[0] + 1, before[1] + 1, before[2])
+    assert dx is None
+    err = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+    assert err <= GRAD_PARITY, err
+
+
+@pytest.mark.cuda
+def test_silence_gives_exactly_zero_gradients(cuda_device):
+    x = torch.zeros((2, 8192), device=cuda_device)
+    fb = tops.create_mel_filter(32, 16000, 0.0, None, 257, device=cuda_device)
+    g = torch.randn((2, 32, 61), device=cuda_device)
+    _, dx, dfb = _grads(x, fb, 512, 128, g)
+    assert not dx.any() and not dfb.any()
+
+
+@pytest.mark.cuda
+def test_kernel_gradients_flow(cuda_device):
+    """Gradients through the op on the card launch the forward kernel with
+    its residual and the backward kernel; without a gradient the forward
+    runs alone."""
+    x = torch.randn((1, 4096), device=cuda_device)
     fb = tops.create_mel_filter(16, 16000, 0.0, None, 129,
                                 device=cuda_device).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="A2"):
-        tops.fused_melspectrogram(x, fb, 256, 128)
+    before = _launches()
+    tops.fused_melspectrogram(x, fb, 256, 128).sum().backward()
+    assert _launches() == (before[0] + 1, before[1] + 1, before[2])
+    assert fb.grad is not None and bool(torch.isfinite(fb.grad).all())
     with torch.no_grad():
         assert tops.fused_melspectrogram(x, fb, 256, 128).shape == (1, 16, 31)
+    assert _launches()[1] == before[1] + 1
 
 
 @pytest.mark.cuda
@@ -88,12 +167,31 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("fused", [True, False])
 def test_classifier_on_card_matches_cpu(cuda_device, fused):
+    """Logits, then one ``train_step`` (filterbank trainable): the loss
+    within 1e-5 relative and every parameter within ``GRAD_PARITY`` of
+    the largest change the CPU step made to it."""
     model = tat.MelFrontendClassifier(
         fused=fused, generator=torch.Generator().manual_seed(1)).eval()
+    card = copy.deepcopy(model).to(cuda_device)
     x, _ = _inputs(7, (4, 1, 16000), 64, 16000, 512)
+    labels = torch.tensor([1, 3, 5, 7])
     with torch.inference_mode():
         want = model(x)
         before = tfused.KERNEL_LAUNCHES
-        got = model.to(cuda_device)(x.to(cuda_device)).cpu()
+        got = card(x.to(cuda_device)).cpu()
     assert tfused.KERNEL_LAUNCHES == before + (1 if fused else 0)
     assert (got - want).abs().max().item() <= 1e-4
+
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    before = _launches()
+    loss = card.train_step(x.to(cuda_device), labels.to(cuda_device)).item()
+    want_loss = model.train_step(x, labels).item()
+    # the waveform needs no gradient: the backward runs without its
+    # frame passes
+    assert _launches() == tuple(b + int(fused) * (i < 2)
+                                for i, b in enumerate(before))
+    assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
+    for name, value in model.state_dict().items():
+        update = (value - start[name]).abs().max().item()
+        err = (card.state_dict()[name].cpu() - value).abs().max().item()
+        assert err <= GRAD_PARITY * update, (name, err, update)

@@ -2,9 +2,11 @@
 
 The port of ``torchaudio_contrib_tpu`` (the JAX package, which stays the
 reference) to PyTorch, with hand-written CUDA kernels for Hopper where the
-JAX package had TPU kernels.  This slice covers the serving path of the
-mel front end: windows, STFT, mel filterbank, dB, the fused log-mel
-kernel, the layer pipelines and ``MelFrontendClassifier``'s forward.
+JAX package had TPU kernels.  The slices ported so far cover the mel
+front end for serving and training: windows, STFT, mel and linear
+filterbanks, dB, the fused log-mel kernels (forward and backward), MFCC
+and LFCC, the layer pipelines and ``MelFrontendClassifier`` (forward,
+``loss_fn``, ``train_step``).
 Module names follow the JAX package's; the flat names below mirror its
 ``__init__`` for the symbols ported so far.
 
@@ -20,10 +22,11 @@ from .ops import (
     stft, frame_signal, num_frames,
     complex_norm, angle, magphase,
     hertz_to_mel, mel_to_hertz,
-    create_mel_filter, apply_filterbank,
+    create_mel_filter, create_linear_filter, apply_filterbank,
     amplitude_to_db, db_to_amplitude,
     amplitude_to_DB, DB_to_amplitude,
     fused_melspectrogram, fused_mel_supported, resolve_precision,
+    create_dct, mfcc, lfcc,
     spectrogram, melspectrogram,
     hann_window, hamming_window, blackman_window, get_window,
 )
@@ -41,10 +44,11 @@ __all__ = [
     "stft", "frame_signal", "num_frames",
     "complex_norm", "angle", "magphase",
     "hertz_to_mel", "mel_to_hertz",
-    "create_mel_filter", "apply_filterbank",
+    "create_mel_filter", "create_linear_filter", "apply_filterbank",
     "amplitude_to_db", "db_to_amplitude",
     "amplitude_to_DB", "DB_to_amplitude",
     "fused_melspectrogram", "fused_mel_supported", "resolve_precision",
+    "create_dct", "mfcc", "lfcc",
     "spectrogram", "melspectrogram",
     "hann_window", "hamming_window", "blackman_window", "get_window",
     "Transform", "Pipeline",

@@ -33,6 +33,12 @@
 //     config by the host and stays on the device (it fits in L2 at the
 //     main configs); the filterbank is passed on every call because it may
 //     be a trainable parameter.
+//   * For training, an optional second output `reim` (the JAX kernel's
+//     save_spec residual) takes each thread's re/im register tile before
+//     the power is formed: (n_streams, n_frames, FT*2*FBT), tile t columns
+//     [re_t | im_t], laid out like the basis.  Frames past n_frames are not
+//     stored.  It is a template flag, so the serving instantiation is the
+//     kernel without it.
 // Tensor-core tiers (TF32, 3xTF32, BF16 with wgmma) are later work.
 
 #include <cuda_runtime.h>
@@ -65,11 +71,14 @@ size_t smem_bytes(int m_pad) {
 //                                          rows >= fft_length are zero
 // fb     (ft_count * FBT, m_pad)          filterbank, zero padded
 // out    (n_streams, num_mels, n_frames)
+// reim   (n_streams, n_frames, ft_count * 2 * FBT)  written when SAVE_SPEC
+template <bool SAVE_SPEC>
 __global__ void __launch_bounds__(THREADS)
 fused_mel_fwd_kernel(const float* __restrict__ x,
                      const float* __restrict__ basis,
                      const float* __restrict__ fb,
                      float* __restrict__ out,
+                     float* __restrict__ reim,
                      int n_samples, int fft_length, int hop_length,
                      int n_frames, int ft_count, int num_mels, int m_pad,
                      int to_db, float amin, float db_offset) {
@@ -142,6 +151,20 @@ fused_mel_fwd_kernel(const float* __restrict__ x,
             __syncthreads();
         }
 
+        if (SAVE_SPEC) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int frame = f0 + ty * 4 + i;
+                if (frame >= n_frames) continue;
+                float* dst = reim + ((long long)s * n_frames + frame) * ldb
+                             + t * 2 * FBT + tx * 4;
+                *reinterpret_cast<float4*>(dst) =
+                    make_float4(re[i][0], re[i][1], re[i][2], re[i][3]);
+                *reinterpret_cast<float4*>(dst + FBT) =
+                    make_float4(im[i][0], im[i][1], im[i][2], im[i][3]);
+            }
+        }
+
 #pragma unroll
         for (int i = 0; i < 4; ++i)
             *reinterpret_cast<float4*>(&p_s[(ty * 4 + i) * P_LD + tx * 4]) = make_float4(
@@ -206,30 +229,47 @@ fused_mel_fwd_kernel(const float* __restrict__ x,
     }
 }
 
+template <bool SAVE_SPEC>
+int launch(const float* x, const float* basis, const float* fb, float* out,
+           float* reim, int n_streams, int n_samples, int fft_length,
+           int hop_length, int n_frames, int ft_count, int num_mels,
+           int m_pad, int to_db, float amin, float db_offset,
+           cudaStream_t stream) {
+    const size_t smem = smem_bytes(m_pad);
+    cudaError_t err = cudaFuncSetAttribute(
+        fused_mel_fwd_kernel<SAVE_SPEC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((n_frames + TB - 1) / TB, n_streams);
+    fused_mel_fwd_kernel<SAVE_SPEC><<<grid, THREADS, smem, stream>>>(
+        x, basis, fb, out, reim, n_samples, fft_length, hop_length, n_frames,
+        ft_count, num_mels, m_pad, to_db, amin, db_offset);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launches the forward on `stream`; returns the cudaError_t of the launch
-// (0 on success).  Does not synchronise and allocates nothing.
+// (0 on success).  Does not synchronise and allocates nothing.  `reim` may
+// be null (serving); otherwise it receives the re/im residual.
 int tac_fused_mel_fwd(const float* x, const float* basis, const float* fb,
-                      float* out, int n_streams, int n_samples,
+                      float* out, float* reim, int n_streams, int n_samples,
                       int fft_length, int hop_length, int n_frames,
                       int ft_count, int num_mels, int m_pad, int to_db,
                       float amin, float db_offset, void* stream) {
     if (n_streams <= 0 || n_frames <= 0 || num_mels <= 0) return 0;
     if (m_pad % MC != 0 || m_pad < num_mels || fft_length < 2 || hop_length < 1)
         return (int)cudaErrorInvalidValue;
-    const size_t smem = smem_bytes(m_pad);
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_mel_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((n_frames + TB - 1) / TB, n_streams);
-    fused_mel_fwd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        x, basis, fb, out, n_samples, fft_length, hop_length, n_frames,
-        ft_count, num_mels, m_pad, to_db, amin, db_offset);
-    return (int)cudaGetLastError();
+    const cudaStream_t st = (cudaStream_t)stream;
+    return reim ? launch<true>(x, basis, fb, out, reim, n_streams, n_samples,
+                               fft_length, hop_length, n_frames, ft_count,
+                               num_mels, m_pad, to_db, amin, db_offset, st)
+                : launch<false>(x, basis, fb, out, nullptr, n_streams,
+                                n_samples, fft_length, hop_length, n_frames,
+                                ft_count, num_mels, m_pad, to_db, amin,
+                                db_offset, st);
 }
 
 const char* tac_error_string(int code) {

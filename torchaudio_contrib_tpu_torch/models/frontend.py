@@ -1,13 +1,14 @@
-"""Mel front end + small CNN classifier (forward).
+"""Mel front end + small CNN classifier, forward and training.
 
 Port of ``torchaudio_contrib_tpu/models/frontend.py``: log-mel features
-(the fused kernel with ``fused=True``, the STFT→mel→dB pipeline
+(the fused kernels with ``fused=True``, the STFT→mel→dB pipeline
 otherwise) averaged over channels, three stride-2 3×3 conv + ReLU blocks,
 global average pooling and a linear head.  Layouts are PyTorch's
 (NCHW / OIHW) with mels as H and frames as W; the JAX model's
 ``padding="SAME"`` at stride 2 is reproduced exactly (it pads (0, 1) on
-an even input, not (1, 1)).  Training (``loss_fn``/``train_step``) comes
-with the backward kernel.
+an even input, not (1, 1)).  ``loss_fn``/``train_step`` are the JAX
+model's mean cross-entropy and plain SGD step; with ``fused=True`` on the
+GPU the filterbank's gradient runs through the backward kernel.
 """
 from __future__ import annotations
 
@@ -98,3 +99,22 @@ class MelFrontendClassifier(nn.Module):
             pw = _same_pad(x.shape[-1], 3, 2)
             x = F.relu(conv(F.pad(x, (pw[0], pw[1], ph[0], ph[1]))))
         return self.head(x.mean(dim=(-2, -1)))
+
+    def loss_fn(self, waveform: torch.Tensor,
+                labels: torch.Tensor) -> torch.Tensor:
+        """Mean cross-entropy of ``forward(waveform)`` against integer
+        ``labels (B,)``."""
+        return F.cross_entropy(self(waveform), labels.long())
+
+    def train_step(self, waveform: torch.Tensor, labels: torch.Tensor,
+                   lr: float = 1e-3) -> torch.Tensor:
+        """One plain SGD step, ``p ← p − lr·∂loss/∂p``, on every parameter
+        (the filterbank too when it is trainable), in place.  Returns the
+        loss before the step, detached."""
+        params = [p for p in self.parameters() if p.requires_grad]
+        loss = self.loss_fn(waveform, labels)
+        grads = torch.autograd.grad(loss, params)
+        with torch.no_grad():
+            for p, g in zip(params, grads):
+                p.sub_(lr * g)
+        return loss.detach()

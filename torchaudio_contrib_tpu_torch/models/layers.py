@@ -180,8 +180,9 @@ class FusedMelspectrogram(Transform):
     on the CPU).  Default ``center=False`` frame semantics;
     ``center=True`` pads for frame-for-frame parity with the
     ``Melspectrogram()`` pipeline.  ``trainable=True`` makes the
-    filterbank an ``nn.Parameter`` (gradients run on the CPU path only
-    until the backward kernel is ported)."""
+    filterbank an ``nn.Parameter``; its gradient (and the waveform's, when
+    that requires grad) runs through the backward kernel on the GPU and
+    through autograd of the plain version on the CPU."""
 
     def __init__(self, num_mels: int = 128, sample_rate: float = 22050,
                  f_min: float = 0.0, f_max: Optional[float] = None,

@@ -1,4 +1,4 @@
-"""Functional core of the PyTorch port (the mel front end's slice).
+"""Functional core of the PyTorch port (the mel front end's slices).
 
 Module names follow ``torchaudio_contrib_tpu.ops``; each module is the
 counterpart of the JAX module of the same name.
@@ -19,6 +19,7 @@ from .filters import (
     hertz_to_mel,
     mel_to_hertz,
     create_mel_filter,
+    create_linear_filter,
     apply_filterbank,
 )
 from .complexops import complex_norm, angle, magphase
@@ -28,17 +29,19 @@ from .stft import stft, frame_signal, num_frames
 from .spectro import spectrogram, melspectrogram
 from .fused import (fused_melspectrogram, fused_mel_supported,
                     resolve_precision)
+from .mfcc import create_dct, mfcc, lfcc
 
 __all__ = [
     "hann_window", "hamming_window", "blackman_window",
     "bartlett_window", "kaiser_window", "nuttall_window",
     "rectangular_window", "get_window", "cola_window_sum", "check_nola",
     "hertz_to_mel", "mel_to_hertz", "create_mel_filter",
-    "apply_filterbank",
+    "create_linear_filter", "apply_filterbank",
     "complex_norm", "angle", "magphase",
     "amplitude_to_db", "db_to_amplitude",
     "amplitude_to_DB", "DB_to_amplitude",
     "stft", "frame_signal", "num_frames",
     "spectrogram", "melspectrogram",
     "fused_melspectrogram", "fused_mel_supported", "resolve_precision",
+    "create_dct", "mfcc", "lfcc",
 ]

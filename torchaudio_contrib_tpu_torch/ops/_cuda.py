@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, and loaded with ``ctypes``.
-The build happens at first use, into ``_build/`` beside the package
-sources, under a name derived from the sources' hash, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  There is no
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``.  The build
+happens at first use, into ``_build/`` beside the package sources, under a
+name derived from the sources' hash, so an edited source is rebuilt and
+an unchanged one is loaded as it is.  There is no
 fallback: if ``nvcc`` is missing or the build fails, :func:`load` raises
 with the compiler's output.
 
@@ -26,8 +27,8 @@ __all__ = ["load", "build_info"]
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -57,14 +58,32 @@ def _sources():
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.tac_fused_mel_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i,
-                                      f, f, p]
+    lib.tac_fused_mel_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
+                                      i, f, f, p]
     lib.tac_fused_mel_fwd.restype = i
-    lib.tac_fused_mel_fwd_tile.argtypes = [i]
-    lib.tac_fused_mel_fwd_tile.restype = i
+    lib.tac_fused_mel_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                      i, i, p]
+    lib.tac_fused_mel_bwd.restype = i
+    for tile in (lib.tac_fused_mel_fwd_tile, lib.tac_fused_mel_bwd_tile):
+        tile.argtypes = [i]
+        tile.restype = i
     lib.tac_error_string.argtypes = [i]
     lib.tac_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _run_all(cmds) -> str:
+    """Run the commands side by side; raise with the compiler's output if
+    any fails, else return their output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code "
+                               f"{proc.returncode}:\n{' '.join(cmd)}\n{out}")
+    return "".join(outs)
 
 
 def _build_and_load() -> ctypes.CDLL:
@@ -80,18 +99,23 @@ def _build_and_load() -> ctypes.CDLL:
     if not so.exists():
         nvcc = _find_nvcc()
         _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *_FLAGS, "-o", str(tmp), *map(str, srcs)]
+        tag = f"{os.getpid()}.tmp"
+        objs = [so.with_name(f"{src.stem}.{tag}.o") for src in srcs]
+        tmp = so.with_name(f"{so.name}.{tag}")
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              check=False)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
+        try:
+            out = _run_all([[nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)]
+                            for src, obj in zip(srcs, objs)])
+            out += _run_all([[nvcc, *_ARCH, "-shared", "-o", str(tmp),
+                              *map(str, objs)]])
+        except BaseException:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed with exit code {proc.returncode}:\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
+            raise
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+        seconds = time.perf_counter() - t0
+        log.write_text(out)
         os.replace(tmp, so)
         built = True
     _info.update(path=str(so), built=built, seconds=seconds,

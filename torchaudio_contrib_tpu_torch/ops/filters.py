@@ -1,7 +1,7 @@
 """Mel-scale conversion, mel filterbank construction, filterbank application.
 
-Port of ``torchaudio_contrib_tpu/ops/filters.py`` (mel part).  Filterbank
-matrices are built in float64 NumPy and cast to float32 at the edge;
+Port of ``torchaudio_contrib_tpu/ops/filters.py`` (mel and linear parts).
+Filterbank matrices are built in float64 NumPy and cast to float32 at the edge;
 ``apply_filterbank`` is one einsum in full float32.
 """
 from __future__ import annotations
@@ -16,6 +16,7 @@ __all__ = [
     "hertz_to_mel",
     "mel_to_hertz",
     "create_mel_filter",
+    "create_linear_filter",
     "apply_filterbank",
 ]
 
@@ -115,6 +116,41 @@ def create_mel_filter(num_mels: int = 128,
         f_max = sample_rate / 2.0
     fb = _mel_filter_np(int(num_mels), float(sample_rate), float(f_min),
                         float(f_max), int(num_bins), str(mel_scale), norm)
+    return torch.as_tensor(fb, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=32)
+def _linear_filter_np(n_filter: int, sample_rate: float, f_min: float,
+                      f_max: float, num_bins: int) -> np.ndarray:
+    """Float64 triangular filterbank with corners linearly spaced in Hz
+    ``(num_bins, n_filter)`` (torchaudio's ``linear_fbanks``
+    construction, the LFCC front end)."""
+    all_freqs = np.linspace(0.0, sample_rate / 2.0, num_bins)
+    f_pts = np.linspace(f_min, f_max, n_filter + 2)
+    f_diff = f_pts[1:] - f_pts[:-1]
+    slopes = f_pts[None, :] - all_freqs[:, None]
+    down = -slopes[:, :-2] / f_diff[None, :-1]
+    up = slopes[:, 2:] / f_diff[None, 1:]
+    return np.maximum(0.0, np.minimum(down, up))
+
+
+def create_linear_filter(n_filter: int = 128,
+                         sample_rate: float = 22050,
+                         f_min: float = 0.0,
+                         f_max: Optional[float] = None,
+                         num_bins: int = 1025,
+                         dtype: torch.dtype = torch.float32,
+                         device=None) -> torch.Tensor:
+    """Linear-frequency triangular filterbank ``(num_bins, n_filter)``.
+
+    Same contract as :func:`create_mel_filter`, with corners spaced
+    linearly in Hz instead of on the mel scale; the fused kernels take it
+    like any filterbank matrix.
+    """
+    if f_max is None:
+        f_max = sample_rate / 2.0
+    fb = _linear_filter_np(int(n_filter), float(sample_rate), float(f_min),
+                           float(f_max), int(num_bins))
     return torch.as_tensor(fb, dtype=dtype, device=device)
 
 

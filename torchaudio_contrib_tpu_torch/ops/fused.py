@@ -1,19 +1,23 @@
-"""Fused (log-)mel spectrogram: one CUDA kernel from waveform to log-mel.
+"""Fused (log-)mel spectrogram: one CUDA kernel from waveform to log-mel,
+and a CUDA backward for training.
 
-Port of ``torchaudio_contrib_tpu/ops/fused.py`` (forward).  On a CUDA
-tensor, :func:`fused_melspectrogram` launches the hand-written Hopper
-kernel ``csrc/fused_mel_fwd.cu`` (built by :mod:`._cuda` on first use),
-which frames the waveform, multiplies by the windowed DFT basis, forms the
+Port of ``torchaudio_contrib_tpu/ops/fused.py``.  On a CUDA tensor,
+:func:`fused_melspectrogram` launches the hand-written Hopper kernel
+``csrc/fused_mel_fwd.cu`` (built by :mod:`._cuda` on first use), which
+frames the waveform, multiplies by the windowed DFT basis, forms the
 power, applies the filterbank and the dB epilogue without writing the
-spectrum to device memory.  On a CPU tensor it runs :func:`_reference`,
-the plain PyTorch chain the kernel computes.  There is no other fallback:
-a CUDA tensor the kernel cannot take raises.
+spectrum to device memory.  When a gradient is needed, :class:`_FusedMel`
+runs that kernel with its re/im residual output and, in the backward,
+the dB gate, the backward kernel ``csrc/fused_mel_bwd.cu`` and the
+overlap-add onto the waveform.  On a CPU tensor it runs :func:`_reference`,
+the plain PyTorch chain the kernels compute, with autograd.  There is no
+other fallback: a CUDA tensor the kernels cannot take raises.
 
-``KERNEL_LAUNCHES`` counts the kernel's launches (and nothing else), so a
-run can show that it went through the kernel.
-
-The backward kernel is not ported yet (ROADMAP A2): on CUDA, a call that
-would need gradients raises ``NotImplementedError``.
+``KERNEL_LAUNCHES`` counts the forward kernel's launches,
+``BWD_KERNEL_LAUNCHES`` the backward kernel's, and
+``BWD_DFRAMES_LAUNCHES`` those backward launches that also ran the frame
+gradient passes (and nothing else), so a run can show that it went
+through the kernels.
 """
 from __future__ import annotations
 
@@ -22,30 +26,38 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from . import _cuda
 from .complexops import complex_norm
 from .db import amplitude_to_db
 from .filters import apply_filterbank
-from .stft import stft, _dft_matrices, _pad_center, _resolve_window
+from .stft import (stft, _dft_matrices, _overlap_add, _pad_center,
+                   _resolve_window)
 
 __all__ = ["fused_melspectrogram", "fused_mel_supported",
            "resolve_precision"]
 
 KERNEL_LAUNCHES = 0
+BWD_KERNEL_LAUNCHES = 0
+BWD_DFRAMES_LAUNCHES = 0
 
 _PRECISIONS = ("fast", "split3", "split6")
 
-# Tile constants of csrc/fused_mel_fwd.cu; the basis and the filterbank are
-# laid out for them here, and they are checked against the built library.
+# Tile constants of csrc/fused_mel_fwd.cu and csrc/fused_mel_bwd.cu; the
+# basis, the filterbank and the residual are laid out for them here, and
+# they are checked against the built library.
 _FRAME_TILE = 64    # frames per thread block
 _FREQ_TILE = 64     # onesided bins per frequency tile
 _K_TILE = 16        # fft samples per K step (basis rows pad to this)
 _MEL_TILE = 64      # mel columns per step (filterbank columns pad to this)
 _MAX_MELS = 704     # the (frames, mels) accumulator must fit shared memory
 _MAX_STREAMS = 65535  # grid.y
+_DFB_BLOCKS = 264   # the dFB pass splits the rows to fill ~2 waves of SMs
 
-_LN10_INV_10 = 10.0 / math.log(10.0)
+_LN10_INV_10 = 10.0 / math.log(10.0)   # d(dB)/d(mel) = this / mel
+_DB_TO_LIN = math.log(10.0) / 10.0     # mel = ref·exp(dB·this)
 
 
 def resolve_precision(precision: str, fft_length: int,
@@ -53,7 +65,7 @@ def resolve_precision(precision: str, fft_length: int,
     """Resolve ``"auto"`` to a concrete tier for this config, as the JAX
     package does: ``split6`` when mel bands average fewer than 8 linear
     bins, else ``split3``; an explicit tier passes through; anything else
-    raises.  On the GPU every tier runs the same FP32 kernel (see
+    raises.  On the GPU every tier runs the same FP32 kernels (see
     :func:`fused_melspectrogram`)."""
     if precision == "auto":
         return ("split6" if (fft_length // 2 + 1) < 8 * num_mels
@@ -121,14 +133,32 @@ def _basis_on(device: torch.device, fft_length: int, win_key, win_length):
     return torch.from_numpy(basis).to(device), n_freqs, ft_count
 
 
+def _fb_padded(filterbank, ft_count: int, m_pad: int):
+    """The filterbank zero-padded to ``(ft_count·FREQ_TILE, m_pad)``."""
+    n_freqs, num_mels = filterbank.shape
+    return F.pad(filterbank, (0, m_pad - num_mels,
+                              0, ft_count * _FREQ_TILE - n_freqs))
+
+
 @functools.lru_cache(maxsize=1)
 def _kernel_lib():
     lib = _cuda.load()
-    tiles = tuple(lib.tac_fused_mel_fwd_tile(i) for i in range(4))
-    if tiles != (_FRAME_TILE, _FREQ_TILE, _K_TILE, _MEL_TILE):
-        raise RuntimeError(f"kernel tiles {tiles} do not match the host "
-                           f"layout {(_FRAME_TILE, _FREQ_TILE, _K_TILE, _MEL_TILE)}")
+    for query, want in ((lib.tac_fused_mel_fwd_tile,
+                         (_FRAME_TILE, _FREQ_TILE, _K_TILE, _MEL_TILE)),
+                        (lib.tac_fused_mel_bwd_tile,
+                         (_FRAME_TILE, _FREQ_TILE, _K_TILE, _MEL_TILE))):
+        tiles = tuple(query(i) for i in range(4))
+        if tiles != want:
+            raise RuntimeError(f"kernel tiles {tiles} do not match the host "
+                               f"layout {want}")
     return lib
+
+
+def _launch_check(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"fused mel {what} kernel failed to launch: "
+                           f"{lib.tac_error_string(rc).decode()} "
+                           f"(cudaError {rc})")
 
 
 def _reference(waveform, filterbank, fft_length, hop_length, window, power,
@@ -143,11 +173,71 @@ def _reference(waveform, filterbank, fft_length, hop_length, window, power,
     return mel
 
 
+# ---- the kernels' plain versions, in the kernels' layouts -------------------
+
+def _plain_basis(like, fft_length, window, win_length):
+    """The kernels' basis rows ``[:fft_length]`` on ``like``'s device and
+    in its dtype (no host copy per call on the card), with ``n_freqs`` and
+    ``ft_count``."""
+    basis, n_freqs, ft_count = _basis_on(
+        like.device, fft_length, _hashable_window(window), win_length)
+    return basis[:fft_length].to(like.dtype), n_freqs, ft_count
+
+
+def _fwd_res_plain(x2, filterbank, fft_length, hop_length, window,
+                   win_length, to_db, db_ref, amin, save_spec=False):
+    """Plain PyTorch version of the forward kernel on ``x2 (streams, T)``:
+    ``(out (streams, num_mels, n_frames), reim)``, where ``reim`` is the
+    ``(streams, n_frames, FT·2·FREQ_TILE)`` residual (``[re_t | im_t]`` per
+    tile, the basis's layout) when ``save_spec``, else None.  Computes in
+    ``x2``'s dtype."""
+    basis, n_freqs, ft_count = _plain_basis(x2, fft_length, window,
+                                            win_length)
+    streams = x2.shape[0]
+    reim = x2.unfold(-1, fft_length, hop_length) @ basis
+    n_frames = reim.shape[1]
+    ri = reim.view(streams, n_frames, ft_count, 2, _FREQ_TILE)
+    p = (ri[..., 0, :] ** 2 + ri[..., 1, :] ** 2).reshape(
+        streams, n_frames, ft_count * _FREQ_TILE)
+    mel = p[..., :n_freqs] @ filterbank
+    if to_db:
+        mel = amplitude_to_db(mel, ref=db_ref, amin=amin, power=2.0)
+    return mel.transpose(1, 2).contiguous(), (reim if save_spec else None)
+
+
+def _bwd_plain(dmel, reim, filterbank, fft_length, window, win_length,
+               need_dx, need_dfb):
+    """Plain PyTorch version of the backward kernel: from ``dmel (rows,
+    m_pad)`` (gated, zero past num_mels) and the residual ``reim (rows,
+    FT·2·FREQ_TILE)``, ``(dframes (rows, fft) or None, dfb (n_freqs,
+    num_mels) or None)``."""
+    basis, n_freqs, ft_count = _plain_basis(reim, fft_length, window,
+                                            win_length)
+    rows = dmel.shape[0]
+    num_mels = filterbank.shape[1]
+    ri = reim.view(rows, ft_count, 2, _FREQ_TILE)
+    re, im = ri[:, :, 0], ri[:, :, 1]
+    dframes = dfb = None
+    if need_dfb:
+        p = (re * re + im * im).reshape(rows, ft_count * _FREQ_TILE)
+        dfb = p[:, :n_freqs].T @ dmel[:, :num_mels]
+    if need_dx:
+        dp = dmel[:, :num_mels] @ filterbank.T
+        dp = F.pad(dp, (0, ft_count * _FREQ_TILE - n_freqs)).view(
+            rows, ft_count, _FREQ_TILE)
+        dreim = torch.stack([2.0 * re * dp, 2.0 * im * dp], dim=2)
+        dframes = dreim.reshape(rows, -1) @ basis.T
+    return dframes, dfb
+
+
+# ---- the kernels' launch wrappers -------------------------------------------
+
 def _fused_mel_fwd_cuda(x2, filterbank, fft_length, hop_length, window,
-                        win_length, to_db, db_ref, amin):
-    """Launch the kernel on ``x2 (streams, T)``; returns
-    ``(streams, num_mels, n_frames)``.  Raises on any input it does not
-    take; never computes the result another way."""
+                        win_length, to_db, db_ref, amin, save_spec=False):
+    """Launch the forward kernel on ``x2 (streams, T)``; returns ``(out
+    (streams, num_mels, n_frames), reim or None)`` as
+    :func:`_fwd_res_plain`.  Raises on any input it does not take; never
+    computes the result another way."""
     global KERNEL_LAUNCHES
     if not (x2.is_cuda and x2.dtype == torch.float32 and x2.ndim == 2
             and x2.is_contiguous()):
@@ -171,25 +261,175 @@ def _fused_mel_fwd_cuda(x2, filterbank, fft_length, hop_length, window,
     basis, n_freqs, ft_count = _basis_on(
         x2.device, fft_length, _hashable_window(window), win_length)
     m_pad = _round_up(num_mels, _MEL_TILE)
-    fbp = torch.zeros((ft_count * _FREQ_TILE, m_pad), dtype=torch.float32,
-                      device=x2.device)
-    fbp[:n_freqs, :num_mels] = filterbank
+    fbp = _fb_padded(filterbank, ft_count, m_pad).contiguous()
     out = torch.empty((streams, num_mels, n_frames), dtype=torch.float32,
                       device=x2.device)
+    reim = (torch.empty((streams, n_frames, basis.shape[1]),
+                        dtype=torch.float32, device=x2.device)
+            if save_spec else None)
     db_off = _LN10_INV_10 * math.log(max(amin, db_ref)) if to_db else 0.0
     lib = _kernel_lib()
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         rc = lib.tac_fused_mel_fwd(
             x2.data_ptr(), basis.data_ptr(), fbp.data_ptr(), out.data_ptr(),
+            reim.data_ptr() if save_spec else None,
             streams, n_samples, fft_length, hop_length, n_frames, ft_count,
             num_mels, m_pad, int(to_db), float(amin), float(db_off), stream)
-    if rc != 0:
-        raise RuntimeError("fused mel forward kernel failed to launch: "
-                           f"{lib.tac_error_string(rc).decode()} "
-                           f"(cudaError {rc})")
+    _launch_check(lib, rc, "forward")
     KERNEL_LAUNCHES += 1
-    return out
+    return out, reim
+
+
+def _dfb_splits(rows: int, tiles: int):
+    """``(n_splits, rows_per_split)`` for the dFB pass: enough row splits
+    that ``tiles`` output tiles fill about ``_DFB_BLOCKS`` blocks, at least
+    256 rows each.  A function of the shapes only, so the sum order, and
+    with it every bit of the result, is the same on every run."""
+    n_splits = max(1, min(_cdiv(_DFB_BLOCKS, tiles), _cdiv(rows, 256)))
+    per = _round_up(_cdiv(rows, n_splits), _K_TILE)
+    return _cdiv(rows, per), per
+
+
+def _fused_mel_bwd_cuda(dmel, reim, filterbank, fft_length, window,
+                        win_length, need_dx, need_dfb):
+    """Launch the backward kernel; arguments and results as
+    :func:`_bwd_plain`.  The frame-gradient passes run only when
+    ``need_dx``, the filterbank-gradient pass only when ``need_dfb``.
+    Raises on any input it does not take."""
+    global BWD_KERNEL_LAUNCHES, BWD_DFRAMES_LAUNCHES
+    for name, t in (("dmel", dmel), ("reim", reim)):
+        if not (t.is_cuda and t.dtype == torch.float32 and t.ndim == 2
+                and t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 CUDA "
+                             f"matrix; got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    basis, n_freqs, ft_count = _basis_on(
+        dmel.device, fft_length, _hashable_window(window), win_length)
+    rows, m_pad = dmel.shape
+    num_mels = filterbank.shape[1]
+    if not (filterbank.device == dmel.device
+            and filterbank.dtype == torch.float32
+            and filterbank.shape[0] == n_freqs):
+        raise ValueError(f"filterbank must be float32 ({n_freqs}, mels) on "
+                         f"{dmel.device}; got {filterbank.dtype} "
+                         f"{tuple(filterbank.shape)} on {filterbank.device}")
+    if (m_pad % _MEL_TILE or not num_mels <= m_pad < num_mels + _MEL_TILE
+            or reim.shape != (rows, basis.shape[1])
+            or reim.device != dmel.device):
+        raise ValueError(f"dmel {tuple(dmel.shape)} / reim "
+                         f"{tuple(reim.shape)} do not fit {num_mels} mels "
+                         f"and {ft_count} frequency tiles")
+    if not (need_dx or need_dfb):
+        return None, None
+    f_pad = ft_count * _FREQ_TILE
+    fbp = _fb_padded(filterbank, ft_count, m_pad).contiguous()
+    dev = dict(dtype=torch.float32, device=dmel.device)
+    dframes = torch.empty((rows, fft_length), **dev) if need_dx else None
+    dreim = torch.empty_like(reim) if need_dx else None
+    dfb = part = None
+    n_splits = per = 0      # read by the library only with dfb
+    if need_dfb:
+        n_splits, per = _dfb_splits(rows, ft_count * (m_pad // _MEL_TILE))
+        dfb = torch.empty((f_pad, m_pad), **dev)
+        if n_splits > 1:
+            part = torch.empty((n_splits, f_pad, m_pad), **dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = _kernel_lib()
+    with torch.cuda.device(dmel.device):
+        stream = torch.cuda.current_stream(dmel.device).cuda_stream
+        rc = lib.tac_fused_mel_bwd(
+            dmel.data_ptr(), reim.data_ptr(), fbp.data_ptr(),
+            basis.data_ptr(), ptr(dreim), ptr(dframes), ptr(dfb), ptr(part),
+            rows, fft_length, basis.shape[0], ft_count, m_pad, n_splits, per,
+            stream)
+    _launch_check(lib, rc, "backward")
+    BWD_KERNEL_LAUNCHES += 1
+    BWD_DFRAMES_LAUNCHES += int(need_dx)
+    return dframes, (dfb[:n_freqs, :num_mels] if need_dfb else None)
+
+
+# ---- autograd --------------------------------------------------------------
+
+def _dmel_from(g, y, to_db: bool, db_ref: float, amin: float):
+    """The backward kernel's ``dmel (streams·n_frames, m_pad)`` from the
+    output cotangent ``g`` and the saved output ``y``, both ``(streams,
+    num_mels, n_frames)``: d(loss)/d(mel) with the dB gate recomputed from
+    ``y`` (``mel_clamped = max(ref, amin)·10^(y/10)``), frames as rows,
+    mels zero-padded to the mel tile.
+
+    As in the JAX package, the gate carries a 1e-4 relative tolerance:
+    entries clamped to ``amin`` in the forward (silence, zero-weight mel
+    bins) come back through the f32 exp∘log round trip as ``amin·(1 ±
+    ~4e-6)``, and a strict ``> amin`` test would leak ``g/amin``-scale
+    gradients into them (the chain's gradient is exactly 0 there)."""
+    if to_db:
+        mel_c = max(db_ref, amin) * torch.exp(y * _DB_TO_LIN)
+        g = torch.where(mel_c > amin * (1.0 + 1e-4),
+                        g * (_LN10_INV_10 / mel_c), torch.zeros_like(g))
+    streams, num_mels, n_frames = y.shape
+    m_pad = _round_up(num_mels, _MEL_TILE)
+    g = F.pad(g.transpose(1, 2), (0, m_pad - num_mels))
+    return g.reshape(streams * n_frames, m_pad).contiguous()
+
+
+class _FusedMel(torch.autograd.Function):
+    """The fused op with its gradient, the counterpart of the JAX
+    package's ``_fused_core`` custom VJP.
+
+    ``apply(x2 (streams, T), filterbank, cfg, fwd, bwd)`` with ``cfg =
+    (fft_length, hop_length, window, win_length, to_db, db_ref, amin)``
+    and the kernel callables ``fwd``/``bwd`` (the CUDA wrappers on the
+    card; their plain versions in the CPU tests).  The forward saves the
+    re/im residual; the backward runs the dB gate, ``bwd`` and the
+    overlap-add.  It asks ``bwd`` only for the gradients
+    ``ctx.needs_input_grad`` wants: with no waveform gradient the frame
+    passes and the overlap-add are skipped, with no filterbank gradient
+    the dFB pass."""
+
+    @staticmethod
+    def forward(ctx, x2, filterbank, cfg, fwd, bwd):
+        out, reim = fwd(x2, filterbank, *cfg, save_spec=True)
+        ctx.save_for_backward(filterbank, out, reim)
+        ctx.cfg, ctx.bwd, ctx.n_samples = cfg, bwd, x2.shape[-1]
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        need_dx, need_dfb = ctx.needs_input_grad[:2]
+        filterbank, out, reim = ctx.saved_tensors
+        fft_length, hop_length, window, win_length, to_db, db_ref, amin = \
+            ctx.cfg
+        streams, _, n_frames = out.shape
+        dmel = _dmel_from(g, out, to_db, db_ref, amin)
+        dframes, dfb = ctx.bwd(dmel, reim.reshape(streams * n_frames, -1),
+                               filterbank, fft_length, window, win_length,
+                               need_dx, need_dfb)
+        dx = None
+        if need_dx:
+            # samples past the last full frame get zero gradient
+            full = (n_frames - 1) * hop_length + fft_length
+            dx = _overlap_add(dframes.view(streams, n_frames, fft_length),
+                              fft_length, hop_length, full)
+            dx = F.pad(dx, (0, ctx.n_samples - full))
+        return dx, dfb, None, None, None
+
+
+def _fused_apply(waveform, filterbank, fft_length, hop_length, window,
+                 win_length, to_db, db_ref, amin, fwd, bwd):
+    """``waveform (..., T)`` → ``(..., num_mels, n_frames)`` through the
+    kernel callables: ``fwd`` alone when no gradient is needed, else
+    :class:`_FusedMel`."""
+    lead, n_samples = waveform.shape[:-1], waveform.shape[-1]
+    x2 = waveform.reshape(-1, n_samples).contiguous()
+    cfg = (fft_length, hop_length, window, win_length, to_db, db_ref, amin)
+    if torch.is_grad_enabled() and (x2.requires_grad
+                                    or filterbank.requires_grad):
+        out = _FusedMel.apply(x2, filterbank, cfg, fwd, bwd)
+    else:
+        out, _ = fwd(x2, filterbank, *cfg)
+    return out.reshape(lead + out.shape[1:])
 
 
 def fused_melspectrogram(waveform: torch.Tensor,
@@ -214,19 +454,21 @@ def fused_melspectrogram(waveform: torch.Tensor,
     (trailing samples that fill no frame are dropped).
 
     ``precision`` is resolved and validated as in the JAX package
-    (:func:`resolve_precision`), but every tier runs the same kernel, whose
-    products are FP32 FMAs: ``split3``, ``split6`` and ``auto`` get at
-    least the accuracy they promise, and ``fast`` gets f32-grade output
-    rather than bf16-grade.
+    (:func:`resolve_precision`), but every tier runs the same kernels,
+    whose products are FP32 FMAs: ``split3``, ``split6`` and ``auto`` get
+    at least the accuracy they promise, and ``fast`` gets f32-grade output
+    and gradients rather than bf16-grade.
 
     ``center=True`` reflect-pads (``pad_mode``) by ``fft_length//2`` on
     both sides before the kernel, for frame-for-frame parity with the
     ``Melspectrogram()`` pipeline.
 
     On a CPU tensor this runs the plain chain (:func:`_reference`), with
-    autograd.  On a CUDA tensor it launches the kernel: ``power`` must be
-    2, and gradients are not available yet (the backward kernel is ROADMAP
-    A2), so run it under ``torch.inference_mode()`` or ``torch.no_grad()``.
+    autograd.  On a CUDA tensor it launches the kernels, and ``power``
+    must be 2.  Gradients flow to the waveform and to the filterbank
+    through the backward kernel whenever either requires grad; under
+    ``torch.inference_mode()`` or ``torch.no_grad()`` the forward runs
+    without its residual.
     """
     precision = resolve_precision(precision, fft_length,
                                   filterbank.shape[-1])
@@ -254,16 +496,7 @@ def fused_melspectrogram(waveform: torch.Tensor,
     if power != 2.0:
         raise ValueError("the fused kernel computes power=2 only; use "
                          "melspectrogram() for other powers")
-    if torch.is_grad_enabled() and (waveform.requires_grad
-                                    or filterbank.requires_grad):
-        raise NotImplementedError(
-            "gradients through fused_melspectrogram on CUDA need the "
-            "backward kernel, which is not ported yet (ROADMAP A2); run "
-            "the forward under torch.inference_mode() or use the "
-            "Melspectrogram() pipeline for training")
-    lead = waveform.shape[:-1]
-    x2 = waveform.reshape(-1, n_samples).to(torch.float32).contiguous()
-    out = _fused_mel_fwd_cuda(x2, filterbank.to(torch.float32), fft_length,
-                              hop_length, window, win_length, to_db,
-                              db_ref, amin)
-    return out.reshape(lead + out.shape[1:])
+    return _fused_apply(waveform.to(torch.float32),
+                        filterbank.to(torch.float32), fft_length,
+                        hop_length, window, win_length, to_db, db_ref, amin,
+                        _fused_mel_fwd_cuda, _fused_mel_bwd_cuda)

@@ -1,6 +1,7 @@
 """Short-time Fourier transform.
 
-Port of ``torchaudio_contrib_tpu/ops/stft.py`` (forward part).  Layouts
+Port of ``torchaudio_contrib_tpu/ops/stft.py`` (the forward transform and
+the overlap-add adjoint of framing).  Layouts
 match the JAX package: ``(..., time)`` in, complex ``(..., freq, frames)``
 out, any leading dims.  Semantics match ``torch.stft``: reflect center
 padding, a window shorter than ``fft_length`` zero-padded and centred,
@@ -52,6 +53,31 @@ def frame_signal(x: torch.Tensor, frame_length: int,
         raise ValueError(f"input too short: {x.shape[-1]} samples < "
                          f"frame_length={frame_length}")
     return x.unfold(-1, frame_length, hop_length)
+
+
+def _overlap_add(frames: torch.Tensor, fft_length: int, hop_length: int,
+                 full_length: int) -> torch.Tensor:
+    """Overlap-add ``frames (..., n_frames, fft_length)`` into
+    ``(..., full_length)``: the exact adjoint of :func:`frame_signal`.
+
+    As in the JAX package, frames of one phase (``r = ceil(fft/hop)``
+    phases) do not overlap, so the sum is ``r`` dense shifted adds of
+    contiguous rows, each zero-padded from ``fft`` to ``r·hop``, for any
+    hop."""
+    n_frames = frames.shape[-2]
+    lead = frames.shape[:-2]
+    r = -(-fft_length // hop_length)
+    row = r * hop_length
+    k = -(-n_frames // r)
+    # (..., k, r, row): phase p holds frames q·r + p
+    fr = F.pad(frames, (0, row - fft_length, 0, k * r - n_frames))
+    fr = fr.reshape(lead + (k, r, row))
+    out = frames.new_zeros(lead + (max((r - 1) * hop_length + k * row,
+                                       full_length),))
+    for p in range(r):
+        out[..., p * hop_length:p * hop_length + k * row] += \
+            fr[..., :, p, :].reshape(lead + (k * row,))
+    return out[..., :full_length]
 
 
 def _pad_center(x: torch.Tensor, pad: int, pad_mode: str) -> torch.Tensor:
