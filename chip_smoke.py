@@ -1,4 +1,4 @@
-"""GPU smoke run of the PyTorch port's serving and training paths.
+"""GPU smoke run of the PyTorch port's serving, training and inverse paths.
 
     python3 chip_smoke.py
 
@@ -37,7 +37,27 @@ imports no JAX.  Phases, each printing its lines:
    forward with and without its residual and the backward timed against
    their plain versions;
 10. config 3's losses and parameters checked against the CPU copy's
-    (the plain path), and ms per step timed on both.
+    (the plain path), and ms per step timed on both;
+11. the fused Griffin-Lim kernels vs their plain version at small shapes
+    (fft 1024 / hop 256, 2048 / 512, 1024 / 512, 1024 / 1024, fft 400 / hop
+    160, stereo, ``center=False``, a Hamming window), in both state
+    layouts: one iteration from the same state, the 4-iteration waveform,
+    the 32-iteration spectral convergence; tile-major against row-major;
+    the stage-bisect build's ``full`` variant bitwise against the solve;
+12. the inverse path, each part between a reset and a read of the
+    counters: (a) ``griffin_lim(method="pallas")`` on the magnitudes of 8 x
+    110 250 samples (fft 1024, hop 256, 431 frames, 32 iterations); (b) 4
+    vocoder requests of 8 log-mels (8, 80, 431) through ``mel_to_audio`` at
+    the Tacotron2 Griffin-Lim vocoder's settings (60 iterations) under
+    ``torch.inference_mode()``; (c) the layout probe ``gl_probe.run`` at
+    fft 1024 and 2048 and the stage bisect ``gl_bisect.run``;
+13. (a) checked: shape, finiteness, spectral convergence against the
+    ``matmul`` loop's on the same magnitudes;
+14. BASELINE config 4: (4, 2, 32768) -> ``stft`` -> ``istft`` on the card
+    (plain PyTorch, no kernel), max abs error <= 1e-4;
+15. the solve at full width (fft 1024 and fft 2048) checked against its
+    plain version and timed against it, against the ``matmul`` and ``fft``
+    loops and against a loop of ``torch.stft``/``torch.istft``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -48,8 +68,6 @@ from __future__ import annotations
 import copy
 import json
 import math
-import statistics
-import subprocess
 import time
 
 import torch
@@ -73,11 +91,57 @@ LOSS_RTOL = 1e-5       # config 3, one step's loss, card vs CPU copy
 STEP_PARITY = 1e-4
 STEP_PARITY_FB = 1e-3
 FB_DRIFT_L2 = 0.5
+# Fused Griffin-Lim, kernel vs plain (both f32 chains), relative to peak.
+# One iteration from the same state: the two products (read off ``prev``,
+# the unnormalised rebuilt spectrum) to GL_PRODUCT_PARITY; the projected
+# state to GL_STATE_PARITY, since mag * upd / |upd| amplifies the products'
+# rounding where |upd| is near zero.
+GL_PRODUCT_PARITY = 1e-5
+GL_STATE_PARITY = 1e-4
+GL_WAVE_PARITY = 1e-4      # the 4-iteration waveform
+GL_LAYOUT_PARITY = 1e-6    # tile-major vs row-major waveform
+GL_CONV_PARITY = 1e-3      # |convergence(kernel) - convergence(plain)|, 32 it.
+GL_CONV_SLACK = 0.05       # fused convergence <= the matmul loop's + this
+ISTFT_ATOL = 1e-4          # config 4 round trip, max abs error
+# Published peaks of one H100 SXM (data sheet, 700 W): FP32 outside the
+# tensor cores, and HBM3.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
 # BASELINE.json config 2, the headline workload, at full width
 CFG2 = dict(batch=32, seconds=30, sr=22050, fft=2048, hop=512, mels=128)
 # BASELINE.json config 3 (trainable front end into the CNN), full width
 CFG3 = dict(batch=32, samples=160000, sr=16000, fft=512, hop=128, mels=64,
             classes=10, steps=4, lr=1e-3)
+# The Griffin-Lim benchmark's shape (8 x 5 s at 22.05 kHz, 32 iterations)
+# at the vocoder's transform and at the stage bisect's.
+GL_FULL = dict(clips=8, samples=110250, n_iter=32, momentum=0.99)
+GL_SHAPES = ((1024, 256), (2048, 512))
+# The Tacotron2 Griffin-Lim vocoder's settings.
+VOCODER = dict(num_mels=80, sample_rate=22050, f_max=8000.0, fft_length=1024,
+               hop_length=256, n_iter=60, power=1.0)
+# With hop = fft a Hann window has no overlap, so a projection changes only
+# the samples the clamped envelope zeroes.  From the zero-phase start the
+# spectrum then stays almost real, and wherever a bin's real part passes
+# through zero |upd| is near 0, where mag * upd / |upd| turns the products'
+# rounding into a sign; nothing pulls a flipped bin back.  Which bins flip
+# is the luck of rounding (seen on an H100: one bin in 1.4 million, 5e-4 of
+# peak after one iteration, at products equal to 1e-6).  So at that shape
+# the state and the waveform are compared in l2 (GL_NO_OVERLAP_L2) and
+# the convergence to GL_NO_OVERLAP_CONV; the products keep their bar.
+GL_NO_OVERLAP_L2 = 5e-3
+GL_NO_OVERLAP_CONV = 2e-2
+# name, shape, fft, hop, window, center
+GL_CASES = [
+    ("fft 1024 hop 256", (2, 11025), 1024, 256, "hann", True),
+    ("fft 2048 hop 512", (2, 22050), 2048, 512, "hann", True),
+    ("fft 1024 hop 512", (2, 11025), 1024, 512, "hann", True),
+    ("fft 1024 hop 1024 (no overlap)", (2, 11025), 1024, 1024, "hann", True),
+    ("fft 400 hop 160 (no multiple of 128, fft % hop != 0)", (2, 16000),
+     400, 160, "hann", True),
+    ("stereo (2, 2, T)", (2, 2, 6000), 512, 128, "hann", True),
+    ("center=False", (2, 11025), 1024, 256, "hann", False),
+    ("hamming window", (2, 6000), 512, 128, "hamming", True),
+]
 # name, shape, fft, hop, mels, sr, win_length, to_db, center
 PARITY_CASES = [
     ("config 2, 2 x 4 s", (2, 4 * 22050), 2048, 512, 128, 22050,
@@ -104,6 +168,10 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (torch.linalg.norm(a - b) / torch.linalg.norm(b)).item()
+
+
 def _counts() -> tuple:
     from torchaudio_contrib_tpu_torch.ops import fused
     return (fused.KERNEL_LAUNCHES, fused.BWD_KERNEL_LAUNCHES,
@@ -117,6 +185,43 @@ def _reset_counts() -> None:
     fused.BWD_DFRAMES_LAUNCHES = 0
 
 
+def _gl_counts() -> tuple:
+    from torchaudio_contrib_tpu_torch.ops import fused_griffinlim as fg
+    return (fg.GL_KERNEL_LAUNCHES, fg.GL_TILE_MAJOR_LAUNCHES)
+
+
+def _reset_gl_counts() -> None:
+    from torchaudio_contrib_tpu_torch.ops import fused_griffinlim as fg
+    fg.GL_KERNEL_LAUNCHES = 0
+    fg.GL_TILE_MAJOR_LAUNCHES = 0
+
+
+def _fft_flops(n_fft: int) -> float:
+    """Operations of one length-``n_fft`` transform as an FFT does it."""
+    return 5.0 * n_fft * math.log2(n_fft)
+
+
+def _bound(flops: float, nbytes: float, design_flops: float) -> dict:
+    """The least time the card could take for the function: the larger of
+    the operations it needs (its transforms counted as FFTs, its other
+    products over the bins there are) over the FP32 peak and the bytes over
+    the memory rate.  ``design_flop_ms`` is beside it what these kernels'
+    own operation count takes at that peak: every transform a dense matrix
+    product over their padded 64-bin frequency tiles.  No single PyTorch
+    call computes any of these kernels' functions, so ``library_ms`` is
+    null; the named comparisons (the ``torch.stft`` chain, the ``fft``
+    loop) are printed with the timings."""
+    ops_ms, bytes_ms = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "design_flop_ms": design_flops / PEAK_FP32 * 1e3,
+            "library_ms": None}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def _grads(fn, x, fb, g, need=(True, True)):
     """``(dx, dfb)`` of ``sum(fn(x, fb) * g)``; None where not needed."""
     x = x.detach().clone().requires_grad_(need[0])
@@ -127,30 +232,24 @@ def _grads(fn, x, fb, g, need=(True, True)):
 
 def _time_ms(fn, warmup: int = 3, iters: int = 15) -> float:
     """Median over ``iters`` runs of one call, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
+    from torchaudio_contrib_tpu_torch.benchmarks import time_cuda_ms
+    return time_cuda_ms(fn, warmup, iters)
+
+
+def _turns(plain, kern, warmup: int = 2, iters: int = 10) -> tuple:
+    """(kernel ms, plain ms): in turns plain, kernel, kernel, plain; the
+    better median of each."""
+    a, b, c, d = (_time_ms(plain, warmup, iters), _time_ms(kern, warmup, iters),
+                  _time_ms(kern, warmup, iters), _time_ms(plain, warmup, iters))
+    return min(b, c), min(a, d)
 
 
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
                          "(torch.cuda.is_available() is False)")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
+    from torchaudio_contrib_tpu_torch.benchmarks import card as card_name
+    card = card_name()
     print(card, flush=True)          # name, power limit
     print(f"device: torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} card(s)", flush=True)
@@ -491,17 +590,10 @@ def phase_config2_train(layer, x, g, y, dx, dfb, card: str) -> tuple:
     def bwd_plain():
         return fused._bwd_plain(dmel, reim2, *bargs, True, True)
 
-    def turns(plain, kern):
-        """(kernel ms, plain ms): in turns plain, kernel, kernel, plain;
-        the better median of each."""
-        a, b, c, d = (_time_ms(plain, 2, 10), _time_ms(kern, 2, 10),
-                      _time_ms(kern, 2, 10), _time_ms(plain, 2, 10))
-        return min(b, c), min(a, d)
-
-    ms_fb, plain_fb_ms = turns(plain_fb, kern_fb)
+    ms_fb, plain_fb_ms = _turns(plain_fb, kern_fb)
     with torch.no_grad():
-        ms_res, ms_fwd = turns(fwd, fwd_res)
-        ms_bwd, plain_bwd = turns(bwd_plain, bwd)
+        ms_res, ms_fwd = _turns(fwd, fwd_res)
+        ms_bwd, plain_bwd = _turns(bwd_plain, bwd)
         ms_bwd_fb = _time_ms(lambda: bwd(False), 2, 10)
         plain_fwd_res = _time_ms(lambda: fused._fwd_res_plain(
             x2, fbd, *args, save_spec=True), 2, 10)
@@ -588,6 +680,352 @@ def phase_config3(model, xb_c, labels_c, snaps, cpu_losses, cpu_ms, losses,
           f"(host clock)", flush=True)
 
 
+def _convergence(y, mag, n_fft: int, hop: int, window="hann",
+                 center: bool = True) -> float:
+    """Spectral convergence ``|| |STFT(y)| - mag || / || mag ||``."""
+    from torchaudio_contrib_tpu_torch.ops import stft
+    got = stft(y, n_fft, hop, window=window, center=center).abs()
+    return (torch.linalg.norm(got - mag) / torch.linalg.norm(mag)).item()
+
+
+def phase_gl_parity(gen: torch.Generator) -> None:
+    """The fused Griffin-Lim kernels vs their plain version on the card,
+    row-major (the JAX package's first kernel) and tile-major (its layout
+    probe), and the stage-bisect build's ``full`` variant."""
+    from torchaudio_contrib_tpu_torch.ops import fused_griffinlim as fg
+    from torchaudio_contrib_tpu_torch.ops import stft, stft_output_length
+    m = GL_FULL["momentum"]
+    with torch.inference_mode():
+        for name, shape, n_fft, hop, window, center in GL_CASES:
+            x = torch.randn(shape, generator=gen).cuda()
+            mag = stft(x, n_fft, hop, window=window, center=center).abs()
+            length = stft_output_length(mag.shape[-1], n_fft, hop,
+                                        center=center)
+            waves = {}
+            if hop == n_fft:
+                err_of, what = _rel_l2, "l2"
+                bars = (GL_NO_OVERLAP_L2, GL_NO_OVERLAP_L2,
+                        GL_NO_OVERLAP_CONV)
+            else:
+                err_of, what = _rel, "max|kernel-plain|/max|plain|"
+                bars = (GL_STATE_PARITY, GL_WAVE_PARITY, GL_CONV_PARITY)
+            for tile_major in (False, True):
+                lay = "tile-major" if tile_major else "row-major"
+                ops = fg._gl_prepare(mag, n_fft, hop, window, None,
+                                     tile_major)[:5]
+                # one iteration in both, from the state two plain
+                # iterations reach (a generic complex state)
+                start, _ = fg._gl_solve_plain(*ops, n_fft, hop, 2, m,
+                                              tile_major)
+                ops = (start,) + ops[1:]
+                before = _gl_counts()
+                k_state, k_prev = fg._gl_solve_cuda(*ops, n_fft, hop, 1, m,
+                                                    tile_major)
+                p_state, p_prev = fg._gl_solve_plain(*ops, n_fft, hop, 1, m,
+                                                     tile_major)
+                args = (mag, n_fft, hop, window)
+                y4 = fg._gl_fused(*args, 4, m, length, center,
+                                  tile_major=tile_major)
+                y4_p = fg._gl_plain(*args, 4, m, length, center,
+                                    tile_major=tile_major)
+                y32 = fg._gl_fused(*args, 32, m, length, center,
+                                   tile_major=tile_major)
+                y32_p = fg._gl_plain(*args, 32, m, length, center,
+                                     tile_major=tile_major)
+                torch.cuda.synchronize()
+                launched = [a - b for a, b in zip(_gl_counts(), before)]
+                errs = (_rel(k_prev, p_prev), err_of(k_state, p_state),
+                        err_of(y4, y4_p))
+                conv = [_convergence(y, mag, n_fft, hop, window, center)
+                        for y in (y32, y32_p)]
+                print(f"gl parity {name}, {lay}: {tuple(mag.shape)} -> "
+                      f"{tuple(y4.shape)}; one iteration max|kernel-plain|/"
+                      f"max|plain| products {errs[0]:.3e}, {what} state "
+                      f"{errs[1]:.3e}; 4-iteration waveform {errs[2]:.3e}; "
+                      f"32-iteration convergence kernel {conv[0]:.6f}, plain "
+                      f"{conv[1]:.6f}", flush=True)
+                _check(launched == [3, 3 * int(tile_major)],
+                       f"{name}, {lay}: launches {launched}")
+                _check(y4.shape == shape[:-1] + (length,)
+                       and all(bool(torch.isfinite(t).all())
+                               for t in (k_state, k_prev, y4, y32)),
+                       f"{name}, {lay}: shape {tuple(y4.shape)} or "
+                       f"non-finite")
+                _check(errs[0] <= GL_PRODUCT_PARITY and errs[1] <= bars[0]
+                       and errs[2] <= bars[1],
+                       f"{name}, {lay}: {errs} over ({GL_PRODUCT_PARITY}, "
+                       f"{bars[0]}, {bars[1]})")
+                _check(abs(conv[0] - conv[1]) <= bars[2],
+                       f"{name}, {lay}: convergence {conv}")
+                waves[tile_major] = y4
+            layouts = _rel(waves[True], waves[False])
+            # the bisect build's "full" variant is the solve itself
+            ops = fg._gl_prepare(mag, n_fft, hop, window)[:5]
+            solve = fg._gl_solve_cuda(*ops, n_fft, hop, 4, m)
+            full = fg._gl_solve_cuda(*ops, n_fft, hop, 4, m, False, "full")
+            nonorm = fg._gl_solve_cuda(*ops, n_fft, hop, 4, m, False,
+                                       "nonorm")
+            bitwise = all(torch.equal(a, b) for a, b in zip(solve, full))
+            print(f"gl parity {name}: tile-major vs row-major waveform "
+                  f"{layouts:.3e}; bisect 'full' bitwise equal to the solve: "
+                  f"{bitwise}; 'nonorm' differs: "
+                  f"{not torch.equal(nonorm[0], solve[0])}", flush=True)
+            _check(layouts <= GL_LAYOUT_PARITY,
+                   f"{name}: layouts differ by {layouts}")
+            _check(bitwise, f"{name}: bisect 'full' differs from the solve")
+            _check(not torch.equal(nonorm[0], solve[0]),
+                   f"{name}: the 'nonorm' switch changed nothing")
+
+
+def phase_inverse_path(gen: torch.Generator):
+    """Drive the inverse path, each part between a reset and a read of the
+    fused Griffin-Lim counters: (a) ``griffin_lim``, (b) the vocoder's
+    ``mel_to_audio`` requests, (c) the layout probe, (d) the stage bisect.
+    Returns the launches of the row-major solve, the tile-major solve and
+    the bisect build, and what the later phases check."""
+    from torchaudio_contrib_tpu_torch import ops
+    from torchaudio_contrib_tpu_torch.benchmarks import gl_bisect, gl_probe
+    clips, samples = GL_FULL["clips"], GL_FULL["samples"]
+    n_fft, hop = GL_SHAPES[0]
+    x = torch.randn((clips, samples), generator=gen).cuda()
+    noise = [torch.randn((8, samples), generator=gen).cuda()
+             for _ in range(4)]
+    mel_kw = {k: VOCODER[k] for k in ("num_mels", "sample_rate", "f_max",
+                                      "fft_length", "hop_length", "power")}
+    with torch.inference_mode():
+        mag = ops.stft(x, n_fft, hop).abs()
+        logmels = [torch.log(torch.clamp(ops.melspectrogram(n, **mel_kw),
+                                         min=1e-5)) for n in noise]
+        _reset_gl_counts()
+        y = ops.griffin_lim(mag, n_fft, hop, n_iter=GL_FULL["n_iter"],
+                            momentum=GL_FULL["momentum"], length=samples,
+                            method="pallas")
+        torch.cuda.synchronize()
+        a_counts = _gl_counts()
+        _reset_gl_counts()
+        waves = [ops.mel_to_audio(torch.exp(mel), method="pallas", **VOCODER)
+                 for mel in logmels]
+        torch.cuda.synchronize()
+        b_counts = _gl_counts()
+        _reset_gl_counts()
+        probes = [gl_probe.run(f, h, 5.0) for f, h in GL_SHAPES]
+        torch.cuda.synchronize()
+        c_counts = _gl_counts()
+        _reset_gl_counts()
+        bisect = gl_bisect.run()
+        torch.cuda.synchronize()
+        d_counts = _gl_counts()
+    print(f"inverse path: solves launched (all, tile-major): griffin_lim "
+          f"{list(a_counts)}, 4 vocoder requests {list(b_counts)}, layout "
+          f"probe {list(c_counts)}, stage bisect {list(d_counts)}",
+          flush=True)
+    _check(a_counts == (1, 0), f"griffin_lim launched {a_counts}")
+    _check(b_counts == (4, 0), f"4 vocoder requests launched {b_counts}")
+    _check(c_counts[1] >= 2 and c_counts[0] - c_counts[1] >= 2,
+           f"the layout probe launched {c_counts}")
+    _check(d_counts[0] >= len(bisect) == 5 and d_counts[1] == 0,
+           f"the stage bisect launched {d_counts} for {sorted(bisect)}")
+    frames = mag.shape[-1]
+    for mel, wave in zip(logmels, waves):
+        _check(mel.shape == (8, VOCODER["num_mels"], frames)
+               and wave.shape == (8, (frames - 1) * hop)
+               and bool(torch.isfinite(wave).all())
+               and wave.abs().max().item() > 0,
+               f"vocoder: mel {tuple(mel.shape)} -> {tuple(wave.shape)}")
+    for probe in probes:
+        _check(probe["rel_err"] <= GL_LAYOUT_PARITY,
+               f"layout probe: waveforms differ by {probe['rel_err']}")
+    print(f"vocoder: 4 requests of log-mel {tuple(logmels[0].shape)} -> "
+          f"waveform {tuple(waves[0].shape)}, finite; layout probe rel_err "
+          f"{[p['rel_err'] for p in probes]}", flush=True)
+    launches = (a_counts[0] + b_counts[0] + c_counts[0] - c_counts[1],
+                c_counts[1], d_counts[0])
+    return launches, (mag, y), probes, bisect
+
+
+def phase_gl_full(mag, y) -> None:
+    """(a)'s waveform checked against the ``matmul`` loop's convergence on
+    the same magnitudes."""
+    from torchaudio_contrib_tpu_torch import ops
+    n_fft, hop = GL_SHAPES[0]
+    with torch.inference_mode():
+        ref = ops.griffin_lim(mag, n_fft, hop, n_iter=GL_FULL["n_iter"],
+                              momentum=GL_FULL["momentum"],
+                              length=GL_FULL["samples"], method="matmul")
+        conv, conv_ref = (_convergence(t, mag, n_fft, hop) for t in (y, ref))
+    print(f"griffin_lim {tuple(mag.shape)} -> {tuple(y.shape)}, "
+          f"{GL_FULL['n_iter']} iterations: spectral convergence fused "
+          f"{conv:.4f}, matmul loop {conv_ref:.4f}", flush=True)
+    _check(y.shape == (GL_FULL["clips"], GL_FULL["samples"])
+           and bool(torch.isfinite(y).all()), f"shape {tuple(y.shape)}")
+    _check(conv <= conv_ref + GL_CONV_SLACK,
+           f"fused convergence {conv} > matmul loop's {conv_ref} + "
+           f"{GL_CONV_SLACK}")
+
+
+def phase_config4(gen: torch.Generator) -> None:
+    """BASELINE config 4: the ISTFT round trip on the card (no kernel)."""
+    from torchaudio_contrib_tpu_torch import ops
+    x = torch.randn((4, 2, 32768), generator=gen).cuda()
+    with torch.inference_mode():
+        back = ops.istft(ops.stft(x, 1024, 256), 256, length=32768)
+    err = (back - x).abs().max().item()
+    print(f"config 4: (4, 2, 32768) -> stft(1024, 256) -> istft: "
+          f"{tuple(back.shape)}, max abs error {err:.3e}", flush=True)
+    _check(back.shape == x.shape and err <= ISTFT_ATOL,
+           f"round trip {tuple(back.shape)}, error {err} > {ISTFT_ATOL}")
+
+
+def _library_gl(mag, n_fft: int, hop: int, n_iter: int, momentum: float,
+                length: int):
+    """Momentum Griffin-Lim as a loop of ``torch.stft``/``torch.istft``
+    (cuFFT): the library yardstick, used nowhere in the port."""
+    w = torch.hann_window(n_fft, device=mag.device)
+    spec = torch.complex(mag, torch.zeros_like(mag))
+    prev = torch.zeros_like(spec)
+    for _ in range(n_iter):
+        wave = torch.istft(spec, n_fft, hop, window=w, length=length)
+        rebuilt = torch.stft(wave, n_fft, hop, window=w, return_complex=True)
+        update = rebuilt + momentum * (rebuilt - prev)
+        spec = mag * update / torch.clamp(update.abs(), min=1e-16)
+        prev = rebuilt
+    return torch.istft(spec, n_fft, hop, window=w, length=length)
+
+
+def phase_gl_timings(gen: torch.Generator, card: str, probes, bisect) -> tuple:
+    """The solve at full width, fft 1024 and fft 2048: one iteration
+    checked against the plain version in both layouts, then the solve timed
+    against its plain version and the whole op against the other loops.
+    Returns the kernels-line entries of the row-major solve and the
+    tile-major solve (fft 1024) and of the bisect build (fft 2048)."""
+    from torchaudio_contrib_tpu_torch import ops
+    from torchaudio_contrib_tpu_torch.ops import fused_griffinlim as fg
+    clips, samples = GL_FULL["clips"], GL_FULL["samples"]
+    n_iter, m = GL_FULL["n_iter"], GL_FULL["momentum"]
+    entries = {}
+    x = torch.randn((clips, samples), generator=gen).cuda()
+    with torch.inference_mode():
+        for (n_fft, hop), probe in zip(GL_SHAPES, probes):
+            mag = ops.stft(x, n_fft, hop).abs()
+            for tile_major in (False, True):
+                lay = "tile-major" if tile_major else "row-major"
+                prep = fg._gl_prepare(mag, n_fft, hop, "hann", None,
+                                      tile_major)[:5]
+                start, _ = fg._gl_solve_plain(*prep, n_fft, hop, 2, m,
+                                              tile_major)
+                prep = (start,) + prep[1:]
+                got = fg._gl_solve_cuda(*prep, n_fft, hop, 1, m, tile_major)
+                want = fg._gl_solve_plain(*prep, n_fft, hop, 1, m, tile_major)
+                errs = (_rel(got[1], want[1]), _rel(got[0], want[0]))
+                max_abs = (got[0] - want[0]).abs().max().item()
+                _check(errs[0] <= GL_PRODUCT_PARITY
+                       and errs[1] <= GL_STATE_PARITY,
+                       f"fft {n_fft}, {lay}: one iteration {errs}")
+                ms, plain_ms = _turns(
+                    lambda: fg._gl_solve_plain(*prep, n_fft, hop, n_iter, m,
+                                               tile_major),
+                    lambda: fg._gl_solve_cuda(*prep, n_fft, hop, n_iter, m,
+                                              tile_major), 1, 5)
+                # the function: an inverse and a forward transform per
+                # frame and iteration; the kernels: both as dense products
+                # over ft padded 64-bin tiles of re and im
+                n_frames, ft = mag.shape[-1], prep[2].shape[0] // 128
+                flops = n_iter * 2 * clips * n_frames * _fft_flops(n_fft)
+                design = n_iter * 2 * 2.0 * clips * n_frames \
+                    * (ft * 128) * n_fft
+                stats = {"max_abs_err": max_abs, "ms": ms,
+                         "plain_ms": plain_ms,
+                         **_bound(flops, _nbytes(*prep, got[0], got[1]),
+                                  design)}
+                print(f"timing [{card}]: fused Griffin-Lim solve, fft "
+                      f"{n_fft}, hop {hop}, {clips} x {mag.shape[-1]} "
+                      f"frames, {n_iter} iterations, {lay}: kernels "
+                      f"{ms:.3f} ms, plain version {plain_ms:.3f} ms, bound "
+                      f"{stats['bound_ms']:.4f} ms by {stats['bound_by']} "
+                      f"({flops / 1e9:.2f} GFLOP as FFTs); the kernels' "
+                      f"{design / 1e12:.3f} TFLOP at the FP32 peak "
+                      f"{stats['design_flop_ms']:.3f} ms; one iteration max|kernel-plain|/max|plain| "
+                      f"products {errs[0]:.3e}, state {errs[1]:.3e}",
+                      flush=True)
+                entries[(n_fft, tile_major)] = stats
+
+            def whole(method):
+                return ops.griffin_lim(mag, n_fft, hop, n_iter=n_iter,
+                                       momentum=m, length=samples,
+                                       method=method)
+
+            fused_ms, matmul_ms, fft_ms, lib_ms = (
+                _time_ms(lambda: whole("pallas"), 1, 3),
+                _time_ms(lambda: whole("matmul"), 1, 3),
+                _time_ms(lambda: whole("fft"), 1, 3),
+                _time_ms(lambda: _library_gl(mag, n_fft, hop, n_iter, m,
+                                             samples), 1, 3))
+            conv = [_convergence(t, mag, n_fft, hop) for t in (
+                whole("pallas"), whole("fft"),
+                _library_gl(mag, n_fft, hop, n_iter, m, samples))]
+            print(f"timing [{card}]: griffin_lim fft {n_fft}, hop {hop}, "
+                  f"{n_iter} iterations, whole op: fused kernels "
+                  f"{fused_ms:.3f} ms, matmul loop {matmul_ms:.3f} ms, fft "
+                  f"loop {fft_ms:.3f} ms, torch.stft/torch.istft loop "
+                  f"{lib_ms:.3f} ms; spectral convergence fused "
+                  f"{conv[0]:.4f}, fft loop {conv[1]:.4f}, torch loop "
+                  f"{conv[2]:.4f}; layout probe: row-major "
+                  f"{probe['baseline']:.3f} ms, tile-major "
+                  f"{probe['tile_major']:.3f} ms", flush=True)
+            for key in ((n_fft, False), (n_fft, True)):
+                entries[key].update(whole_op_ms=fused_ms,
+                                    matmul_loop_ms=matmul_ms,
+                                    fft_loop_ms=fft_ms,
+                                    torch_stft_loop_ms=lib_ms)
+    print(f"timing [{card}]: stage bisect at fft 2048, hop 512, ms per "
+          f"variant: " + ", ".join(f"{k} {v:.3f}" for k, v in bisect.items()),
+          flush=True)
+    # the bisect build's own entry: its "full" variant at fft 2048, full
+    # width, bitwise the solve, and one iteration against the plain version
+    n_fft, hop = GL_SHAPES[1]
+    with torch.inference_mode():
+        mag = ops.stft(x, n_fft, hop).abs()
+        prep = fg._gl_prepare(mag, n_fft, hop, "hann")[:5]
+        start, _ = fg._gl_solve_plain(*prep, n_fft, hop, 2, m)
+        prep = (start,) + prep[1:]
+        full = fg._gl_solve_cuda(*prep, n_fft, hop, 1, m, False, "full")
+        solve = fg._gl_solve_cuda(*prep, n_fft, hop, 1, m)
+        want = fg._gl_solve_plain(*prep, n_fft, hop, 1, m)
+        bitwise = all(torch.equal(a, b) for a, b in zip(full, solve))
+        err = _rel(full[0], want[0])
+        max_abs = (full[0] - want[0]).abs().max().item()
+    print(f"stage bisect 'full' at fft {n_fft}, {clips} x {mag.shape[-1]} "
+          f"frames: bitwise equal to the solve: {bitwise}; one iteration "
+          f"max|kernel-plain|/max|plain| state {err:.3e}", flush=True)
+    _check(bitwise, "bisect 'full' differs from the solve at full width")
+    _check(err <= GL_STATE_PARITY, f"bisect 'full', one iteration: {err}")
+    bisect_entry = {**entries[(n_fft, False)], "max_abs_err": max_abs,
+                    "ms": bisect["full"], "variants_ms": bisect}
+    n_fft = GL_SHAPES[0][0]
+    return entries[(n_fft, False)], entries[(n_fft, True)], bisect_entry
+
+
+def _mel_bounds(x, mels: int, n_fft: int, hop: int) -> tuple:
+    """The bounds of the fused mel forward and backward at ``x (B, 1, T)``.
+    The function: one transform per frame (an FFT's operations) plus the
+    mel products over the ``n_fft//2 + 1`` bins there are, in FP32; each
+    input read once and each output written once.  The kernels: the
+    transform as a matrix product over their padded 64-bin tiles."""
+    rows = x.shape[0] * (1 + (x.shape[-1] - n_fft) // hop)
+    n_freqs = n_fft // 2 + 1
+    ft = -(-n_freqs // 64)
+    fft, mel = rows * _fft_flops(n_fft), 2.0 * rows * n_freqs * mels
+    dft = 2.0 * rows * n_fft * ft * 128
+    mel_pad = 2.0 * rows * ft * 64 * mels
+    fb = n_freqs * mels
+    fwd = _bound(fft + mel, 4 * (x.numel() + fb + rows * mels),
+                 dft + mel_pad)
+    bwd = _bound(fft + 2 * mel, 4 * (rows * mels + rows * 2 * n_freqs + fb
+                                     + rows * n_fft + fb),
+                 dft + 2 * mel_pad)
+    return fwd, bwd
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
@@ -600,17 +1038,38 @@ def main() -> None:
     train_counts, cfg2_train, cfg3_train = phase_train_path(gen)
     _, bwd_stats = phase_config2_train(*cfg2_train, card)
     phase_config3(*cfg3_train, card)
+    fwd_bound, bwd_bound = _mel_bounds(cfg2_run[1], CFG2["mels"], CFG2["fft"],
+                                       CFG2["hop"])
+    del cfg2_run, serving_run, cfg2_train, cfg3_train
+    torch.cuda.empty_cache()
+    phase_gl_parity(gen)
+    gl_launches, gl_run, probes, bisect = phase_inverse_path(gen)
+    phase_gl_full(*gl_run)
+    phase_config4(gen)
+    gl_stats = phase_gl_timings(gen, card, probes, bisect)
     source = "torchaudio_contrib_tpu_torch/csrc/"
+    gl_file = "torchaudio_contrib_tpu/ops/fused_griffinlim.py"
     kernels = [
         {"name": "fused_mel_fwd", "route": "cuda",
          "source": source + "fused_mel_fwd.cu",
          "replaces": "torchaudio_contrib_tpu/ops/fused.py:440",
-         "launches": launches + train_counts[0], **stats},
+         "launches": launches + train_counts[0], **stats, **fwd_bound},
         {"name": "fused_mel_bwd", "route": "cuda",
          "source": source + "fused_mel_bwd.cu",
          "replaces": "torchaudio_contrib_tpu/ops/fused.py:604",
-         "launches": train_counts[1], **bwd_stats},
+         "launches": train_counts[1], **bwd_stats, **bwd_bound},
+    ] + [
+        {"name": name, "route": "cuda", "source": source + "fused_gl.cu",
+         "replaces": replaces, "launches": n, **entry}
+        for name, replaces, n, entry in zip(
+            ("fused_gl", "fused_gl_tile_major", "fused_gl_bisect"),
+            (gl_file + ":132", gl_file + ":261",
+             "benchmarks/r3_gl_bisect.py:97"), gl_launches, gl_stats)
     ]
+    for k in kernels:
+        # a bound over a time measured for the same function is no bound
+        _check(0 < k["bound_ms"] <= min(k["ms"], k["plain_ms"]),
+               f"{k['name']}: bound {k['bound_ms']} ms over a measured time")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

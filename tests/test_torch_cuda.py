@@ -14,6 +14,7 @@ import torch
 
 from torchaudio_contrib_tpu_torch import ops as tops
 from torchaudio_contrib_tpu_torch.ops import fused as tfused
+from torchaudio_contrib_tpu_torch.ops import fused_griffinlim as tgl
 import torchaudio_contrib_tpu_torch as tat
 
 PARITY = 1e-5    # max |kernel - plain| / max |plain|: both are f32 chains
@@ -195,3 +196,169 @@ def test_classifier_on_card_matches_cpu(cuda_device, fused):
         update = (value - start[name]).abs().max().item()
         err = (card.state_dict()[name].cpu() - value).abs().max().item()
         assert err <= GRAD_PARITY * update, (name, err, update)
+
+
+# ---- fused Griffin-Lim: the solve's kernels vs their plain version ---------
+
+# fft, hop, samples, window, center: the JAX package's four eligible
+# shapes, one only this port's rule admits, center=False, another window
+GL_CASES = [
+    (1024, 256, 11025, "hann", True),
+    (2048, 512, 22050, "hann", True),
+    (1024, 512, 11025, "hann", True),
+    (1024, 1024, 11025, "hann", True),
+    (400, 160, 16000, "hann", True),
+    (1024, 256, 11025, "hann", False),
+    (512, 128, 6000, "hamming", True),
+]
+
+
+def _gl_mag(seed, shape, fft, hop, window="hann", center=True):
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32))
+    return tops.stft(x, fft, hop, window=window, center=center).abs()
+
+
+def _peak_err(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def _l2_err(got, want):
+    return (torch.linalg.norm(got - want) / torch.linalg.norm(want)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_major", [False, True],
+                         ids=["row_major", "tile_major"])
+@pytest.mark.parametrize("fft,hop,samples,window,center", GL_CASES)
+def test_gl_kernels_match_plain(cuda_device, fft, hop, samples, window,
+                                center, tile_major):
+    """One iteration from a generic state: the products (``prev``) within
+    1e-5 of peak and the projected state within 1e-4 (the projection
+    divides by |upd|); the 4-iteration waveform within 1e-4 of peak.  With
+    no overlap (hop = fft, Hann) the spectrum stays almost real from the
+    zero-phase start, and a bin whose real part passes through zero gets
+    its sign from rounding: the state and the waveform are held in l2,
+    to 5e-3, there."""
+    err_of, bar = (_l2_err, 5e-3) if hop == fft else (_peak_err, 1e-4)
+    mag = _gl_mag(fft + hop, (2, samples), fft, hop, window,
+                  center).to(cuda_device)
+    ops = tgl._gl_prepare(mag, fft, hop, window, None, tile_major)[:5]
+    start, _ = tgl._gl_solve_plain(*ops, fft, hop, 2, 0.99, tile_major)
+    ops = (start,) + ops[1:]
+    before = (tgl.GL_KERNEL_LAUNCHES, tgl.GL_TILE_MAJOR_LAUNCHES)
+    state, prev = tgl._gl_solve_cuda(*ops, fft, hop, 1, 0.99, tile_major)
+    assert (tgl.GL_KERNEL_LAUNCHES, tgl.GL_TILE_MAJOR_LAUNCHES) == (
+        before[0] + 1, before[1] + int(tile_major))
+    want_state, want_prev = tgl._gl_solve_plain(*ops, fft, hop, 1, 0.99,
+                                                tile_major)
+    assert _peak_err(prev, want_prev) <= PARITY
+    assert err_of(state, want_state) <= bar
+    length = tops.stft_output_length(mag.shape[-1], fft, hop, center=center)
+    args = (mag, fft, hop, window, 4, 0.99, length, center)
+    got = tgl._gl_fused(*args, tile_major=tile_major)
+    want = tgl._gl_plain(*args, tile_major=tile_major)
+    assert got.shape == (2, length) and bool(torch.isfinite(got).all())
+    assert err_of(got, want) <= bar
+
+
+@pytest.mark.cuda
+def test_gl_layouts_and_bisect_full_agree(cuda_device):
+    """Tile-major gives row-major's waveform; the stage bisect's ``full``
+    variant is the solve bit for bit, and every other variant is not."""
+    mag = _gl_mag(3, (2, 2, 6000), 512, 128).to(cuda_device)
+    args = (mag, 512, 128, "hann", 8, 0.99, 6000, True)
+    rows, tiles = tgl._gl_fused(*args), tgl._gl_fused(*args, tile_major=True)
+    assert rows.shape == (2, 2, 6000)
+    assert _peak_err(tiles, rows) <= 1e-6
+    ops = tgl._gl_prepare(mag, 512, 128, "hann")[:5]
+    solve = tgl._gl_solve_cuda(*ops, 512, 128, 4, 0.99)
+    for variant in tgl.VARIANTS:
+        got = tgl._gl_solve_cuda(*ops, 512, 128, 4, 0.99, False, variant)
+        same = torch.equal(got[0], solve[0]) and torch.equal(got[1], solve[1])
+        assert same == (variant == "full"), variant
+
+
+@pytest.mark.cuda
+def test_griffin_lim_pallas_on_card(cuda_device):
+    """The op on a CUDA tensor launches the solve once, converges like the
+    plain version (32 iterations, within 1e-3) and no worse than the matmul
+    loop plus 0.05; a random start converges too."""
+    mag = _gl_mag(4, (2, 22050), 1024, 256).to(cuda_device)
+
+    def conv(y):
+        got = tops.stft(y, 1024, 256).abs()
+        return (torch.linalg.norm(got - mag) / torch.linalg.norm(mag)).item()
+
+    before = tgl.GL_KERNEL_LAUNCHES
+    y = tops.griffin_lim(mag, 1024, 256, n_iter=32, length=22050,
+                         method="pallas")
+    assert tgl.GL_KERNEL_LAUNCHES == before + 1
+    plain = tgl._gl_plain(mag, 1024, 256, "hann", 32, 0.99, 22050, True)
+    loop = tops.griffin_lim(mag, 1024, 256, n_iter=32, length=22050,
+                            method="matmul")
+    assert y.shape == (2, 22050) and bool(torch.isfinite(y).all())
+    assert abs(conv(y) - conv(plain)) <= 1e-3
+    assert conv(y) <= conv(loop) + 0.05
+    rand = tops.griffin_lim(mag, 1024, 256, n_iter=32, length=22050,
+                            method="pallas",
+                            generator=torch.Generator().manual_seed(0))
+    assert not torch.equal(rand, y) and conv(rand) <= conv(loop) + 0.05
+
+
+@pytest.mark.cuda
+def test_mel_to_audio_and_round_trip_on_card(cuda_device):
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 2, 8192)).astype(np.float32)).to(cuda_device)
+    back = tops.istft(tops.stft(x, 1024, 256), 256, length=8192)
+    assert (back - x).abs().max().item() <= 1e-4
+    mel = tops.melspectrogram(x, num_mels=80, sample_rate=22050, f_max=8000.0,
+                              power=1.0, fft_length=1024, hop_length=256)
+    before = tgl.GL_KERNEL_LAUNCHES
+    wave = tops.mel_to_audio(mel, num_mels=80, sample_rate=22050,
+                             f_max=8000.0, fft_length=1024, hop_length=256,
+                             n_iter=8, power=1.0, method="pallas")
+    assert tgl.GL_KERNEL_LAUNCHES == before + 1
+    assert wave.shape == (2, 2, 8192) and bool(torch.isfinite(wave).all())
+
+
+@pytest.mark.cuda
+def test_gl_kernels_refuse_what_they_do_not_take(cuda_device):
+    mag = _gl_mag(6, (1, 6000), 512, 128).to(cuda_device)
+    ops = tgl._gl_prepare(mag, 512, 128, "hann")[:5]
+    with pytest.raises(ValueError, match="unknown variant"):
+        tgl._gl_solve_cuda(*ops, 512, 128, 1, 0.99, False, "nodma")
+    with pytest.raises(ValueError, match="do not fit"):
+        tgl._gl_solve_cuda(*ops, 512, 128, 1, 0.99, True)
+    with pytest.raises(ValueError, match="float32 CUDA"):
+        tgl._gl_solve_cuda(ops[0].cpu(), *ops[1:], 512, 128, 1, 0.99)
+
+
+@pytest.mark.cuda
+def test_stft_conv_is_full_float32_on_card(cuda_device):
+    """``method="conv"`` holds to ``method="fft"`` at 1e-5 of peak on the
+    card even where the process allows TF32 convolutions."""
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (2, 2, 16000)).astype(np.float32)).to(cuda_device)
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for fft, hop in ((1024, 256), (400, 160)):
+            got = tops.stft(x, fft, hop, method="conv")
+            want = tops.stft(x, fft, hop, method="fft")
+            assert got.shape == want.shape
+            assert ((got - want).abs().max()
+                    / want.abs().max()).item() <= 1e-5
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+
+
+@pytest.mark.cuda
+def test_gl_zero_iterations_launch_nothing(cuda_device):
+    mag = _gl_mag(8, (1, 6000), 512, 128).to(cuda_device)
+    ops = tgl._gl_prepare(mag, 512, 128, "hann")[:5]
+    before = tgl.GL_KERNEL_LAUNCHES
+    state, prev = tgl._gl_solve_cuda(*ops, 512, 128, 0, 0.99)
+    assert tgl.GL_KERNEL_LAUNCHES == before
+    assert torch.equal(state, ops[0]) and not prev.any()

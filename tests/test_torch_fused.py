@@ -151,6 +151,11 @@ def test_basis_layout():
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, torchaudio_contrib_tpu_torch\n"
+            "from torchaudio_contrib_tpu_torch.benchmarks import "
+            "gl_bisect, gl_probe, gl_profile\n"
+            "from torchaudio_contrib_tpu_torch.ops import (griffinlim, "
+            "fused_griffinlim, melinv, pitch, resample, phase_vocoder, "
+            "mulaw)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'jaxlib' "
             "or m.startswith('torchaudio_contrib_tpu.') "

@@ -1,18 +1,24 @@
-"""Layer API and models of the PyTorch port (the mel front end's slice)."""
+"""Layer API and models of the PyTorch port (the mel front end's and the inverse path's
+slices)."""
 from .layers import (
     Transform, Pipeline,
-    STFT, ComplexNorm,
-    Filterbank, MelFilterbank, ApplyFilterbank,
+    STFT, ISTFT, InverseSpectrogram, ComplexNorm,
+    Filterbank, MelFilterbank, BarkFilterbank, ApplyFilterbank,
     AmplitudeToDb, DbToAmplitude,
-    Spectrogram, Melspectrogram, FusedMelspectrogram,
+    MuLawEncoding, MuLawDecoding,
+    Resample, StretchSpecTime, GriffinLim,
+    Spectrogram, Melspectrogram, Barkspectrogram, FusedMelspectrogram,
 )
 from .frontend import MelFrontendClassifier
 
 __all__ = [
     "Transform", "Pipeline",
-    "STFT", "ComplexNorm",
-    "Filterbank", "MelFilterbank", "ApplyFilterbank",
+    "STFT", "ISTFT", "InverseSpectrogram", "ComplexNorm",
+    "Filterbank", "MelFilterbank", "BarkFilterbank", "ApplyFilterbank",
     "AmplitudeToDb", "DbToAmplitude",
-    "Spectrogram", "Melspectrogram", "FusedMelspectrogram",
+    "MuLawEncoding", "MuLawDecoding",
+    "Resample", "StretchSpecTime", "GriffinLim",
+    "Spectrogram", "Melspectrogram", "Barkspectrogram",
+    "FusedMelspectrogram",
     "MelFrontendClassifier",
 ]

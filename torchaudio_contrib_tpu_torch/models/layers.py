@@ -1,7 +1,8 @@
 """Layer API: composable transform modules + pipeline factories.
 
 Port of ``torchaudio_contrib_tpu/models/layers.py`` (the mel front end's
-layers).  Every transform is an ``nn.Module``.  Derived arrays (windows,
+layers and the inverse path's: ISTFT, Griffin-Lim, time stretch, resample,
+μ-law, bark).  Every transform is an ``nn.Module``.  Derived arrays (windows,
 filterbanks) are built from the layer's config and held as non-persistent
 buffers: they follow ``.to(device)`` but stay out of ``state_dict()``, so
 a checkpoint holds only trainable leaves — the JAX package's
@@ -18,16 +19,25 @@ from ..ops.complexops import complex_norm as _complex_norm
 from ..ops.db import (amplitude_to_db as _amplitude_to_db,
                       db_to_amplitude as _db_to_amplitude)
 from ..ops.filters import apply_filterbank as _apply_filterbank
-from ..ops.filters import create_mel_filter
+from ..ops.filters import create_bark_filter, create_mel_filter
 from ..ops.fused import fused_melspectrogram as _fused_mel
-from ..ops.stft import stft as _stft_fn, _resolve_window
+from ..ops.griffinlim import griffin_lim as _griffin_lim
+from ..ops.mulaw import (mu_law_encoding as _mu_law_encoding,
+                         mu_law_decoding as _mu_law_decoding)
+from ..ops.phase_vocoder import (phase_vocoder as _phase_vocoder,
+                                 compute_phase_advance)
+from ..ops.resample import resample as _resample
+from ..ops.stft import stft as _stft_fn, istft as _istft_fn, _resolve_window
 
 __all__ = [
     "Transform", "Pipeline",
-    "STFT", "ComplexNorm",
-    "Filterbank", "MelFilterbank", "ApplyFilterbank",
+    "STFT", "ISTFT", "InverseSpectrogram", "ComplexNorm",
+    "Filterbank", "MelFilterbank", "BarkFilterbank", "ApplyFilterbank",
     "AmplitudeToDb", "DbToAmplitude",
-    "Spectrogram", "Melspectrogram", "FusedMelspectrogram",
+    "MuLawEncoding", "MuLawDecoding",
+    "Resample", "StretchSpecTime", "GriffinLim",
+    "Spectrogram", "Melspectrogram", "Barkspectrogram",
+    "FusedMelspectrogram",
 ]
 
 
@@ -76,6 +86,35 @@ class STFT(Transform):
                         method=self.method)
 
 
+class ISTFT(Transform):
+    """Inverse STFT layer over :func:`~..ops.stft.istft`."""
+
+    def __init__(self, fft_length: Optional[int] = None,
+                 hop_length: Optional[int] = None,
+                 win_length: Optional[int] = None, window="hann",
+                 center: bool = True, normalized: bool = False,
+                 onesided: bool = True, length: Optional[int] = None):
+        super().__init__()
+        self.fft_length = fft_length
+        self.hop_length = hop_length
+        self.win_length = win_length
+        self.window = window
+        self.center = center
+        self.normalized = normalized
+        self.onesided = onesided
+        self.length = length
+
+    def forward(self, stft_matrix: torch.Tensor) -> torch.Tensor:
+        return _istft_fn(stft_matrix, self.hop_length, self.win_length,
+                         self.window, self.center, self.normalized,
+                         self.onesided, self.length, self.fft_length)
+
+
+class InverseSpectrogram(ISTFT):
+    """torchaudio-named alias of :class:`ISTFT` (complex spectrogram →
+    waveform; ``transforms.InverseSpectrogram``)."""
+
+
 class ComplexNorm(Transform):
     """Magnitude/power of a complex spectrogram."""
 
@@ -122,6 +161,26 @@ class MelFilterbank(Filterbank):
             mel_scale=mel_scale, norm=norm, dtype=dtype))
 
 
+class BarkFilterbank(Filterbank):
+    """Triangular Bark-scale filterbank (torchaudio's ``barkscale_fbanks``
+    capability), with the same splice points as :class:`MelFilterbank`."""
+
+    def __init__(self, n_barks: int = 128, sample_rate: float = 22050,
+                 f_min: float = 0.0, f_max: Optional[float] = None,
+                 num_bins: int = 1025, bark_scale: str = "traunmuller",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.n_barks = n_barks
+        self.sample_rate = sample_rate
+        self.f_min = f_min
+        self.f_max = f_max if f_max is not None else sample_rate / 2.0
+        self.num_bins = num_bins
+        self.bark_scale = bark_scale
+        self._derived("filterbank", create_bark_filter(
+            n_barks, sample_rate, f_min, self.f_max, num_bins,
+            bark_scale=bark_scale, dtype=dtype))
+
+
 class ApplyFilterbank(Transform):
     """Project ``(..., freq, time)`` through a filterbank matrix.
 
@@ -164,6 +223,88 @@ class DbToAmplitude(Transform):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _db_to_amplitude(x, self.ref, self.power)
+
+
+class MuLawEncoding(Transform):
+    def __init__(self, n_quantize: int = 256):
+        super().__init__()
+        self.n_quantize = n_quantize
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _mu_law_encoding(x, self.n_quantize)
+
+
+class MuLawDecoding(Transform):
+    def __init__(self, n_quantize: int = 256):
+        super().__init__()
+        self.n_quantize = n_quantize
+
+    def forward(self, x_mu: torch.Tensor) -> torch.Tensor:
+        return _mu_law_decoding(x_mu, self.n_quantize)
+
+
+class Resample(Transform):
+    """Rational-ratio polyphase resampler layer
+    (:func:`~..ops.resample.resample`)."""
+
+    def __init__(self, orig_freq: int, new_freq: int, zeros: int = 24,
+                 beta: float = 14.769656459379492):
+        super().__init__()
+        self.orig_freq = orig_freq
+        self.new_freq = new_freq
+        self.zeros = zeros
+        self.beta = beta
+
+    def forward(self, waveform: torch.Tensor) -> torch.Tensor:
+        return _resample(waveform, self.orig_freq, self.new_freq,
+                         self.zeros, self.beta)
+
+
+class StretchSpecTime(Transform):
+    """Phase-vocoder time stretch; the phase advance derives from config.
+    ``rate=`` at call time overrides the layer's."""
+
+    def __init__(self, rate: float, hop_length: int = 512,
+                 num_freqs: int = 1025):
+        super().__init__()
+        self.rate = rate
+        self.hop_length = hop_length
+        self.num_freqs = num_freqs
+        self._derived("phase_advance",
+                      compute_phase_advance(num_freqs, hop_length))
+
+    def forward(self, spec: torch.Tensor,
+                rate: Optional[float] = None) -> torch.Tensor:
+        return _phase_vocoder(spec, rate if rate is not None else self.rate,
+                              self.phase_advance)
+
+
+class GriffinLim(Transform):
+    """Griffin-Lim phase-reconstruction layer
+    (:func:`~..ops.griffinlim.griffin_lim`).  The call takes a magnitude
+    spectrogram ``(..., freq, time)`` and an optional ``generator=`` for a
+    random initial phase, where the JAX package's layer takes ``key=``."""
+
+    def __init__(self, fft_length: Optional[int] = None,
+                 hop_length: Optional[int] = None, window="hann",
+                 n_iter: int = 32, momentum: float = 0.99,
+                 length: Optional[int] = None, center: bool = True,
+                 method: str = "fft"):
+        super().__init__()
+        self.fft_length = fft_length
+        self.hop_length = hop_length
+        self.window = window
+        self.n_iter = n_iter
+        self.momentum = momentum
+        self.length = length
+        self.center = center
+        self.method = method
+
+    def forward(self, mag_specgrams: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return _griffin_lim(mag_specgrams, self.fft_length, self.hop_length,
+                            self.window, self.n_iter, self.momentum,
+                            self.length, self.center, generator, self.method)
 
 
 class Pipeline(nn.Sequential, Transform):
@@ -279,3 +420,21 @@ def Melspectrogram(num_mels: int = 128,
                                    sample_rate=sample_rate, f_min=f_min,
                                    f_max=f_max, num_bins=num_bins)
     return Pipeline(*spec, ApplyFilterbank(filterbank, trainable=trainable))
+
+
+def Barkspectrogram(n_barks: int = 128,
+                    sample_rate: float = 22050,
+                    f_min: float = 0.0,
+                    f_max: Optional[float] = None,
+                    bark_scale: str = "traunmuller",
+                    trainable: bool = False,
+                    **spectrogram_kwargs) -> Pipeline:
+    """``Pipeline(STFT, ComplexNorm(2), ApplyFilterbank(bark))`` factory
+    (torchaudio's ``BarkSpectrogram`` capability): the
+    :func:`Melspectrogram` shape with a Bark-scale bank."""
+    power = spectrogram_kwargs.pop("power", 2.0)
+    spec = Spectrogram(power=power, **spectrogram_kwargs)
+    fb = BarkFilterbank(n_barks=n_barks, sample_rate=sample_rate,
+                        f_min=f_min, f_max=f_max,
+                        num_bins=spec[0].num_freqs, bark_scale=bark_scale)
+    return Pipeline(*spec, ApplyFilterbank(fb, trainable=trainable))

@@ -64,7 +64,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tac_fused_mel_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
                                       i, i, p]
     lib.tac_fused_mel_bwd.restype = i
-    for tile in (lib.tac_fused_mel_fwd_tile, lib.tac_fused_mel_bwd_tile):
+    lib.tac_fused_gl_solve.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
+                                       i, i, i, i, f, i, p]
+    lib.tac_fused_gl_solve.restype = i
+    for tile in (lib.tac_fused_mel_fwd_tile, lib.tac_fused_mel_bwd_tile,
+                 lib.tac_fused_gl_tile):
         tile.argtypes = [i]
         tile.restype = i
     lib.tac_error_string.argtypes = [i]

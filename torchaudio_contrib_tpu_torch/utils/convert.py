@@ -4,6 +4,8 @@
 ``torchaudio_contrib_tpu.models.MelFrontendClassifier`` (with its leaves
 converted to NumPy arrays) into a ``state_dict`` for this package's
 :class:`~..models.frontend.MelFrontendClassifier`.  It does not import JAX.
+The inverse path (ISTFT, Griffin-Lim, mel inversion, the vocoder ops) has no
+parameters, so it needs no conversion.
 """
 from __future__ import annotations
 
