@@ -10,19 +10,26 @@ imports no JAX.  Phases, each printing its lines:
 2. build: the kernels' ``nvcc`` build and its ptxas summary;
 3. forward kernel vs plain PyTorch at small shapes (config 2, Whisper,
    stereo with a ragged frame count, ``to_db=False``, ``center=True``, a
-   shorter window, the classifier's shape): relative error to peak <= 1e-5;
+   shorter window, the classifier's shape, fft 1024 with an odd frame
+   count): relative error to peak <= 1e-5.  A power-of-two ``fft_length``
+   from 256 to 2048 takes the shared-memory FFT kernel, any other
+   (Whisper's 400) the DFT-product kernel; where the FFT kernel runs, the
+   DFT-product kernel is run on the same input and held to the same bar;
 4. gradients through the kernels (forward with its residual, backward)
    vs autograd of the plain chain at the same shapes, for the waveform and
-   the filterbank: relative error to peak <= 1e-4, and two backward runs
-   bitwise equal; then the filterbank-only case (the backward's frame
-   passes not launched) and silence (gradients exactly 0);
+   the filterbank, on the route the size takes and, where that is the FFT
+   route, on the DFT route too: relative error to peak <= 1e-4, and two
+   backward runs bitwise equal; then the filterbank-only case (the
+   backward's frame passes not launched) and silence (gradients exactly
+   0);
 5. the serving path, once, between a reset and a read of the launch
    counters: BASELINE config 2 at full width (32 x 30 s at 22.05 kHz, fft
    2048, hop 512, 128 mels) through ``FusedMelspectrogram(precision=
    "split3")``, then ``MelFrontendClassifier(fused=True)`` answering 4
-   requests of (8, 1, 16000) under ``torch.inference_mode()``;
-6. config 2 checked (shape, finiteness, parity) and timed against the
-   plain version (CUDA events);
+   requests of (8, 1, 16000) under ``torch.inference_mode()``; both must
+   go through the FFT kernel (its own counter);
+6. config 2 checked (shape, finiteness, parity) and timed, FFT route and
+   DFT route, against the plain version (CUDA events);
 7. the 4 requests' logits checked against the same module run on a CPU
    copy (the plain path);
 8. the training path, each part between a reset and a read of the
@@ -33,9 +40,11 @@ imports no JAX.  Phases, each printing its lines:
    10 s at 16 kHz, each from the parameters the CPU copy had before its
    own step;
 9. config 2's gradients checked against autograd of the plain chain; each
-   kernel checked against its plain version at config 2; fwd+bwd, the
-   forward with and without its residual and the backward timed against
-   their plain versions;
+   kernel of both routes checked against its plain version at config 2,
+   the FFT kernels also against the plain versions that repeat their
+   arithmetic step by step; fwd+bwd, the forward with and without its
+   residual and the backward timed on both routes against their plain
+   versions;
 10. config 3's losses and parameters checked against the CPU copy's
     (the plain path), and ms per step timed on both;
 11. the fused Griffin-Lim kernels vs their plain version at small shapes
@@ -66,8 +75,10 @@ before those lines; so does a machine without a CUDA card.
 from __future__ import annotations
 
 import copy
+from functools import partial
 import json
 import math
+import re
 import time
 
 import torch
@@ -156,6 +167,8 @@ PARITY_CASES = [
      True, False),
     ("classifier shape (8, 1, 16000)", (8, 1, 16000), 512, 128, 64,
      16000, None, True, False),
+    ("fft 1024 hop 256, 21 frames (odd)", (2, 1024 + 20 * 256), 1024, 256,
+     80, 22050, None, True, False),
 ]
 
 
@@ -178,11 +191,30 @@ def _counts() -> tuple:
             fused.BWD_DFRAMES_LAUNCHES)
 
 
+def _fft_counts() -> tuple:
+    """Launches that took the FFT route: forward, backward frame passes."""
+    from torchaudio_contrib_tpu_torch.ops import fused
+    return (fused.FFT_KERNEL_LAUNCHES, fused.BWD_FFT_LAUNCHES)
+
+
 def _reset_counts() -> None:
     from torchaudio_contrib_tpu_torch.ops import fused
     fused.KERNEL_LAUNCHES = 0
     fused.BWD_KERNEL_LAUNCHES = 0
     fused.BWD_DFRAMES_LAUNCHES = 0
+    fused.FFT_KERNEL_LAUNCHES = 0
+    fused.BWD_FFT_LAUNCHES = 0
+
+
+def _dft_route(xs, fb, n_fft, hop, wl, to_db):
+    """The fused op on ``xs (..., T)`` through the DFT-product kernels,
+    whatever the size: the op's own path (``_fused_apply``) with the route
+    named."""
+    from torchaudio_contrib_tpu_torch.ops import fused
+    return fused._fused_apply(
+        xs, fb, n_fft, hop, "hann", wl, to_db, 1.0, 1e-7,
+        partial(fused._fused_mel_fwd_cuda, _route="dft"),
+        partial(fused._fused_mel_bwd_cuda, _route="dft"))
 
 
 def _gl_counts() -> tuple:
@@ -197,8 +229,9 @@ def _reset_gl_counts() -> None:
 
 
 def _fft_flops(n_fft: int) -> float:
-    """Operations of one length-``n_fft`` transform as an FFT does it."""
-    return 5.0 * n_fft * math.log2(n_fft)
+    """Operations of one real (or Hermitian) length-``n_fft`` transform as
+    an FFT does it: half the ``5 n log2 n`` of a complex one."""
+    return 2.5 * n_fft * math.log2(n_fft)
 
 
 def _bound(flops: float, nbytes: float, design_flops: float) -> dict:
@@ -263,12 +296,32 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     fused._kernel_lib()
     info = _cuda.build_info()
-    summary = [line.strip() for line in info["log"].splitlines()
-               if "registers" in line or "spill" in line]
     print(f"build: {'nvcc built' if info['built'] else 'loaded'} "
           f"{info['path']} in {info['seconds']:.2f} s "
-          f"(load {time.perf_counter() - t0:.2f} s); "
-          + "; ".join(summary), flush=True)
+          f"(load {time.perf_counter() - t0:.2f} s); ptxas, per kernel: "
+          + "; ".join(_ptxas_summary(info["log"])), flush=True)
+
+
+def _ptxas_summary(log: str) -> list:
+    """``name<template ints>: registers, spill bytes`` for each kernel in
+    an ``nvcc -Xptxas -v`` log."""
+    out, name, spilled = [], None, 0
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            kernel = re.search(r"\d+([a-z_]+kernel)", entry.group(1))
+            ints = re.findall(r"L[ib](\d+)E", entry.group(1))
+            name = (kernel.group(1) if kernel else entry.group(1)) \
+                + (f"<{','.join(ints)}>" if ints else "")
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            spilled = int(spill.group(1)) + int(spill.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            out.append(f"{name} {used.group(1)} regs, {spilled} spill bytes")
+            name = None
+    return out
 
 
 def phase_parity(gen: torch.Generator) -> None:
@@ -279,22 +332,32 @@ def phase_parity(gen: torch.Generator) -> None:
         x = torch.randn(shape, generator=gen).cuda()
         fb = create_mel_filter(mels, sr, 0.0, None, n_fft // 2 + 1,
                                device="cuda")
+        takes_fft = fused._fft_kernel_supported(n_fft)
         with torch.inference_mode():
+            before = _counts()[0], _fft_counts()[0]
             got = fused.fused_melspectrogram(x, fb, n_fft, hop, to_db=to_db,
                                              win_length=wl, center=center)
+            moved = _counts()[0] - before[0], _fft_counts()[0] - before[1]
             xs = _pad_center(x, n_fft // 2, "reflect") if center else x
             want = fused._reference(xs, fb, n_fft, hop, "hann", 2.0, to_db,
                                     1.0, 1e-7, wl)
+            errs = {"fft" if takes_fft else "dft": _rel(got, want)}
+            if takes_fft:
+                errs["dft"] = _rel(_dft_route(xs, fb, n_fft, hop, wl, to_db),
+                                   want)
         torch.cuda.synchronize()
-        err = _rel(got, want)
         unit = "dB" if to_db else "linear"
         print(f"parity {name}: out {tuple(got.shape)}, "
-              f"max|kernel-plain|/max|plain| = {err:.3e} ({unit})",
+              f"max|kernel-plain|/max|plain| ({unit}): "
+              + ", ".join(f"{k} route {v:.3e}" for k, v in errs.items()),
               flush=True)
+        _check(moved == (1, int(takes_fft)),
+               f"{name}: launches (all, FFT route) {moved}")
         _check(got.shape == want.shape, f"{name}: shape {got.shape} != "
                f"{want.shape}")
         _check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
-        _check(err <= F32_PARITY, f"{name}: {err} > {F32_PARITY}")
+        _check(max(errs.values()) <= F32_PARITY,
+               f"{name}: {errs} > {F32_PARITY}")
 
 
 def phase_main_path(gen: torch.Generator):
@@ -320,17 +383,21 @@ def phase_main_path(gen: torch.Generator):
         _reset_counts()
         y = layer(x)
         torch.cuda.synchronize()
-        cfg2_launches = _counts()[0]
+        cfg2_launches, cfg2_fft = _counts()[0], _fft_counts()[0]
         logits = [model(r.cuda()) for r in requests]
         torch.cuda.synchronize()
-        launches = _counts()[0]
+        launches, fft_launches = _counts()[0], _fft_counts()[0]
     print(f"main path: kernel launches {launches} (config 2: "
-          f"{cfg2_launches}, serving: {launches - cfg2_launches})",
-          flush=True)
+          f"{cfg2_launches}, serving: {launches - cfg2_launches}), of them "
+          f"the FFT kernel {fft_launches} (config 2: {cfg2_fft}, serving: "
+          f"{fft_launches - cfg2_fft})", flush=True)
     _check(cfg2_launches >= 1, "config 2 did not launch the kernel")
     _check(launches - cfg2_launches >= 4,
            f"4 requests launched the kernel {launches - cfg2_launches} "
            f"times")
+    _check(cfg2_fft >= cfg2_launches
+           and fft_launches - cfg2_fft >= launches - cfg2_launches,
+           "the serving path did not go through the FFT kernel")
     return launches, (layer, x, y), (model_cpu, requests, logits)
 
 
@@ -341,26 +408,34 @@ def phase_config2(layer, x, y, card: str) -> dict:
     plain = lambda: fused._reference(x, layer.filterbank, n_fft, hop,  # noqa: E731
                                      "hann", 2.0, True, 1.0, 1e-7)
     kern = lambda: layer(x)  # noqa: E731
+    dft = lambda: _dft_route(x, layer.filterbank, n_fft, hop, None,  # noqa: E731
+                             True)
     with torch.inference_mode():
         ref = plain()
         _check(y.shape == (CFG2["batch"], 1, CFG2["mels"], frames),
                f"shape {tuple(y.shape)}")
         _check(bool(torch.isfinite(y).all()), "non-finite output")
-        err = _rel(y, ref)
+        err, dft_err = _rel(y, ref), _rel(dft(), ref)
         max_abs = (y - ref).abs().max().item()
-        _check(err <= F32_PARITY, f"config 2 parity {err} > {F32_PARITY}")
+        _check(max(err, dft_err) <= F32_PARITY,
+               f"config 2 parity {err}, DFT route {dft_err} > {F32_PARITY}")
         # in turns (plain, kernel, kernel, plain); the better median of each
         plain_a, ms_a, ms_b, plain_b = (_time_ms(plain), _time_ms(kern),
                                         _time_ms(kern), _time_ms(plain))
         ms, plain_ms = min(ms_a, ms_b), min(plain_a, plain_b)
+        dft_ms = _time_ms(dft, 2, 7)
     n = CFG2["batch"] * frames
     print(f"config 2 ({CFG2['batch']} x {CFG2['seconds']} s, fft {n_fft}, "
           f"hop {hop}, {CFG2['mels']} mels): out {tuple(y.shape)}, "
-          f"max|kernel-plain| = {max_abs:.3e} dB, rel {err:.3e}", flush=True)
-    print(f"timing [{card}]: kernel {ms:.3f} ms ({n / ms * 1e3:,.0f} "
-          f"frames/s), plain torch.stft chain {plain_ms:.3f} ms "
-          f"({n / plain_ms * 1e3:,.0f} frames/s)", flush=True)
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+          f"max|kernel-plain| = {max_abs:.3e} dB, rel {err:.3e} (DFT route "
+          f"rel {dft_err:.3e})", flush=True)
+    print(f"timing [{card}]: forward kernel, FFT route {ms:.3f} ms "
+          f"({n / ms * 1e3:,.0f} frames/s), DFT route {dft_ms:.3f} ms "
+          f"({n / dft_ms * 1e3:,.0f} frames/s), plain torch.stft chain "
+          f"{plain_ms:.3f} ms ({n / plain_ms * 1e3:,.0f} frames/s)",
+          flush=True)
+    return {"design": "smem_fft", "max_abs_err": max_abs, "ms": ms,
+            "dft_ms": dft_ms, "plain_ms": plain_ms}
 
 
 def phase_serving(model_cpu, requests, logits) -> None:
@@ -400,18 +475,38 @@ def phase_grad_parity(gen: torch.Generator) -> None:
 
         with torch.no_grad():
             g = torch.randn(tuple(plain(x, fb).shape), generator=gen).cuda()
+        def kern_dft(xv, fbv):
+            xs = _pad_center(xv, n_fft // 2, "reflect") if center else xv
+            return _dft_route(xs, fbv, n_fft, hop, wl, to_db)
+
+        takes_fft = fused._fft_kernel_supported(n_fft)
         want = _grads(plain, x, fb, g)
-        before = _counts()
+        before, fft_before = _counts(), _fft_counts()
         got, again = _grads(kern, x, fb, g), _grads(kern, x, fb, g)
         torch.cuda.synchronize()
         launched = [a - b for a, b in zip(_counts(), before)]
+        fft_launched = [a - b for a, b in zip(_fft_counts(), fft_before)]
         errs = [_rel(a, b) for a, b in zip(got, want)]
         bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        line = ""
+        if takes_fft:
+            dft, dft_again = (_grads(kern_dft, x, fb, g),
+                              _grads(kern_dft, x, fb, g))
+            dft_errs = [_rel(a, b) for a, b in zip(dft, want)]
+            bitwise = bitwise and all(torch.equal(a, b)
+                                      for a, b in zip(dft, dft_again))
+            line = (f" (FFT route; DFT route dx {dft_errs[0]:.3e}, dfb "
+                    f"{dft_errs[1]:.3e})")
+            _check(max(dft_errs) <= GRAD_PARITY,
+                   f"{name}: DFT route gradient error {dft_errs}")
         print(f"grad parity {name}: max|kernel-plain|/max|plain| dx "
-              f"{errs[0]:.3e}, dfb {errs[1]:.3e}; two runs bitwise equal "
-              f"{bitwise}; launches fwd/bwd/frame passes {launched}",
+              f"{errs[0]:.3e}, dfb {errs[1]:.3e}{line}; two runs bitwise "
+              f"equal {bitwise}; launches fwd/bwd/frame passes {launched}, "
+              f"of them on the FFT route fwd/frame passes {fft_launched}",
               flush=True)
         _check(launched == [2, 2, 2], f"{name}: launches {launched}")
+        _check(fft_launched == [2 * int(takes_fft)] * 2,
+               f"{name}: FFT route launches {fft_launched}")
         _check(all(bool(torch.isfinite(t).all()) for t in got),
                f"{name}: non-finite gradient")
         _check(max(errs) <= GRAD_PARITY,
@@ -496,7 +591,7 @@ def phase_train_path(gen: torch.Generator):
     y = layer(x)
     dx, dfb = torch.autograd.grad(y, (x, layer.filterbank), g)
     torch.cuda.synchronize()
-    cfg2_counts = _counts()
+    cfg2_counts, cfg2_fft = _counts(), _fft_counts()
     _reset_counts()
     losses, after = [], []
     for k in range(CFG3["steps"]):
@@ -505,10 +600,15 @@ def phase_train_path(gen: torch.Generator):
         after.append({n: v.to("cpu", copy=True)
                       for n, v in model.state_dict().items()})
     torch.cuda.synchronize()
-    cfg3_counts = _counts()
+    cfg3_counts, cfg3_fft = _counts(), _fft_counts()
     print(f"training path: launches fwd/bwd/frame passes: config 2 fwd+bwd "
           f"{list(cfg2_counts)}, config 3 {CFG3['steps']} steps "
-          f"{list(cfg3_counts)}", flush=True)
+          f"{list(cfg3_counts)}; of them on the FFT route, fwd/frame "
+          f"passes: config 2 {list(cfg2_fft)}, config 3 {list(cfg3_fft)}",
+          flush=True)
+    _check(cfg2_fft == (cfg2_counts[0], cfg2_counts[2])
+           and cfg3_fft == (cfg3_counts[0], cfg3_counts[2]),
+           "the training path did not go through the FFT kernels")
     _check(min(cfg2_counts) >= 1,
            f"config 2 fwd+bwd launches {cfg2_counts}: a kernel did not run")
     _check(cfg3_counts[0] >= CFG3["steps"] and cfg3_counts[1] >= CFG3["steps"],
@@ -544,70 +644,111 @@ def phase_config2_train(layer, x, g, y, dx, dfb, card: str) -> tuple:
 
     with torch.no_grad():
         x2, fbd = x.detach().reshape(batch, -1), fb.detach()
-        out, reim = fused._fused_mel_fwd_cuda(x2, fbd, *args, save_spec=True)
-        out_serve, _ = fused._fused_mel_fwd_cuda(x2, fbd, *args)
         out_p, reim_p = fused._fwd_res_plain(x2, fbd, *args, save_spec=True)
-        dmel = fused._dmel_from(g.reshape(out.shape), out, *args[4:])
-        reim2 = reim.reshape(dmel.shape[0], -1)
+        out_s, reim_s = fused._fwd_fft_plain(x2, fbd, *args, save_spec=True)
+        dmel = fused._dmel_from(g.reshape(out_p.shape), out_p, *args[4:])
+        reim2 = reim_p.reshape(dmel.shape[0], -1)
         bargs = (fbd, n_fft, "hann", None)
-        dframes, dfb_k = fused._fused_mel_bwd_cuda(dmel, reim2, *bargs,
-                                                   True, True)
         dframes_p, dfb_p = fused._bwd_plain(dmel, reim2, *bargs, True, True)
-        torch.cuda.synchronize()
-        fwd_err = [_rel(out, out_p), _rel(reim, reim_p)]
-        same = torch.equal(out, out_serve)
-        bwd_err = [_rel(dframes, dframes_p), _rel(dfb_k, dfb_p)]
-        fwd_abs = (out - out_p).abs().max().item()
-        bwd_abs = max((dframes - dframes_p).abs().max().item(),
-                      (dfb_k - dfb_p).abs().max().item())
-    print(f"kernels at config 2 vs their plain versions: forward out "
-          f"{fwd_err[0]:.3e}, residual {fwd_err[1]:.3e}, output with the "
-          f"residual bitwise equal to without: {same}; backward dframes "
-          f"{bwd_err[0]:.3e}, dfb {bwd_err[1]:.3e} (max abs {bwd_abs:.3e})",
-          flush=True)
-    _check(max(fwd_err) <= F32_PARITY and same,
-           f"forward with residual: {fwd_err}, same output {same}")
-    _check(max(bwd_err) <= GRAD_PARITY, f"backward kernel: {bwd_err}")
+        dframes_s, _ = fused._bwd_fft_plain(dmel, reim2, *bargs, True, False)
+        del out_s
+        stats = {}
+        for route in ("fft", "dft"):
+            out, reim = fused._fused_mel_fwd_cuda(x2, fbd, *args,
+                                                  save_spec=True, _route=route)
+            out_serve, _ = fused._fused_mel_fwd_cuda(x2, fbd, *args,
+                                                     _route=route)
+            runs = [fused._fused_mel_bwd_cuda(dmel, reim2, *bargs, True, True,
+                                              _route=route) for _ in range(2)]
+            torch.cuda.synchronize()
+            (dframes, dfb_k), (dframes_2, dfb_2) = runs
+            fwd_err = [_rel(out, out_p), _rel(reim, reim_p)]
+            bwd_err = [_rel(dframes, dframes_p), _rel(dfb_k, dfb_p)]
+            same = torch.equal(out, out_serve)
+            twice = torch.equal(dframes, dframes_2) and torch.equal(dfb_k,
+                                                                    dfb_2)
+            step = ""
+            if route == "fft":
+                step_err = [_rel(reim, reim_s), _rel(dframes, dframes_s)]
+                step = (f"; against the step-by-step plain versions "
+                        f"residual {step_err[0]:.3e}, dframes "
+                        f"{step_err[1]:.3e}")
+                _check(step_err[0] <= F32_PARITY
+                       and step_err[1] <= GRAD_PARITY,
+                       f"FFT kernels vs their step-by-step versions: "
+                       f"{step_err}")
+            stats[route] = (
+                (out - out_p).abs().max().item(),
+                max((dframes - dframes_p).abs().max().item(),
+                    (dfb_k - dfb_p).abs().max().item()))
+            print(f"kernels at config 2, {route.upper()} route, vs their "
+                  f"plain versions: forward out {fwd_err[0]:.3e}, residual "
+                  f"{fwd_err[1]:.3e}, output with the residual bitwise equal "
+                  f"to without: {same}; backward dframes {bwd_err[0]:.3e}, "
+                  f"dfb {bwd_err[1]:.3e} (max abs {stats[route][1]:.3e}), "
+                  f"two runs bitwise equal: {twice}{step}", flush=True)
+            _check(max(fwd_err) <= F32_PARITY and same,
+                   f"{route} forward with residual: {fwd_err}, same output "
+                   f"{same}")
+            _check(max(bwd_err) <= GRAD_PARITY and twice,
+                   f"{route} backward kernel: {bwd_err}, two runs equal "
+                   f"{twice}")
+        del out, reim, out_serve, runs, dframes, dframes_2, dframes_s, reim_s
+        del dframes_p, out_p
+    fwd_abs, bwd_abs = stats["fft"]
 
     xg = x.detach().requires_grad_()
 
     def kern_fb():
         return torch.autograd.grad(layer(xg), (xg, fb), g)
 
+    def dft_fb():
+        return torch.autograd.grad(_dft_route(xg, fb, n_fft, hop, None, True),
+                                   (xg, fb), g)
+
     def plain_fb():
         ref = fused._reference(xg, fb, *args[:3], 2.0, *args[4:])
         return torch.autograd.grad(ref, (xg, fb), g)
 
-    def fwd():
-        return fused._fused_mel_fwd_cuda(x2, fbd, *args)
+    def fwd(route=None, save_spec=False):
+        return fused._fused_mel_fwd_cuda(x2, fbd, *args, save_spec=save_spec,
+                                         _route=route)
 
-    def fwd_res():
-        return fused._fused_mel_fwd_cuda(x2, fbd, *args, save_spec=True)
-
-    def bwd(need_dx=True):
-        return fused._fused_mel_bwd_cuda(dmel, reim2, *bargs, need_dx, True)
+    def bwd(need_dx=True, route=None):
+        return fused._fused_mel_bwd_cuda(dmel, reim2, *bargs, need_dx, True,
+                                         _route=route)
 
     def bwd_plain():
         return fused._bwd_plain(dmel, reim2, *bargs, True, True)
 
     ms_fb, plain_fb_ms = _turns(plain_fb, kern_fb)
+    dft_fb_ms = _time_ms(dft_fb, 2, 5)
     with torch.no_grad():
-        ms_res, ms_fwd = _turns(fwd, fwd_res)
+        ms_res, ms_fwd = _turns(fwd, lambda: fwd(save_spec=True))
         ms_bwd, plain_bwd = _turns(bwd_plain, bwd)
         ms_bwd_fb = _time_ms(lambda: bwd(False), 2, 10)
+        dft_fwd, dft_res, dft_bwd = (
+            _time_ms(lambda: fwd("dft"), 2, 5),
+            _time_ms(lambda: fwd("dft", True), 2, 5),
+            _time_ms(lambda: bwd(True, "dft"), 2, 5))
         plain_fwd_res = _time_ms(lambda: fused._fwd_res_plain(
             x2, fbd, *args, save_spec=True), 2, 10)
     n = batch * frames
-    print(f"timing [{card}]: config 2 fwd+bwd kernels {ms_fb:.3f} ms "
-          f"({n / ms_fb * 1e3:,.0f} frames/s), plain chain autograd "
-          f"{plain_fb_ms:.3f} ms ({n / plain_fb_ms * 1e3:,.0f} frames/s)",
-          flush=True)
-    print(f"timing [{card}]: forward kernel {ms_fwd:.3f} ms, with residual "
-          f"{ms_res:.3f} ms (plain version {plain_fwd_res:.3f} ms); backward "
-          f"kernel {ms_bwd:.3f} ms, dFB only {ms_bwd_fb:.3f} ms, plain "
-          f"version {plain_bwd:.3f} ms", flush=True)
-    return ({"max_abs_err": fwd_abs, "ms": ms_res, "plain_ms": plain_fwd_res},
-            {"max_abs_err": bwd_abs, "ms": ms_bwd, "plain_ms": plain_bwd})
+    print(f"timing [{card}]: config 2 fwd+bwd kernels, FFT route "
+          f"{ms_fb:.3f} ms ({n / ms_fb * 1e3:,.0f} frames/s), DFT route "
+          f"{dft_fb_ms:.3f} ms ({n / dft_fb_ms * 1e3:,.0f} frames/s), plain "
+          f"chain autograd {plain_fb_ms:.3f} ms "
+          f"({n / plain_fb_ms * 1e3:,.0f} frames/s)", flush=True)
+    print(f"timing [{card}]: forward kernel, FFT route {ms_fwd:.3f} ms, with "
+          f"residual {ms_res:.3f} ms; DFT route {dft_fwd:.3f} ms, with "
+          f"residual {dft_res:.3f} ms (plain version with residual "
+          f"{plain_fwd_res:.3f} ms); backward kernel, FFT route "
+          f"{ms_bwd:.3f} ms, DFT route {dft_bwd:.3f} ms, dFB only "
+          f"{ms_bwd_fb:.3f} ms, plain version {plain_bwd:.3f} ms", flush=True)
+    return ({"max_abs_err": fwd_abs, "ms": ms_res, "dft_ms": dft_res,
+             "plain_ms": plain_fwd_res},
+            {"design": "smem_fft", "max_abs_err": bwd_abs, "ms": ms_bwd,
+             "dft_ms": dft_bwd, "plain_ms": plain_bwd})
 
 
 def phase_config3(model, xb_c, labels_c, snaps, cpu_losses, cpu_ms, losses,
@@ -1007,22 +1148,32 @@ def phase_gl_timings(gen: torch.Generator, card: str, probes, bisect) -> tuple:
 
 def _mel_bounds(x, mels: int, n_fft: int, hop: int) -> tuple:
     """The bounds of the fused mel forward and backward at ``x (B, 1, T)``.
-    The function: one transform per frame (an FFT's operations) plus the
-    mel products over the ``n_fft//2 + 1`` bins there are, in FP32; each
-    input read once and each output written once.  The kernels: the
-    transform as a matrix product over their padded 64-bin tiles."""
+    The function: one real transform per frame (an FFT's operations) plus
+    the mel products over the ``n_fft//2 + 1`` bins there are, in FP32;
+    each input read once and each output written once.  ``design_flop_ms``
+    is for the FFT kernels' own count: one complex transform per two
+    frames, splitting the pair (12 operations a bin), and the mel products
+    over the bins padded to groups of 4 (forward) or to the 64-bin tiles
+    (backward) and the mels padded to 64.  ``dft_design_flop_ms`` is for
+    the DFT-product kernels: the transform as a matrix product over their
+    padded 64-bin tiles."""
     rows = x.shape[0] * (1 + (x.shape[-1] - n_fft) // hop)
     n_freqs = n_fft // 2 + 1
     ft = -(-n_freqs // 64)
+    m_pad = -(-mels // 64) * 64
     fft, mel = rows * _fft_flops(n_fft), 2.0 * rows * n_freqs * mels
+    split = 12.0 * rows * n_freqs
+    mel_quads = 2.0 * rows * 4 * -(-n_freqs // 4) * m_pad
     dft = 2.0 * rows * n_fft * ft * 128
-    mel_pad = 2.0 * rows * ft * 64 * mels
+    mel_pad = 2.0 * rows * ft * 64 * m_pad
     fb = n_freqs * mels
     fwd = _bound(fft + mel, 4 * (x.numel() + fb + rows * mels),
-                 dft + mel_pad)
+                 fft + split + mel_quads)
     bwd = _bound(fft + 2 * mel, 4 * (rows * mels + rows * 2 * n_freqs + fb
                                      + rows * n_fft + fb),
-                 dft + 2 * mel_pad)
+                 fft + split + 2 * mel_pad)
+    fwd["dft_design_flop_ms"] = (dft + mel_pad) / PEAK_FP32 * 1e3
+    bwd["dft_design_flop_ms"] = (dft + 2 * mel_pad) / PEAK_FP32 * 1e3
     return fwd, bwd
 
 
@@ -1052,10 +1203,12 @@ def main() -> None:
     kernels = [
         {"name": "fused_mel_fwd", "route": "cuda",
          "source": source + "fused_mel_fwd.cu",
+         "headers": [source + "fft_smem.cuh"],
          "replaces": "torchaudio_contrib_tpu/ops/fused.py:440",
          "launches": launches + train_counts[0], **stats, **fwd_bound},
         {"name": "fused_mel_bwd", "route": "cuda",
          "source": source + "fused_mel_bwd.cu",
+         "headers": [source + "fft_smem.cuh"],
          "replaces": "torchaudio_contrib_tpu/ops/fused.py:604",
          "launches": train_counts[1], **bwd_stats, **bwd_bound},
     ] + [

@@ -198,6 +198,96 @@ def test_classifier_on_card_matches_cpu(cuda_device, fused):
         assert err <= GRAD_PARITY * update, (name, err, update)
 
 
+# ---- the FFT route of the fused mel kernels against the DFT route -----------
+
+def _fft_counts():
+    return (tfused.KERNEL_LAUNCHES, tfused.FFT_KERNEL_LAUNCHES,
+            tfused.BWD_KERNEL_LAUNCHES, tfused.BWD_FFT_LAUNCHES)
+
+
+# fft, hop, samples, mels, window, win_length: every size the FFT kernels
+# are built for; odd and even frame counts, hop > fft/2, a shorter window,
+# another window, 64 / 128 / 192 padded mels (both mel tilings)
+FFT_CASES = [
+    (256, 64, 7000, 40, "hann", None),
+    (512, 300, 9000, 64, "hamming", 300),
+    (1024, 256, 11025, 80, "hann", None),
+    (2048, 512, 44100, 128, "hann", None),
+    (2048, 1100, 30000, 130, "hann", None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fft,hop,samples,mels,window,wl", FFT_CASES)
+def test_fft_route_matches_dft_route_and_plain(cuda_device, fft, hop,
+                                               samples, mels, window, wl):
+    """Both forward kernels and both frame-gradient passes at one shape:
+    each within 1e-5 (gradients 1e-4) of its plain version, the FFT
+    kernels also of their step-by-step plain version; the residual's
+    padded bins exactly zero on both routes; the output with the residual
+    bitwise equal to without; two backward runs bitwise equal."""
+    x, fb = _inputs(fft + hop, (3, samples), mels, 16000, fft)
+    x, fb = x.to(cuda_device), fb.to(cuda_device)
+    args = (fft, hop, window, wl, True, 1.0, 1e-7)
+    n_freqs = fft // 2 + 1
+    want_out, want_reim = tfused._fwd_res_plain(x, fb, *args, save_spec=True)
+    step_out, step_reim = tfused._fwd_fft_plain(x, fb, *args, save_spec=True)
+    rows = want_reim.shape[0] * want_reim.shape[1]
+    dmel = torch.from_numpy(np.random.default_rng(hop).standard_normal(
+        (rows, -(-mels // 64) * 64)).astype(np.float32)).to(cuda_device)
+    dmel[:, mels:] = 0.0
+    bargs = (fb, fft, window, wl, True, True)
+    reim2 = want_reim.reshape(rows, -1)
+    want_df, want_dfb = tfused._bwd_plain(dmel, reim2, *bargs)
+    step_df, _ = tfused._bwd_fft_plain(dmel, reim2, *bargs)
+    for route in ("fft", "dft"):
+        out, reim = tfused._fused_mel_fwd_cuda(x, fb, *args, save_spec=True,
+                                               _route=route)
+        serve, none = tfused._fused_mel_fwd_cuda(x, fb, *args, _route=route)
+        df, dfb = tfused._fused_mel_bwd_cuda(dmel, reim2, *bargs,
+                                             _route=route)
+        df2, dfb2 = tfused._fused_mel_bwd_cuda(dmel, reim2, *bargs,
+                                               _route=route)
+        torch.cuda.synchronize()
+        assert none is None and torch.equal(out, serve)
+        assert torch.equal(df, df2) and torch.equal(dfb, dfb2)
+        assert _peak_err(out, want_out) <= PARITY
+        assert _peak_err(reim, want_reim) <= PARITY
+        tiles = reim.view(3, -1, reim.shape[-1] // 128, 2, 64)
+        bins = tiles.transpose(-2, -3).reshape(3, -1, 2, reim.shape[-1] // 2)
+        assert not bins[..., n_freqs:].any()
+        assert _peak_err(df, want_df) <= GRAD_PARITY
+        assert _peak_err(dfb, want_dfb) <= GRAD_PARITY
+        if route == "fft":
+            assert _peak_err(out, step_out) <= PARITY
+            assert _peak_err(reim, step_reim) <= PARITY
+            assert _peak_err(df, step_df) <= GRAD_PARITY
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fft,takes_fft", [(256, True), (512, True),
+                                           (1024, True), (2048, True),
+                                           (400, False), (128, False),
+                                           (4096, False)])
+def test_route_counters(cuda_device, fft, takes_fft):
+    """The op on the card takes the FFT kernels for a power of two from
+    256 to 2048 and the DFT-product kernels otherwise, forward and frame
+    gradient alike; the counters say which."""
+    x, fb = _inputs(fft, (2, 4 * fft), 32, 16000, fft)
+    g = torch.ones((2, 32, 1 + (3 * fft) // (fft // 4)))
+    before = _fft_counts()
+    _grads(x.to(cuda_device), fb.to(cuda_device), fft, fft // 4,
+           g.to(cuda_device))
+    torch.cuda.synchronize()
+    moved = tuple(a - b for a, b in zip(_fft_counts(), before))
+    assert moved == (1, int(takes_fft), 1, int(takes_fft))
+    if not takes_fft:
+        with pytest.raises(ValueError, match="power of two"):
+            tfused._fused_mel_fwd_cuda(
+                x.to(cuda_device), fb.to(cuda_device), fft, fft // 4, "hann",
+                None, True, 1.0, 1e-7, _route="fft")
+
+
 # ---- fused Griffin-Lim: the solve's kernels vs their plain version ---------
 
 # fft, hop, samples, window, center: the JAX package's four eligible

@@ -1,0 +1,390 @@
+"""The FFT route of the port's fused mel kernels, on the CPU.
+
+The CUDA kernels of ``csrc/fft_smem.cuh`` cannot run without a card, so
+``torchaudio_contrib_tpu_torch.ops.fused`` keeps plain PyTorch versions
+that repeat their arithmetic step by step: the same twiddle table, the
+same packing of a real frame as one complex frame of half its length, the
+same Stockham passes, the same Hermitian weights for the transposed
+transform, the residual in the same tile layout.  Here they are held
+
+* against ``torch.fft`` and float64 DFT matrices (float64 shows index and
+  sign errors that float32 rounding would hide);
+* against the plain versions of the DFT-product kernels
+  (``_fwd_res_plain``, ``_bwd_plain``), whose float32 basis bounds the
+  agreement in float64 at ~1e-7;
+* against the JAX package: ``_FusedMel`` driven with the step-by-step
+  versions against ``jax`` values and gradients of the JAX op, at the bars
+  of ``tests/test_torch_fused.py`` and ``tests/test_torch_fused_bwd.py``;
+* and the routing rule: which ``fft_length`` takes which kernels.
+
+The kernels themselves are held against these versions on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from torchaudio_contrib_tpu import ops as jops
+from torchaudio_contrib_tpu_torch import ops as tops
+from torchaudio_contrib_tpu_torch.ops import fused as tfused
+from torchaudio_contrib_tpu_torch.ops.stft import (_dft_matrices,
+                                                   _pad_center,
+                                                   _resolve_window)
+
+F32_TOL = 2e-6     # of peak: two float32 chains of the same transform
+F64_TOL = 1e-12    # of peak, in float64 against a float64 reference
+GRAD_TOL = 1e-4    # gradients against the JAX package (the BASELINE bar)
+SIZES = (256, 512, 1024, 2048)
+POINTS = (128, 256, 512, 1024)     # complex points of those frames
+
+# fft, hop, samples, mels, window, win_length: every size of the FFT route,
+# odd and even frame counts, hop > fft/2, a shorter window, a Hamming window
+CASES = [
+    (256, 64, 2 * 256 + 64 * 11, 24, "hann", None),        # 20 frames
+    (256, 200, 256 + 200 * 6 + 7, 40, "hamming", None),    # 7 frames
+    (512, 128, 512 + 128 * 14, 64, "hann", 300),           # 15 frames
+    (512, 300, 512 + 300 * 3 + 1, 32, "hamming", 400),     # 4 frames
+    (1024, 256, 1024 + 256 * 8, 80, "hann", None),         # 9 frames
+    (1024, 700, 1024 + 700 * 5, 16, "hann", 1000),         # 6 frames
+    (2048, 512, 2048 + 512 * 4, 128, "hann", None),        # 5 frames
+    (2048, 1100, 2048 + 1100 * 3, 130, "hamming", None),   # 4 frames
+]
+
+
+def _rel(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+def _inputs(rng, fft, hop, samples, mels, dtype, streams=3):
+    x = torch.from_numpy(rng.standard_normal((streams, samples))).to(dtype)
+    fb = tops.create_mel_filter(mels, 16000, 0.0, None,
+                                fft // 2 + 1).to(dtype)
+    n_frames = 1 + (samples - fft) // hop
+    m_pad = -(-mels // 64) * 64
+    dmel = torch.from_numpy(rng.standard_normal(
+        (streams * n_frames, m_pad))).to(dtype)
+    dmel[:, mels:] = 0.0
+    return x, fb, dmel
+
+
+def _unpack(reim, n_freqs):
+    """The tile layout ``[re_t | im_t]`` → complex ``(..., n_freqs)``."""
+    r = reim.reshape(reim.shape[:-1] + (-1, 2, 64))
+    re = r[..., 0, :].reshape(reim.shape[:-1] + (-1,))
+    im = r[..., 1, :].reshape(reim.shape[:-1] + (-1,))
+    return torch.complex(re, im)[..., :n_freqs]
+
+
+def _basis64(fft, window, wl):
+    """The windowed onesided DFT ``(fft, n_freqs)`` complex, float64."""
+    w = _resolve_window(window, fft if wl is None else wl, fft)[:, None]
+    cos_m, msin_m = _dft_matrices(fft, True)
+    return torch.from_numpy(w * cos_m + 1j * (w * msin_m))
+
+
+# ---- the transform itself ----------------------------------------------------
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("n", POINTS)
+def test_stockham_matches_torch_fft(rng, n, inverse):
+    z = torch.from_numpy(rng.standard_normal((5, n))
+                         + 1j * rng.standard_normal((5, n)))
+    tw = torch.view_as_complex(torch.from_numpy(tfused._twiddle_np(2 * n)))
+    want = torch.fft.ifft(z) * n if inverse else torch.fft.fft(z)
+    assert _rel(tfused._stockham_fft(z, tw, inverse), want) <= F64_TOL
+    got = tfused._stockham_fft(z.to(torch.complex64),
+                               tw.to(torch.complex64), inverse)
+    assert got.dtype == torch.complex64 and _rel(got, want) <= F32_TOL
+
+
+def test_fft_plan_and_twiddles():
+    """Radix-8 passes, then one radix-2 or radix-4 pass.  The table of a
+    frame of ``N = 2M`` samples holds ``exp(−2πik/N)`` for ``k < M``, then
+    each later pass's ``w^(r·k)`` at ``(r − 1)·NS + k``, then zeros."""
+    assert tfused._fft_plan(128) == [(8, 1), (8, 8), (2, 64)]
+    assert tfused._fft_plan(256) == [(8, 1), (8, 8), (4, 64)]
+    assert tfused._fft_plan(512) == [(8, 1), (8, 8), (8, 64)]
+    assert tfused._fft_plan(1024) == [(8, 1), (8, 8), (8, 64), (2, 512)]
+    for n, used in ((256, 248), (512, 504), (1024, 1016), (2048, 2040)):
+        tw = tfused._twiddle_np(n)
+        assert tw.shape == (n, 2) and tw.dtype == np.float64
+        tw = tw[:, 0] + 1j * tw[:, 1]
+        m = n // 2
+        np.testing.assert_allclose(tw[:m], np.exp(-2j * np.pi
+                                                  * np.arange(m) / n),
+                                   atol=1e-15)
+        assert not tw[used:].any() and np.all(np.abs(tw[:used]) > 0.99)
+        offset = m
+        for radix, ns in tfused._fft_plan(m)[1:]:
+            r, k = np.arange(1, radix)[:, None], np.arange(ns)[None, :]
+            want = np.exp(-2j * np.pi * r * k / (ns * radix)).ravel()
+            np.testing.assert_allclose(tw[offset:offset + want.size], want,
+                                       atol=1e-15)
+            offset += want.size
+        assert offset == used
+
+
+# ---- the step-by-step forward -------------------------------------------------
+
+@pytest.mark.parametrize("fft,hop,samples,mels,window,wl", CASES)
+def test_forward_float64(rng, fft, hop, samples, mels, window, wl):
+    """Against ``torch.fft.rfft`` of the windowed frames in float64, and
+    against ``_fwd_res_plain`` (whose basis is rounded to float32)."""
+    x, fb, _ = _inputs(rng, fft, hop, samples, mels, torch.float64)
+    args = (fft, hop, window, wl, False, 1.0, 1e-7)
+    out, reim = tfused._fwd_fft_plain(x, fb, *args, save_spec=True)
+    n_freqs = fft // 2 + 1
+    w = torch.from_numpy(_resolve_window(window, wl or fft, fft))
+    spec = torch.fft.rfft(x.unfold(-1, fft, hop) * w)
+    assert reim.shape == (3, spec.shape[1], (fft // 128 + 1) * 128)
+    assert _rel(_unpack(reim, n_freqs), spec) <= F64_TOL
+    want = (spec.abs() ** 2 @ fb).transpose(1, 2)
+    assert out.shape == want.shape and _rel(out, want) <= F64_TOL
+    out_p, reim_p = tfused._fwd_res_plain(x, fb, *args, save_spec=True)
+    assert _rel(out, out_p) <= F32_TOL and _rel(reim, reim_p) <= F32_TOL
+
+
+@pytest.mark.parametrize("to_db", [True, False], ids=["db", "linear"])
+@pytest.mark.parametrize("fft,hop,samples,mels,window,wl", CASES)
+def test_forward_float32(rng, fft, hop, samples, mels, window, wl, to_db):
+    x, fb, _ = _inputs(rng, fft, hop, samples, mels, torch.float32)
+    args = (fft, hop, window, wl, to_db, 0.5, 1e-6)
+    out, reim = tfused._fwd_fft_plain(x, fb, *args, save_spec=True)
+    out_p, reim_p = tfused._fwd_res_plain(x, fb, *args, save_spec=True)
+    assert out.dtype == torch.float32 and out.shape == out_p.shape
+    assert reim.shape == reim_p.shape
+    assert _rel(reim, reim_p) <= F32_TOL
+    # narrow mel bands hold single bins, whose float32 error is relative
+    # to the spectrum's peak, not to the bin
+    assert _rel(out, out_p) <= (1e-5 if to_db else F32_TOL)
+    spec = torch.fft.rfft(x.unfold(-1, fft, hop) * torch.from_numpy(
+        _resolve_window(window, wl or fft, fft)).float())
+    assert _rel(_unpack(reim, fft // 2 + 1), spec) <= F32_TOL
+    serve, none = tfused._fwd_fft_plain(x, fb, *args)
+    assert none is None and torch.equal(serve, out)
+
+
+def test_quiet_frame_beside_a_loud_one_keeps_its_accuracy(rng):
+    """Each frame is transformed alone, so a burst 60 dB above its
+    neighbours does not leak its rounding into them: the float32
+    step-by-step output stays within 1e-4 dB of float64 on every frame
+    (two frames packed into one complex transform are 3e-4 dB off here)."""
+    fft, hop = 2048, 512
+    t = fft + 40 * hop
+    env = np.full(t, 1e-3)
+    for start in range(0, t, 8 * hop):
+        env[start:start + hop] = 1.0
+    x = torch.from_numpy(rng.standard_normal((2, t)) * env)
+    fb = tops.create_mel_filter(128, 22050, 0.0, None, fft // 2 + 1).double()
+    args = (fft, hop, "hann", None, True, 1.0, 1e-10)
+    want, _ = tfused._fwd_fft_plain(x, fb, *args)
+    got, _ = tfused._fwd_fft_plain(x.float(), fb.float(), *args)
+    assert want.max() - want.min() > 60.0
+    assert (got.double() - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_residual_layout_is_the_same_on_both_routes(rng, n):
+    """Same shape, and exact zeros in the padded bins ``n_freqs..FT·64``,
+    which the backward's pass A and dFB pass read."""
+    x, fb, _ = _inputs(rng, n, n // 4, 3 * n, 20, torch.float32, streams=2)
+    args = (n, n // 4, "hann", None, True, 1.0, 1e-7)
+    _, a = tfused._fwd_fft_plain(x, fb, *args, save_spec=True)
+    _, b = tfused._fwd_res_plain(x, fb, *args, save_spec=True)
+    assert a.shape == b.shape == (2, 9, (n // 128 + 1) * 128)
+    tiles = a.view(2, 9, -1, 2, 64)
+    pad = (n // 2 + 1) % 64
+    assert not tiles[:, :, -1, :, pad:].any()
+    assert tiles[:, :, -1, 0, :pad].abs().min() > 0     # re of Nyquist
+
+
+# ---- the step-by-step transpose ----------------------------------------------
+
+@pytest.mark.parametrize("fft,hop,samples,mels,window,wl", CASES)
+def test_transpose_float64(rng, fft, hop, samples, mels, window, wl):
+    """``dframes_n = w_n · Re Σ_k G_k e^{+2πikn/N}``: against the float64
+    basis, against ``_bwd_plain``, and as the adjoint of the forward
+    transform (``⟨A x, g⟩ = ⟨x, Aᵀ g⟩``)."""
+    n_freqs, ft = fft // 2 + 1, fft // 128 + 1
+    rows = 7
+    g = torch.from_numpy(rng.standard_normal((rows, n_freqs))
+                         + 1j * rng.standard_normal((rows, n_freqs)))
+    dreim = tfused._to_tiles(g.real, g.imag, ft)
+    assert dreim.shape == (rows, ft * 128)
+    got = tfused._dframes_fft_plain(dreim, fft, window, wl)
+    basis = _basis64(fft, window, wl)
+    want = g.real @ basis.real.T + g.imag @ basis.imag.T
+    assert got.shape == (rows, fft) and _rel(got, want) <= F64_TOL
+    # not irfft(G): DC and Nyquist weigh as the others
+    frames = torch.from_numpy(rng.standard_normal((rows, fft)))
+    spec = frames.to(torch.complex128) @ basis
+    lhs = (spec.real * g.real + spec.imag * g.imag).sum().item()
+    rhs = (frames * got).sum().item()
+    assert abs(lhs - rhs) <= 1e-10 * abs(lhs)
+
+    x, fb, dmel = _inputs(rng, fft, hop, samples, mels, torch.float64)
+    _, reim = tfused._fwd_res_plain(x, fb, fft, hop, window, wl, True, 1.0,
+                                    1e-7, save_spec=True)
+    reim = reim.reshape(dmel.shape[0], -1)
+    bargs = (fb, fft, window, wl, True, True)
+    df, dfb = tfused._bwd_fft_plain(dmel, reim, *bargs)
+    df_p, dfb_p = tfused._bwd_plain(dmel, reim, *bargs)
+    assert df.shape == df_p.shape and _rel(df, df_p) <= F32_TOL
+    assert torch.equal(dfb, dfb_p)
+
+
+@pytest.mark.parametrize("fft,hop,samples,mels,window,wl", CASES)
+def test_transpose_float32(rng, fft, hop, samples, mels, window, wl):
+    x, fb, dmel = _inputs(rng, fft, hop, samples, mels, torch.float32)
+    _, reim = tfused._fwd_res_plain(x, fb, fft, hop, window, wl, True, 1.0,
+                                    1e-7, save_spec=True)
+    reim = reim.reshape(dmel.shape[0], -1)
+    bargs = (fb, fft, window, wl)
+    df, dfb = tfused._bwd_fft_plain(dmel, reim, *bargs, True, True)
+    df_p, dfb_p = tfused._bwd_plain(dmel, reim, *bargs, True, True)
+    assert df.dtype == torch.float32 and _rel(df, df_p) <= F32_TOL
+    assert torch.equal(dfb, dfb_p)
+    assert tfused._bwd_fft_plain(dmel, reim, *bargs, False, True)[0] is None
+    assert tfused._bwd_fft_plain(dmel, reim, *bargs, True, False)[1] is None
+
+
+# ---- _FusedMel through the step-by-step versions vs the JAX package -----------
+
+def _fft_path(x, fb, fft, hop, center=False, pad_mode="reflect",
+              precision="auto", window="hann", win_length=None, to_db=True,
+              db_ref=1.0, amin=1e-7):
+    """The public op's CUDA path with the FFT kernels' plain versions."""
+    if center:
+        x = _pad_center(x, fft // 2, pad_mode)
+    return tfused._fused_apply(x, fb, fft, hop, window, win_length, to_db,
+                               db_ref, amin, tfused._fwd_fft_plain,
+                               tfused._bwd_fft_plain)
+
+
+JAX_CASES = [
+    ((2, 16384), 512, 128, 64, 16000, {}),
+    ((2, 1, 16384), 512, 128, 64, 16000, {"center": True}),
+    ((3, 2, 8192), 256, 128, 32, 16000, {"to_db": False}),
+    ((2, 8192), 512, 128, 32, 16000, {"win_length": 300}),
+    ((1, 3, 9000), 256, 100, 40, 22050, {"db_ref": 0.5, "amin": 1e-5}),
+    ((2, 8000), 512, 200, 64, 16000, {"center": True,
+                                      "pad_mode": "constant"}),
+    ((2, 9000), 1024, 256, 80, 22050, {"window": "hamming"}),
+    ((1, 12000), 2048, 512, 128, 22050, {}),
+]
+
+
+@pytest.mark.parametrize("shape,fft,hop,mels,sr,kw", JAX_CASES)
+def test_fused_autograd_on_the_fft_route_matches_jax(rng, shape, fft, hop,
+                                                     mels, sr, kw):
+    """Output within 1e-4 dB (``atol`` 1e-4, ``rtol`` 1e-5) and gradients
+    within 1e-4 of peak of the JAX op's on the CPU."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    fb = tops.create_mel_filter(mels, sr, 0.0, None, fft // 2 + 1).numpy()
+    t = shape[-1] + (2 * (fft // 2) if kw.get("center") else 0)
+    g = rng.standard_normal(
+        shape[:-1] + (mels, 1 + (t - fft) // hop)).astype(np.float32)
+
+    def loss(xv, fbv, gv):
+        return jnp.sum(jops.fused_melspectrogram(xv, fbv, fft, hop, **kw)
+                       * gv)
+
+    want = np.asarray(jops.fused_melspectrogram(
+        jnp.asarray(x), jnp.asarray(fb), fft, hop, **kw))
+    want_dx, want_dfb = jax.jit(jax.grad(loss, argnums=(0, 1)))(
+        jnp.asarray(x), jnp.asarray(fb), jnp.asarray(g))
+
+    xt = torch.from_numpy(x).requires_grad_()
+    fbt = torch.from_numpy(fb).requires_grad_()
+    out = _fft_path(xt, fbt, fft, hop, **kw)
+    (out * torch.from_numpy(g)).sum().backward()
+    assert tuple(out.shape) == want.shape
+    np.testing.assert_allclose(out.detach().numpy(), want, atol=1e-4,
+                               rtol=1e-5)
+    assert _rel(xt.grad, want_dx) <= GRAD_TOL
+    assert _rel(fbt.grad, want_dfb) <= GRAD_TOL
+    with torch.no_grad():
+        serve = _fft_path(torch.from_numpy(x), torch.from_numpy(fb), fft,
+                          hop, **kw)
+    assert torch.equal(serve, out.detach())
+
+
+def test_gradcheck_float64_on_the_fft_route():
+    """``_FusedMel`` with the step-by-step versions is the exact gradient
+    of its own forward: finite differences in float64 at the smallest
+    size of the route."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((1, 300), generator=gen, dtype=torch.float64)
+    fb = torch.rand((129, 3), generator=gen, dtype=torch.float64) + 0.1
+
+    def fn(xv, fbv):
+        return tfused._fused_apply(xv, fbv, 256, 40, "hann", None, True, 1.0,
+                                   1e-7, tfused._fwd_fft_plain,
+                                   tfused._bwd_fft_plain)
+
+    assert torch.autograd.gradcheck(
+        fn, (x.requires_grad_(), fb.requires_grad_()), eps=1e-6, atol=1e-6)
+
+
+def test_silence_gives_exactly_zero_on_the_fft_route(rng):
+    x = torch.zeros((2, 4096), requires_grad=True)
+    fb = tops.create_mel_filter(32, 16000, 0.0, None, 257).requires_grad_()
+    g = torch.from_numpy(rng.standard_normal(
+        (2, 32, 1 + (4096 - 512) // 128)).astype(np.float32))
+    (_fft_path(x, fb, 512, 128) * g).sum().backward()
+    assert not x.grad.any() and not fb.grad.any()
+
+
+# ---- the routing rule ------------------------------------------------------------
+
+@pytest.mark.parametrize("fft,takes_fft", [
+    (256, True), (512, True), (1024, True), (2048, True),
+    (400, False), (128, False), (4096, False), (1000, False), (2, False),
+    (255, False), (768, False)])
+def test_routing_rule(fft, takes_fft):
+    assert tfused._fft_kernel_supported(fft) is takes_fft
+    assert tfused._route_for(fft, None) == ("fft" if takes_fft else "dft")
+    assert tfused._route_for(fft, "dft") == "dft"
+    if takes_fft:
+        assert tfused._route_for(fft, "fft") == "fft"
+    else:
+        with pytest.raises(ValueError, match="power of two"):
+            tfused._route_for(fft, "fft")
+    with pytest.raises(ValueError, match="unknown route"):
+        tfused._route_for(fft, "cufft")
+
+
+def test_wrappers_refuse_cpu_tensors_on_both_routes():
+    """On anything but a CUDA tensor the launch wrappers raise; neither
+    route computes the result another way, and no counter moves."""
+    fb = tops.create_mel_filter(32, 16000, 0.0, None, 257)
+    before = (tfused.KERNEL_LAUNCHES, tfused.FFT_KERNEL_LAUNCHES,
+              tfused.BWD_KERNEL_LAUNCHES, tfused.BWD_FFT_LAUNCHES)
+    for route in (None, "fft", "dft"):
+        with pytest.raises(ValueError, match="CUDA"):
+            tfused._fused_mel_fwd_cuda(torch.zeros(2, 4096), fb, 512, 128,
+                                       "hann", None, True, 1.0, 1e-7,
+                                       _route=route)
+        with pytest.raises(ValueError, match="CUDA"):
+            tfused._fused_mel_bwd_cuda(torch.zeros(10, 64),
+                                       torch.zeros(10, 640), fb, 512, "hann",
+                                       None, True, True, _route=route)
+    assert before == (tfused.KERNEL_LAUNCHES, tfused.FFT_KERNEL_LAUNCHES,
+                      tfused.BWD_KERNEL_LAUNCHES, tfused.BWD_FFT_LAUNCHES)
+
+
+def test_cpu_path_reaches_no_kernel_constants(rng, monkeypatch):
+    """A CPU tensor takes the plain chain: no kernel library, no twiddle
+    table, whatever the ``fft_length``."""
+    def no_build():
+        raise AssertionError("the CPU path must not build the kernels")
+    monkeypatch.setattr(tfused._cuda, "load", no_build)
+    monkeypatch.setattr(tfused, "_fft_consts_on", no_build)
+    x = torch.from_numpy(rng.standard_normal((2, 4096)).astype(np.float32))
+    for fft in (512, 400):
+        fb = tops.create_mel_filter(32, 16000, 0.0, None, fft // 2 + 1)
+        out = tops.fused_melspectrogram(x, fb, fft, 128)
+        assert out.shape == (2, 32, 1 + (4096 - fft) // 128)

@@ -11,38 +11,60 @@
 //   dreim[row, .]   = [2 re dp | 2 im dp]                   (per tile)
 //   dframes[row, n] = sum_c dreim[row, c] * basis[n, c]
 //
-// with the windowed basis (k_pad, FT*2*FBT) that the forward reads, here
-// read transposed, so there is no second basis.  Rows are (stream, frame)
-// pairs, frame fastest; the host overlap-adds dframes onto the waveform.
+// with the windowed onesided DFT basis of the forward.  Rows are (stream,
+// frame) pairs, frame fastest; the host overlap-adds dframes onto the
+// waveform.
 //
-// What bounds it: the dframes product, 2 * rows * fft * FT*2*FBT FLOPs,
-// the same count as the forward's DFT (0.37 TFLOP at 32 x 30 s, fft 2048);
-// dp and dFB are 2 * rows * f_pad * m_pad each (3 % of it at 128 mels).
-// Like the forward, this first version runs FP32 FMAs on CUDA cores.
+// The frame gradient is the transpose of the forward's windowed real
+// transform.  With G_k = dre_k + i dim_k,
 //
-// Design, and why it is not the TPU's merged kernel:
-//   * Three passes instead of one merged grid.  The TPU kernel recomputed
-//     dp for every tile of the dframes output; a Hopper block cannot hold a
-//     (64 frames, fft) dframes tile, so on Hopper that would rerun the dp
-//     product fft / 128 times.  Pass A (dreim_kernel, one block per (64
-//     rows, frequency tile)) forms dp once and writes dreim to a scratch
-//     buffer; pass B (dframes_kernel) is a plain tiled GEMM with K over the
-//     FT*2*FBT residual columns and the forward's inner loop shape.
-//   * dFB is a pass of its own (dfb_kernel): each block owns a (64 bins,
-//     64 mels) tile and one contiguous split of the rows, and writes its
-//     partial sum; dfb_reduce_kernel adds the splits in a fixed order.  No
-//     float atomics: the same inputs give bitwise-equal gradients on every
-//     run.  dFB needs only p and dmel, so a caller that wants the
-//     filterbank gradient alone (a trainable front end on a waveform that
-//     needs no gradient) runs this pass only, a few percent of the work.
+//   dframes[row, n] = w[n] * Re sum_{k=0}^{N/2} G_k exp(+2 pi i k n / N)
+//
+// which is the unnormalised inverse DFT of the Hermitian spectrum Y_0 =
+// Re G_0, Y_{N/2} = Re G_{N/2}, Y_k = G_k / 2, Y_{N-k} = conj(G_k) / 2
+// (not irfft(G): DC and Nyquist weigh double), times the window.  Two
+// routes for the frame passes, chosen by fft_length alone:
+//   * dframes_fft_kernel<N>, for N = fft_length a power of two in [256,
+//     2048]: one kernel.  A block forms dp for 16 rows in shared memory
+//     (the mel product, FP32 FMAs), scales the residual by it in
+//     registers, so dreim is never written, and runs the inverse FFT in
+//     shared memory (fft_smem.cuh), a row as one complex transform of N / 2
+//     points whose output is z[m] = y[2m] + i y[2m+1].  What bounds it: the
+//     dp product (2 * bins * mels FLOPs a row, 10.8 GFLOP at 32 x 30 s, fft
+//     2048, 128 mels) and the FFT's shared-memory traffic; its bytes (the
+//     residual read and dframes written once, 0.70 GB) are below both.
+//     The last pass leaves each thread with sample pairs, which go
+//     straight to device memory, coalesced.
+//   * dreim_kernel (pass A) and dframes_kernel (pass B), for every other
+//     size.  The TPU kernel recomputed dp for every tile of the dframes
+//     output; a Hopper block cannot hold a (64 frames, fft) dframes tile
+//     of a dense product, so that would rerun the dp product fft / 128
+//     times.  Pass A (one block per (64 rows, frequency tile)) forms dp
+//     once and writes dreim to a scratch buffer; pass B is the dense
+//     product with the windowed basis that the forward's general-size
+//     kernel reads, here read transposed.  What bounds it: 2 * rows * fft *
+//     FT*2*FBT FLOPs as FP32 FMAs on CUDA cores (0.37 TFLOP at that
+//     shape), ~160 x the FFT's count; no f32-grade tensor-core tier of
+//     that product beats the plain chain (see fused_mel_fwd.cu).
+//
+// On both routes:
+//   * dFB is a pass of its own (dfb_kernel, 2 * rows * f_pad * m_pad
+//     FLOPs): each block owns a (64 bins, 64 mels) tile and one contiguous
+//     split of the rows, and writes its partial sum; dfb_reduce_kernel adds
+//     the splits in a fixed order.  No float atomics anywhere: the same
+//     inputs give bitwise-equal gradients on every run.  dFB needs only p
+//     and dmel, so a caller that wants the filterbank gradient alone (a
+//     trainable front end on a waveform that needs no gradient) runs this
+//     pass only, a few percent of the work.
 //   * Ragged edges: rows past `rows` load zeros and are not stored; bins
-//     past fft//2+1 have zero basis columns, so their residual, p and dreim
-//     are zero; mels past num_mels have zero dmel and zero fb; basis rows
-//     past k_pad load zeros and dframes columns past fft_length are not
-//     stored.
-// Tensor cores (wgmma) and TMA are later work.
+//     past fft//2+1 have zero residual, so their p and dreim are zero; mels
+//     past num_mels have zero dmel and zero fb; in dframes_kernel basis
+//     rows past k_pad load zeros and dframes columns past fft_length are
+//     not stored.
 
 #include <cuda_runtime.h>
+
+#include "fft_smem.cuh"
 
 namespace {
 
@@ -276,6 +298,184 @@ dframes_kernel(const float* __restrict__ dreim, const float* __restrict__ basis,
     }
 }
 
+
+// The frame passes of the FFT route in one kernel: dp as pass A forms it,
+// dreim in registers, the inverse FFT of pass B.  One block per FR rows.
+//   * dp[f, k] = sum_m dmel[f, m] * fbt[m, k] for the block's rows stays in
+//     shared memory, (FR, bins padded).  Each warp owns 32 * BPL of the N / 2
+//     bins below Nyquist and a lane BPL of them for all FR rows in registers;
+//     it reads the transposed filterbank as one coalesced row per mel and
+//     dmel, staged mel-major in shared memory, as broadcast 16-byte loads.
+//     The Nyquist bin is summed by all threads, 1 / 16 of the mels each, and
+//     added up in a fixed order.
+//   * Then, FR rows in rounds of 4096 / N: Y_k = (re_k, im_k) * dp_k from the
+//     residual (G_k / 2 with G = [2 re dp, 2 im dp]; Re G_k at k = 0 and N /
+//     2), the inverse transform, the window, and dframes.
+// dmel (rows, m_pad); reim (rows, ldr) with ldr = 2 * (N / 2 + FBT); fbt
+// (m_pad, N / 2 + FBT) the filterbank transposed, zero padded; window (N);
+// twiddle: the N pairs of fft_smem.cuh's twiddle table; dframes (rows, N).
+constexpr int FR = 16;          // rows per block of the fused frame passes
+constexpr int DM = 128;         // mels staged per step
+
+template <int N>
+__global__ void __launch_bounds__(tacfft::FFT_THREADS, 2)
+dframes_fft_kernel(const float* __restrict__ dmel,
+                   const float* __restrict__ reim,
+                   const float* __restrict__ fbt,
+                   const float* __restrict__ window,
+                   const float2* __restrict__ twiddle,
+                   float* __restrict__ dframes, int rows, int m_pad) {
+    using namespace tacfft;
+    constexpr int M = N / 2;
+    constexpr int TPF = M / POINTS;
+    constexpr int G = ROUND_POINTS / M;
+    constexpr int KP = M + FBT;
+    constexpr int LDR = 2 * KP;
+    constexpr int WARPS = FFT_THREADS / 32;
+    constexpr int BPL = M / (32 * WARPS) > 0 ? M / (32 * WARPS) : 1;
+    constexpr int TASKS = M / (32 * BPL);        // warps with bins to sum
+    static_assert(G <= FR && FR * DM + FFT_THREADS <= 2 * WORK_POINTS,
+                  "a round's rows fit the block; dmel is staged in `work`");
+    extern __shared__ __align__(16) float smem[];
+    float2* work = reinterpret_cast<float2*>(smem);      // (WORK_POINTS)
+    float2* tw_s = work + WORK_POINTS;                   // (N)
+    float* dp_s = reinterpret_cast<float*>(tw_s + N);    // (FR, KP)
+    float* dm_s = smem;                  // (DM, FR) dmel, mel-major; in `work`
+    float* ny_s = dm_s + FR * DM;        // (16, FR) partial sums of bin M
+
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const long long r0 = (long long)blockIdx.x * FR;
+
+    load_twiddles<N>(tw_s, twiddle);
+
+    // dp for the block's rows
+    float acc[FR][BPL];
+#pragma unroll
+    for (int f = 0; f < FR; ++f)
+#pragma unroll
+        for (int c = 0; c < BPL; ++c) acc[f][c] = 0.f;
+    float nyq = 0.f;
+    const int k0 = (warp * 32 + lane) * BPL;
+    for (int mc = 0; mc < m_pad; mc += DM) {
+        const int width = min(DM, m_pad - mc);
+        __syncthreads();                 // the staged chunk before is consumed
+        for (int idx = tid; idx < FR * width; idx += FFT_THREADS) {
+            const int f = idx / width;
+            const int m = idx % width;
+            dm_s[m * FR + f] = r0 + f < rows
+                ? dmel[(r0 + f) * m_pad + mc + m] : 0.f;
+        }
+        __syncthreads();
+        if (warp < TASKS) {
+#pragma unroll 2
+            for (int m = 0; m < width; ++m) {
+                const float* row = fbt + (long long)(mc + m) * KP + k0;
+                float w[BPL];
+                if constexpr (BPL == 4) {
+                    const float4 t = *reinterpret_cast<const float4*>(row);
+                    w[0] = t.x;
+                    w[1] = t.y;
+                    w[2] = t.z;
+                    w[3] = t.w;
+                } else if constexpr (BPL == 2) {
+                    const float2 t = *reinterpret_cast<const float2*>(row);
+                    w[0] = t.x;
+                    w[1] = t.y;
+                } else {
+                    w[0] = *row;
+                }
+#pragma unroll
+                for (int f4 = 0; f4 < FR; f4 += 4) {
+                    const float4 d = *reinterpret_cast<const float4*>(&dm_s[m * FR + f4]);
+#pragma unroll
+                    for (int c = 0; c < BPL; ++c) {
+                        acc[f4 + 0][c] = fmaf(d.x, w[c], acc[f4 + 0][c]);
+                        acc[f4 + 1][c] = fmaf(d.y, w[c], acc[f4 + 1][c]);
+                        acc[f4 + 2][c] = fmaf(d.z, w[c], acc[f4 + 2][c]);
+                        acc[f4 + 3][c] = fmaf(d.w, w[c], acc[f4 + 3][c]);
+                    }
+                }
+            }
+        }
+        // bin M: thread (part, f) sums mels part, part + 16, ...
+        for (int m = tid / FR; m < width; m += FFT_THREADS / FR)
+            nyq = fmaf(dm_s[m * FR + tid % FR],
+                       fbt[(long long)(mc + m) * KP + M], nyq);
+    }
+    ny_s[tid] = nyq;
+    if (warp < TASKS) {
+#pragma unroll
+        for (int f = 0; f < FR; ++f)
+#pragma unroll
+            for (int c = 0; c < BPL; ++c) dp_s[f * KP + k0 + c] = acc[f][c];
+    }
+    __syncthreads();
+    if (tid < FR) {
+        float sum = 0.f;
+        for (int part = 0; part < FFT_THREADS / FR; ++part)
+            sum += ny_s[part * FR + tid];
+        dp_s[tid * KP + M] = sum;
+    }
+    __syncthreads();                     // dp_s complete; `work` is free
+
+    const int g = tid / TPF;
+    const int j = tid % TPF;
+    for (int round = 0; round < FR / G; ++round) {
+        const int f = round * G + g;
+        const long long row = r0 + f;
+        const bool ok = row < rows;
+        const float* re = reim + row * LDR;
+        const float* dp = dp_s + f * KP;
+        float2 v[POINTS];
+#pragma unroll
+        for (int m = 0; m < POINTS; ++m) {
+            const int k = j + m * TPF;              // 0..M-1
+            const int kn = M - k;                   // 1..M
+            const int ck = (k / FBT) * 2 * FBT + k % FBT;
+            const int cn = (kn / FBT) * 2 * FBT + kn % FBT;
+            float2 yk = make_float2(0.f, 0.f), yn = yk;
+            if (ok) {
+                const float dk = dp[k], dn = dp[kn];
+                yk = k == 0 ? make_float2(2.f * re[ck] * dk, 0.f)
+                            : make_float2(re[ck] * dk, re[ck + FBT] * dk);
+                yn = k == 0 ? make_float2(2.f * re[cn] * dn, 0.f)
+                            : make_float2(re[cn] * dn, re[cn + FBT] * dn);
+            }
+            v[m] = hermitian_point(yk, yn, tw_s[k]);
+        }
+        fft_block<M, true>(v, work, tw_s + M, g, j);
+        if (!ok) continue;
+        float* out = dframes + row * N;
+#pragma unroll
+        for (int m = 0; m < POINTS; ++m) {
+            const int n = 2 * (j + m * TPF);
+            const float2 w = *reinterpret_cast<const float2*>(window + n);
+            *reinterpret_cast<float2*>(out + n) =
+                make_float2(w.x * v[m].x, w.y * v[m].y);
+        }
+    }
+}
+
+template <int N>
+cudaError_t launch_dframes_fft(const float* dmel, const float* reim,
+                               const float* fbt, const float* window,
+                               const float* twiddle, float* dframes, int rows,
+                               int m_pad, cudaStream_t st) {
+    const size_t smem = sizeof(float2) * (tacfft::WORK_POINTS + N)
+                        + sizeof(float) * FR * (N / 2 + FBT);
+    cudaError_t err = cudaFuncSetAttribute(
+        dframes_fft_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    dframes_fft_kernel<N><<<(unsigned)((rows + FR - 1) / FR),
+                            tacfft::FFT_THREADS, smem, st>>>(
+        dmel, reim, fbt, window, reinterpret_cast<const float2*>(twiddle),
+        dframes, rows, m_pad);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -288,14 +488,20 @@ extern "C" {
 //     dfb_part (n_splits, f_pad, m_pad) holds the per-split sums.
 //   dframes (rows, fft_length) or null: the frame gradient; dreim (rows,
 //     ldr) is its scratch.
+//   The frame passes run as one kernel around an inverse FFT when `twiddle`
+//     is given: fft_length a power of two in [256, 2048], `window` its
+//     fft_length samples, `twiddle` the fft_length pairs of fft_smem.cuh's
+//     twiddle table, `fbt` (m_pad, f_pad) the transposed filterbank; `basis`
+//     and `dreim` are then not used.  Otherwise they are pass A and the
+//     product with `basis`.
 int tac_fused_mel_bwd(const float* dmel, const float* reim, const float* fb,
-                      const float* basis, float* dreim, float* dframes,
-                      float* dfb, float* dfb_part, int rows, int fft_length,
-                      int k_pad, int ft_count, int m_pad, int n_splits,
-                      int rows_per_split, void* stream) {
+                      const float* fbt, const float* basis,
+                      const float* window, const float* twiddle, float* dreim,
+                      float* dframes, float* dfb, float* dfb_part, int rows,
+                      int fft_length, int k_pad, int ft_count, int m_pad,
+                      int n_splits, int rows_per_split, void* stream) {
     if (rows <= 0) return 0;
-    if (m_pad <= 0 || m_pad % MC != 0 || ft_count <= 0 || fft_length < 2
-        || k_pad < fft_length)
+    if (m_pad <= 0 || m_pad % MC != 0 || ft_count <= 0 || fft_length < 2)
         return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
     const int ldr = ft_count * 2 * FBT;
@@ -317,8 +523,28 @@ int tac_fused_mel_bwd(const float* dmel, const float* reim, const float* fb,
             if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
         }
     }
-    if (dframes) {
-        if (!dreim) return (int)cudaErrorInvalidValue;
+    if (dframes && twiddle) {
+        if (!(fbt && window && fft_length % 2 == 0
+              && tacfft::fft_size_ok(fft_length / 2)
+              && ft_count == fft_length / (2 * FBT) + 1))
+            return (int)cudaErrorInvalidValue;
+#define TAC_FFT_CASE(n)                                                       \
+    case n:                                                                   \
+        err = launch_dframes_fft<n>(dmel, reim, fbt, window, twiddle,         \
+                                    dframes, rows, m_pad, st);                \
+        break
+        switch (fft_length) {
+            TAC_FFT_CASE(256);
+            TAC_FFT_CASE(512);
+            TAC_FFT_CASE(1024);
+            TAC_FFT_CASE(2048);
+            default: err = cudaErrorInvalidValue;
+        }
+#undef TAC_FFT_CASE
+        if (err != cudaSuccess) return (int)err;
+    } else if (dframes) {
+        if (!(dreim && basis && k_pad >= fft_length))
+            return (int)cudaErrorInvalidValue;
         const int row_blocks = (rows + TB - 1) / TB;
         dreim_kernel<<<dim3(row_blocks, ft_count), THREADS, 0, st>>>(
             dmel, fb, reim, dreim, rows, ldr, m_pad);

@@ -6,15 +6,43 @@
 // any hop_length > 0.
 //
 //   out[s, m, f] = dB( sum_k fb[k, m] * (re[s, f, k]^2 + im[s, f, k]^2) )
-//   re + i*im    = sum_n x[s, f*hop + n] * basis[n, (re|im) of bin k]
+//   re + i*im    = sum_n x[s, f*hop + n] * w[n] * exp(-2 pi i k n / fft)
 //
-// What bounds it: the DFT product.  Per frame it costs 2 * fft * 2 * F
-// FLOPs (F = onesided bins padded to the tile), against 4 * fft bytes of
-// waveform read (less with overlapping frames), so it is compute bound by
-// two orders of magnitude; the mel product adds ~6 % of that.  This first
-// version runs the products as FP32 FMAs on CUDA cores.
+// Two kernels, chosen by fft_length alone:
 //
-// What the design does about it:
+// A. fused_mel_fft_fwd_kernel<N>, for N = fft_length a power of two in
+//    [256, 2048]: the transform is an FFT in shared memory (fft_smem.cuh).
+//    What bounds it: the mel product (2 * bins * mels FLOPs a frame, 10.8
+//    GFLOP at 32 x 30 s, fft 2048, 128 mels) and the FFT's shared-memory
+//    traffic (5 N log2 N FLOPs a frame, 15.5 GFLOP, but ~23 shared-memory
+//    accesses per 8 points and pass); device-memory bytes are two orders
+//    below either.  What the design does about it:
+//      * One block per (stream, FR = 16 frames).  A real frame is one
+//        complex transform of N / 2 points (even samples real, odd
+//        imaginary), windowed on the way in from the waveform at any hop,
+//        and split into its N / 2 + 1 bins after it.  Frames past n_frames
+//        load zeros and are not stored.
+//      * The power of the block's frames stays in shared memory, (FR,
+//        bins) with the bins padded to the 64-bin tiles of the residual;
+//        the spectrum never reaches device memory unless asked for.
+//      * The mel product splits the bins over the 8 warps; a lane owns 4
+//        (or 2) mels x all 16 frames in registers, reads the power as
+//        broadcast 16-byte loads and the filterbank from L2 as one
+//        coalesced row per bin: 64 FMAs per 5 loads.  The warps' partial
+//        sums are added through shared memory in a fixed order.
+//      * The residual (SAVE_SPEC) is written in kernel B's layout, 128
+//        bytes per warp and store.
+// B. fused_mel_fwd_kernel, for every other size (Whisper's 400, odd and
+//    very small sizes): the transform as a dense product with the windowed
+//    DFT basis.  What bounds it: that product, 2 * fft * 2 * F FLOPs a
+//    frame (F = onesided bins padded to the tile), ~160 x an FFT's count,
+//    as FP32 FMAs on CUDA cores.  The tensor cores do not save it: the
+//    same product through cuBLAS took 7.5 ms in FP32, 2.8 ms in TF32 (7.9e-4
+//    of peak off, over the 1e-5 bar), 9.6 ms in 3xTF32 and 1.7 ms in BF16
+//    (5e-3 off) at 32 x 30 s on an H100, every f32-grade tier slower than
+//    the torch.stft chain's 1.45 ms; so the power-of-two sizes went to A.
+//
+// What kernel B's design does:
 //   * One thread block per (stream, block of TB frames).  The block walks
 //     the frequency tiles in a loop, so the (TB, mels) accumulator stays in
 //     shared memory for the whole block: no cross-block reduction, and the
@@ -33,15 +61,16 @@
 //     config by the host and stays on the device (it fits in L2 at the
 //     main configs); the filterbank is passed on every call because it may
 //     be a trainable parameter.
-//   * For training, an optional second output `reim` (the JAX kernel's
-//     save_spec residual) takes each thread's re/im register tile before
-//     the power is formed: (n_streams, n_frames, FT*2*FBT), tile t columns
-//     [re_t | im_t], laid out like the basis.  Frames past n_frames are not
-//     stored.  It is a template flag, so the serving instantiation is the
-//     kernel without it.
-// Tensor-core tiers (TF32, 3xTF32, BF16 with wgmma) are later work.
+//
+// Both kernels: for training, an optional second output `reim` (the JAX
+// kernel's save_spec residual) takes re/im before the power is formed:
+// (n_streams, n_frames, FT*2*FBT), tile t columns [re_t | im_t], zeros in
+// the bins past n_freqs.  Frames past n_frames are not stored.  It is a
+// template flag, so the serving instantiation is the kernel without it.
 
 #include <cuda_runtime.h>
+
+#include "fft_smem.cuh"
 
 namespace {
 
@@ -247,6 +276,242 @@ int launch(const float* x, const float* basis, const float* fb, float* out,
     return (int)cudaGetLastError();
 }
 
+
+// ---- kernel A: the transform as a shared-memory FFT --------------------------
+
+using tacfft::FFT_THREADS;
+using tacfft::POINTS;
+using tacfft::ROUND_POINTS;
+using tacfft::WORK_POINTS;
+using tacfft::padded;
+
+constexpr int FR = 16;          // frames per block
+constexpr int WARPS = FFT_THREADS / 32;
+
+static_assert(ROUND_POINTS / tacfft::FFT_MIN <= FR,
+              "a round's frames must fit the block's frame group");
+static_assert(WARPS == 8, "the mel reduction pairs 8 warps in 4 steps");
+
+// onesided bins padded to the residual's 64-bin tiles
+__host__ __device__ constexpr int bins_padded(int n) { return n / 2 + FBT; }
+
+template <int N>
+size_t fft_smem_bytes() {
+    return sizeof(float2) * (WORK_POINTS + N)
+           + sizeof(float) * FR * bins_padded(N);
+}
+
+// The mel product and the epilogue of kernel A for MPL mels per lane:
+// out[m, frame] = dB(sum_k p_s[frame, k] * fb[k, m]).
+template <int N, int MPL>
+__device__ __forceinline__ void mel_epilogue(
+        const float* __restrict__ p_s, float* __restrict__ red,
+        const float* __restrict__ fb, float* __restrict__ out_s, int f0,
+        int n_frames, int num_mels, int m_pad, int to_db, float amin,
+        float db_offset) {
+    constexpr int KP = bins_padded(N);
+    constexpr int NQ = (N / 2 + 1 + 3) / 4;      // groups of 4 bins
+    constexpr int CH = 32 * MPL;                 // mels per chunk
+    constexpr int RL = CH + 4;                   // row of the reduction buffer
+    static_assert(2 * FR * RL <= 2 * WORK_POINTS, "reduction buffer");
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const float db_scale = 4.342944819032518f;   // 10 / ln(10)
+
+    for (int mc = 0; mc < m_pad; mc += CH) {
+        float acc[FR][MPL];
+#pragma unroll
+        for (int f = 0; f < FR; ++f)
+#pragma unroll
+            for (int c = 0; c < MPL; ++c) acc[f][c] = 0.f;
+
+        for (int q = warp; q < NQ; q += WARPS) {
+            const int k = 4 * q;
+            float w[4][MPL];
+            const float* fp = fb + (long long)k * m_pad + mc + lane * MPL;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const float* row = fp + (long long)i * m_pad;
+                if constexpr (MPL == 4) {
+                    const float4 t = *reinterpret_cast<const float4*>(row);
+                    w[i][0] = t.x;
+                    w[i][1] = t.y;
+                    w[i][2] = t.z;
+                    w[i][3] = t.w;
+                } else {
+                    const float2 t = *reinterpret_cast<const float2*>(row);
+                    w[i][0] = t.x;
+                    w[i][1] = t.y;
+                }
+            }
+#pragma unroll
+            for (int f = 0; f < FR; ++f) {
+                const float4 p = *reinterpret_cast<const float4*>(&p_s[f * KP + k]);
+#pragma unroll
+                for (int c = 0; c < MPL; ++c) {
+                    acc[f][c] = fmaf(p.x, w[0][c], acc[f][c]);
+                    acc[f][c] = fmaf(p.y, w[1][c], acc[f][c]);
+                    acc[f][c] = fmaf(p.z, w[2][c], acc[f][c]);
+                    acc[f][c] = fmaf(p.w, w[3][c], acc[f][c]);
+                }
+            }
+        }
+
+        // warps 0 and 1 store, then 2 and 3 add, ...: a fixed order
+        for (int step = 0; step < WARPS / 2; ++step) {
+            if ((warp >> 1) == step) {
+                float* r = red + (warp & 1) * FR * RL + lane * MPL;
+#pragma unroll
+                for (int f = 0; f < FR; ++f)
+#pragma unroll
+                    for (int c = 0; c < MPL; ++c) {
+                        if (step == 0) r[f * RL + c] = acc[f][c];
+                        else r[f * RL + c] += acc[f][c];
+                    }
+            }
+            __syncthreads();
+        }
+        for (int idx = tid; idx < FR * CH; idx += FFT_THREADS) {
+            const int r = idx % FR;
+            const int m = mc + idx / FR;
+            const int frame = f0 + r;
+            if (m >= num_mels || frame >= n_frames) continue;
+            float v = red[r * RL + idx / FR] + red[FR * RL + r * RL + idx / FR];
+            if (to_db) v = db_scale * logf(fmaxf(v, amin)) - db_offset;
+            out_s[(long long)m * n_frames + frame] = v;
+        }
+        __syncthreads();   // the reduction buffer is free for the next chunk
+    }
+}
+
+// x        (n_streams, n_samples)      waveform
+// window   (N)                         the window, zero padded to N
+// twiddle  (N)                         the twiddle table of fft_smem.cuh
+// fb       (ft_count * FBT, m_pad)     filterbank, zero padded
+// out      (n_streams, num_mels, n_frames)
+// reim     (n_streams, n_frames, ft_count * 2 * FBT)  written when SAVE_SPEC
+template <int N, bool SAVE_SPEC>
+__global__ void __launch_bounds__(FFT_THREADS, 2)
+fused_mel_fft_fwd_kernel(const float* __restrict__ x,
+                         const float* __restrict__ window,
+                         const float2* __restrict__ twiddle,
+                         const float* __restrict__ fb,
+                         float* __restrict__ out, float* __restrict__ reim,
+                         int n_samples, int hop_length, int n_frames,
+                         int num_mels, int m_pad, int to_db, float amin,
+                         float db_offset) {
+    constexpr int M = N / 2;                     // complex points a frame
+    constexpr int TPF = M / POINTS;              // threads per frame
+    constexpr int G = ROUND_POINTS / M;          // frames per round
+    constexpr int ROUNDS = FR / G;
+    constexpr int KP = bins_padded(N);
+    constexpr int LDR = 2 * KP;                  // residual row
+    extern __shared__ __align__(16) float smem[];
+    float2* work = reinterpret_cast<float2*>(smem);      // (WORK_POINTS)
+    float2* tw_s = work + WORK_POINTS;                   // (N)
+    float* p_s = reinterpret_cast<float*>(tw_s + N);     // (FR, KP) power
+
+    const int tid = threadIdx.x;
+    const int g = tid / TPF;
+    const int j = tid % TPF;
+    const int f0 = blockIdx.x * FR;
+    const int s = blockIdx.y;
+    const float* xs = x + (long long)s * n_samples;
+
+    tacfft::load_twiddles<N>(tw_s, twiddle);
+    __syncthreads();
+
+    for (int round = 0; round < ROUNDS; ++round) {
+        // the windowed frame, even samples real and odd imaginary
+        const int frame = f0 + round * G + g;
+        const bool ok = frame < n_frames;
+        const float* xf = xs + (long long)frame * hop_length;
+        float2 v[POINTS];
+#pragma unroll
+        for (int m = 0; m < POINTS; ++m) {
+            const int n = 2 * (j + m * TPF);
+            const float2 w = *reinterpret_cast<const float2*>(window + n);
+            v[m] = ok ? make_float2(w.x * xf[n], w.y * xf[n + 1])
+                      : make_float2(0.f, 0.f);
+        }
+        tacfft::fft_block<M, false>(v, work, tw_s + M, g, j);
+#pragma unroll
+        for (int m = 0; m < POINTS; ++m)
+            work[padded(g * M + j + m * TPF)] = v[m];
+        __syncthreads();
+
+        // the frames' bins, their power, and the residual
+#pragma unroll
+        for (int gg = 0; gg < G; ++gg) {
+            const int fr = round * G + gg;       // frame within the block
+            const float2* z = work + padded(gg * M);
+            float* dst = reim + ((long long)s * n_frames + f0 + fr) * LDR;
+            const bool store = SAVE_SPEC && f0 + fr < n_frames;
+            for (int k = tid; k < KP; k += FFT_THREADS) {
+                float2 bin = make_float2(0.f, 0.f);
+                if (k <= M) {
+                    const int kk = k & (M - 1), kn = (M - k) & (M - 1);
+                    bin = tacfft::real_bin(
+                        z[kk + (kk >> 4)], z[kn + (kn >> 4)],
+                        k < M ? tw_s[k] : make_float2(-1.f, 0.f));
+                }
+                p_s[fr * KP + k] = bin.x * bin.x + bin.y * bin.y;
+                if (store) {
+                    const int col = (k / FBT) * 2 * FBT + k % FBT;
+                    dst[col] = bin.x;
+                    dst[col + FBT] = bin.y;
+                }
+            }
+        }
+        __syncthreads();   // the round buffer is free for the next round
+    }
+
+    float* out_s = out + (long long)s * num_mels * n_frames;
+    float* red = reinterpret_cast<float*>(work);
+    if (m_pad % 128 == 0)
+        mel_epilogue<N, 4>(p_s, red, fb, out_s, f0, n_frames, num_mels, m_pad,
+                           to_db, amin, db_offset);
+    else
+        mel_epilogue<N, 2>(p_s, red, fb, out_s, f0, n_frames, num_mels, m_pad,
+                           to_db, amin, db_offset);
+}
+
+template <int N, bool SAVE_SPEC>
+int launch_fft(const float* x, const float* window, const float* twiddle,
+               const float* fb, float* out, float* reim, int n_streams,
+               int n_samples, int hop_length, int n_frames, int num_mels,
+               int m_pad, int to_db, float amin, float db_offset,
+               cudaStream_t stream) {
+    const size_t smem = fft_smem_bytes<N>();
+    cudaError_t err = cudaFuncSetAttribute(
+        fused_mel_fft_fwd_kernel<N, SAVE_SPEC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((n_frames + FR - 1) / FR, n_streams);
+    fused_mel_fft_fwd_kernel<N, SAVE_SPEC><<<grid, FFT_THREADS, smem, stream>>>(
+        x, window, reinterpret_cast<const float2*>(twiddle), fb, out, reim,
+        n_samples, hop_length, n_frames, num_mels, m_pad, to_db, amin,
+        db_offset);
+    return (int)cudaGetLastError();
+}
+
+template <int N>
+int launch_fft_n(const float* x, const float* window, const float* twiddle,
+                 const float* fb, float* out, float* reim, int n_streams,
+                 int n_samples, int hop_length, int n_frames, int num_mels,
+                 int m_pad, int to_db, float amin, float db_offset,
+                 cudaStream_t stream) {
+    return reim ? launch_fft<N, true>(x, window, twiddle, fb, out, reim,
+                                      n_streams, n_samples, hop_length,
+                                      n_frames, num_mels, m_pad, to_db, amin,
+                                      db_offset, stream)
+                : launch_fft<N, false>(x, window, twiddle, fb, out, nullptr,
+                                       n_streams, n_samples, hop_length,
+                                       n_frames, num_mels, m_pad, to_db, amin,
+                                       db_offset, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -270,6 +535,49 @@ int tac_fused_mel_fwd(const float* x, const float* basis, const float* fb,
                                 n_samples, fft_length, hop_length, n_frames,
                                 ft_count, num_mels, m_pad, to_db, amin,
                                 db_offset, st);
+}
+
+// Kernel A: the forward for fft_length a power of two in [256, 2048], the
+// transform as a shared-memory FFT.  `window` is the fft_length window
+// samples, `twiddle` the fft_length pairs of fft_smem.cuh's twiddle table;
+// `fb` is (fft_length / 2 + FBT, m_pad), zero padded.  Otherwise as
+// tac_fused_mel_fwd.
+int tac_fused_mel_fft_fwd(const float* x, const float* window,
+                          const float* twiddle, const float* fb, float* out,
+                          float* reim, int n_streams, int n_samples,
+                          int fft_length, int hop_length, int n_frames,
+                          int num_mels, int m_pad, int to_db, float amin,
+                          float db_offset, void* stream) {
+    if (n_streams <= 0 || n_frames <= 0 || num_mels <= 0) return 0;
+    if (m_pad % MC != 0 || m_pad < num_mels || hop_length < 1
+        || fft_length % 2 != 0 || !tacfft::fft_size_ok(fft_length / 2))
+        return (int)cudaErrorInvalidValue;
+    const cudaStream_t st = (cudaStream_t)stream;
+#define TAC_FFT_CASE(n)                                                       \
+    case n:                                                                   \
+        return launch_fft_n<n>(x, window, twiddle, fb, out, reim, n_streams,  \
+                               n_samples, hop_length, n_frames, num_mels,     \
+                               m_pad, to_db, amin, db_offset, st)
+    switch (fft_length) {
+        TAC_FFT_CASE(256);
+        TAC_FFT_CASE(512);
+        TAC_FFT_CASE(1024);
+        TAC_FFT_CASE(2048);
+        default: return (int)cudaErrorInvalidValue;
+    }
+#undef TAC_FFT_CASE
+}
+
+// What the host lays out for kernel A: the least and the largest
+// fft_length it takes, the residual's bin tile, the filterbank's column pad.
+int tac_fused_mel_fft_tile(int which) {
+    switch (which) {
+        case 0: return 2 * tacfft::FFT_MIN;
+        case 1: return 2 * tacfft::FFT_MAX;
+        case 2: return FBT;
+        case 3: return MC;
+        default: return -1;
+    }
 }
 
 const char* tac_error_string(int code) {

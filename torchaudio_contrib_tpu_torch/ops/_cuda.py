@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
 Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``), one
-``nvcc`` per source, all started together, and linked into one shared
+``nvcc`` per source, all started together (the shared headers
+``csrc/*.cuh`` are found beside them), and linked into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build
 happens at first use, into ``_build/`` beside the package sources, under a
 name derived from the sources' hash, so an edited source is rebuilt and
@@ -61,14 +62,17 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tac_fused_mel_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
                                       i, f, f, p]
     lib.tac_fused_mel_fwd.restype = i
-    lib.tac_fused_mel_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                      i, i, p]
+    lib.tac_fused_mel_fft_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+                                          i, i, f, f, p]
+    lib.tac_fused_mel_fft_fwd.restype = i
+    lib.tac_fused_mel_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i,
+                                      i, i, i, i, i, p]
     lib.tac_fused_mel_bwd.restype = i
     lib.tac_fused_gl_solve.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
                                        i, i, i, i, f, i, p]
     lib.tac_fused_gl_solve.restype = i
-    for tile in (lib.tac_fused_mel_fwd_tile, lib.tac_fused_mel_bwd_tile,
-                 lib.tac_fused_gl_tile):
+    for tile in (lib.tac_fused_mel_fwd_tile, lib.tac_fused_mel_fft_tile,
+                 lib.tac_fused_mel_bwd_tile, lib.tac_fused_gl_tile):
         tile.argtypes = [i]
         tile.restype = i
     lib.tac_error_string.argtypes = [i]
@@ -108,7 +112,8 @@ def _build_and_load() -> ctypes.CDLL:
         tmp = so.with_name(f"{so.name}.{tag}")
         t0 = time.perf_counter()
         try:
-            out = _run_all([[nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)]
+            out = _run_all([[nvcc, *_FLAGS, "-I", str(_CSRC), "-c", "-o",
+                             str(obj), str(src)]
                             for src, obj in zip(srcs, objs)])
             out += _run_all([[nvcc, *_ARCH, "-shared", "-o", str(tmp),
                               *map(str, objs)]])

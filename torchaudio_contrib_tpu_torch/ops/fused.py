@@ -2,22 +2,38 @@
 and a CUDA backward for training.
 
 Port of ``torchaudio_contrib_tpu/ops/fused.py``.  On a CUDA tensor,
-:func:`fused_melspectrogram` launches the hand-written Hopper kernel
+:func:`fused_melspectrogram` launches a hand-written Hopper kernel of
 ``csrc/fused_mel_fwd.cu`` (built by :mod:`._cuda` on first use), which
-frames the waveform, multiplies by the windowed DFT basis, forms the
-power, applies the filterbank and the dB epilogue without writing the
-spectrum to device memory.  When a gradient is needed, :class:`_FusedMel`
-runs that kernel with its re/im residual output and, in the backward,
-the dB gate, the backward kernel ``csrc/fused_mel_bwd.cu`` and the
-overlap-add onto the waveform.  On a CPU tensor it runs :func:`_reference`,
-the plain PyTorch chain the kernels compute, with autograd.  There is no
-other fallback: a CUDA tensor the kernels cannot take raises.
+frames and windows the waveform, transforms each frame, forms the power,
+applies the filterbank and the dB epilogue without writing the spectrum
+to device memory.  Which kernel is a function of ``fft_length`` alone
+(:func:`_fft_kernel_supported`):
 
-``KERNEL_LAUNCHES`` counts the forward kernel's launches,
-``BWD_KERNEL_LAUNCHES`` the backward kernel's, and
-``BWD_DFRAMES_LAUNCHES`` those backward launches that also ran the frame
-gradient passes (and nothing else), so a run can show that it went
-through the kernels.
+* a power of two from 256 to 2048 takes the FFT kernels: the transform is
+  a radix-8/4/2 FFT per frame in shared memory (``csrc/fft_smem.cuh``),
+  a real frame as one complex transform of half its length.  The forward
+  and the frame gradient are then bound by their mel products (FP32 FMAs)
+  and the FFT's shared-memory traffic;
+* every other size (Whisper's 400, odd and very small sizes) takes the
+  DFT-product kernels: the transform as a dense FP32 product with the
+  windowed DFT basis, ~160 x an FFT's operations, which bounds them.
+
+When a gradient is needed, :class:`_FusedMel` runs the forward with its
+re/im residual output and, in the backward, the dB gate, the backward
+kernels of ``csrc/fused_mel_bwd.cu`` (whose frame-gradient passes are one
+kernel around the inverse FFT on the first route, two passes around the
+transposed product on the second) and the overlap-add onto the waveform.
+On a CPU tensor it runs :func:`_reference`, the plain PyTorch chain the
+kernels compute, with autograd.  There is no other fallback: a CUDA tensor
+the kernels cannot take raises, and so does a failed launch on either
+route.
+
+``KERNEL_LAUNCHES`` counts the forward kernels' launches,
+``BWD_KERNEL_LAUNCHES`` the backward's, and ``BWD_DFRAMES_LAUNCHES`` those
+backward launches that also ran the frame gradient passes;
+``FFT_KERNEL_LAUNCHES`` and ``BWD_FFT_LAUNCHES`` count those of the
+forward and of the frame passes that took the FFT route (and nothing
+else), so a run can show which kernels it went through.
 """
 from __future__ import annotations
 
@@ -42,6 +58,8 @@ __all__ = ["fused_melspectrogram", "fused_mel_supported",
 KERNEL_LAUNCHES = 0
 BWD_KERNEL_LAUNCHES = 0
 BWD_DFRAMES_LAUNCHES = 0
+FFT_KERNEL_LAUNCHES = 0
+BWD_FFT_LAUNCHES = 0
 
 _PRECISIONS = ("fast", "split3", "split6")
 
@@ -55,6 +73,13 @@ _MEL_TILE = 64      # mel columns per step (filterbank columns pad to this)
 _MAX_MELS = 704     # the (frames, mels) accumulator must fit shared memory
 _MAX_STREAMS = 65535  # grid.y
 _DFB_BLOCKS = 264   # the dFB pass splits the rows to fill ~2 waves of SMs
+# csrc/fft_smem.cuh: the frame lengths the FFT kernels are built for
+# (powers of two; the complex transform has half the length), and the
+# radix of a pass: radix-8 passes, then one radix-2 or radix-4 pass where
+# the size leaves one.
+_FFT_MIN = 256
+_FFT_MAX = 2048
+_FFT_RADIX = 8
 
 _LN10_INV_10 = 10.0 / math.log(10.0)   # d(dB)/d(mel) = this / mel
 _DB_TO_LIN = math.log(10.0) / 10.0     # mel = ref·exp(dB·this)
@@ -82,6 +107,28 @@ def fused_mel_supported(fft_length: int, hop_length: int) -> bool:
     and any positive hop (frames are read from the waveform at any
     stride; ragged edges are masked in the kernel)."""
     return fft_length >= 2 and hop_length > 0
+
+
+def _fft_kernel_supported(fft_length: int) -> bool:
+    """True when ``fft_length`` takes the FFT kernels: a power of two from
+    256 to 2048.  Every other size takes the DFT-product kernels."""
+    return (_FFT_MIN <= fft_length <= _FFT_MAX
+            and fft_length & (fft_length - 1) == 0)
+
+
+def _route_for(fft_length: int, route) -> str:
+    """``"fft"`` or ``"dft"``: the rule of :func:`_fft_kernel_supported`
+    unless ``route`` names one (to time and compare both kernels at one
+    shape)."""
+    if route is None:
+        return "fft" if _fft_kernel_supported(fft_length) else "dft"
+    if route not in ("fft", "dft"):
+        raise ValueError(f"unknown route {route!r}: expected 'fft' or 'dft'")
+    if route == "fft" and not _fft_kernel_supported(fft_length):
+        raise ValueError(f"the FFT kernels take a power of two from "
+                         f"{_FFT_MIN} to {_FFT_MAX}, not "
+                         f"fft_length={fft_length}")
+    return route
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -133,6 +180,72 @@ def _basis_on(device: torch.device, fft_length: int, win_key, win_length):
     return torch.from_numpy(basis).to(device), n_freqs, ft_count
 
 
+def _fft_plan(n: int):
+    """The passes ``(radix, product of the earlier radices)`` of the FFT
+    kernels' complex transform of ``n`` points: radix 8 while 8 divides
+    what is left, then what is left (2 or 4)."""
+    plan, ns = [], 1
+    while ns < n:
+        r = min(_FFT_RADIX, n // ns)
+        plan.append((r, ns))
+        ns *= r
+    return plan
+
+
+@functools.lru_cache(maxsize=16)
+def _twiddle_np(fft_length: int) -> np.ndarray:
+    """The FFT kernels' twiddle table ``(fft_length, 2)`` of ``(re, im)``
+    pairs, in float64, in the order the kernels' threads read it (see
+    ``csrc/fft_smem.cuh``).  With ``N = fft_length``, ``M = N/2`` and ``W_j
+    = exp(−2πi j/N)``: entries ``[0, M)`` are ``W_k``, for the real-input
+    step; then, for each pass ``(R, NS)`` of the ``M``-point transform
+    after the first, ``w^(r·k)`` at ``(r − 1)·NS + k`` for ``r = 1..R−1``,
+    ``k = 0..NS−1``, ``w = exp(−2πi/(NS·R))``, every value taken from the
+    same ``W``; zeros fill the rest."""
+    n, m = fft_length, fft_length // 2
+    ang = 2.0 * np.pi * np.arange(n, dtype=np.float64) / n
+    base = np.stack([np.cos(ang), -np.sin(ang)], axis=1)
+    parts = [base[:m]]
+    for radix, ns in _fft_plan(m)[1:]:
+        r = np.arange(1, radix)[:, None]
+        k = np.arange(ns)[None, :]
+        parts.append(base[(2 * r * k * (m // (ns * radix))).ravel()])
+    table = np.concatenate(parts)
+    return np.pad(table, ((0, n - len(table)), (0, 0)))
+
+
+@functools.lru_cache(maxsize=16)
+def _fft_consts_on(device: torch.device, fft_length: int, win_key,
+                   win_length):
+    """The FFT kernels' constants on ``device``, once per config: the
+    window zero-padded to ``fft_length`` and the twiddle table, built in
+    float64 and cast to float32."""
+    if win_length is None:
+        win_length = fft_length
+    w = _resolve_window(win_key, win_length, fft_length)
+    # never inference tensors, whatever mode the first caller was in
+    with torch.inference_mode(False):
+        return (torch.from_numpy(w.astype(np.float32)).to(device),
+                torch.from_numpy(_twiddle_np(fft_length).astype(np.float32))
+                .to(device))
+
+
+def _fft_consts(like, fft_length, window, win_length):
+    """``(window (fft,), twiddles (fft,) complex)`` for the step-by-step
+    plain versions, on ``like``'s device in its precision: the float32
+    tables the kernels read, or the float64 ones for a float64 input."""
+    if like.dtype == torch.float64:
+        wl = fft_length if win_length is None else win_length
+        w = torch.from_numpy(_resolve_window(_hashable_window(window), wl,
+                                             fft_length)).to(like)
+        tw = torch.from_numpy(_twiddle_np(fft_length)).to(like.device)
+    else:
+        w, tw = _fft_consts_on(like.device, fft_length,
+                               _hashable_window(window), win_length)
+        w = w.to(like.dtype)
+    return w, torch.view_as_complex(tw.contiguous())
+
+
 def _fb_padded(filterbank, ft_count: int, m_pad: int):
     """The filterbank zero-padded to ``(ft_count·FREQ_TILE, m_pad)``."""
     n_freqs, num_mels = filterbank.shape
@@ -145,6 +258,8 @@ def _kernel_lib():
     lib = _cuda.load()
     for query, want in ((lib.tac_fused_mel_fwd_tile,
                          (_FRAME_TILE, _FREQ_TILE, _K_TILE, _MEL_TILE)),
+                        (lib.tac_fused_mel_fft_tile,
+                         (_FFT_MIN, _FFT_MAX, _FREQ_TILE, _MEL_TILE)),
                         (lib.tac_fused_mel_bwd_tile,
                          (_FRAME_TILE, _FREQ_TILE, _K_TILE, _MEL_TILE))):
         tiles = tuple(query(i) for i in range(4))
@@ -205,40 +320,184 @@ def _fwd_res_plain(x2, filterbank, fft_length, hop_length, window,
     return mel.transpose(1, 2).contiguous(), (reim if save_spec else None)
 
 
+def _dfb_dreim_plain(dmel, reim, filterbank, need_dx, need_dfb):
+    """The backward's dFB pass and pass A in plain PyTorch: ``(dreim (rows,
+    FT·2·FREQ_TILE) or None, dfb (n_freqs, num_mels) or None)``."""
+    n_freqs, num_mels = filterbank.shape
+    rows = dmel.shape[0]
+    ri = reim.view(rows, -1, 2, _FREQ_TILE)
+    re, im = ri[:, :, 0], ri[:, :, 1]
+    dreim = dfb = None
+    if need_dfb:
+        p = (re * re + im * im).reshape(rows, -1)
+        dfb = p[:, :n_freqs].T @ dmel[:, :num_mels]
+    if need_dx:
+        dp = dmel[:, :num_mels] @ filterbank.T
+        dp = F.pad(dp, (0, ri.shape[1] * _FREQ_TILE - n_freqs)).view(
+            rows, -1, _FREQ_TILE)
+        dreim = torch.stack([2.0 * re * dp, 2.0 * im * dp],
+                            dim=2).reshape(rows, -1)
+    return dreim, dfb
+
+
 def _bwd_plain(dmel, reim, filterbank, fft_length, window, win_length,
                need_dx, need_dfb):
     """Plain PyTorch version of the backward kernel: from ``dmel (rows,
     m_pad)`` (gated, zero past num_mels) and the residual ``reim (rows,
     FT·2·FREQ_TILE)``, ``(dframes (rows, fft) or None, dfb (n_freqs,
     num_mels) or None)``."""
-    basis, n_freqs, ft_count = _plain_basis(reim, fft_length, window,
-                                            win_length)
-    rows = dmel.shape[0]
-    num_mels = filterbank.shape[1]
-    ri = reim.view(rows, ft_count, 2, _FREQ_TILE)
-    re, im = ri[:, :, 0], ri[:, :, 1]
-    dframes = dfb = None
-    if need_dfb:
-        p = (re * re + im * im).reshape(rows, ft_count * _FREQ_TILE)
-        dfb = p[:, :n_freqs].T @ dmel[:, :num_mels]
+    dreim, dfb = _dfb_dreim_plain(dmel, reim, filterbank, need_dx, need_dfb)
+    dframes = None
     if need_dx:
-        dp = dmel[:, :num_mels] @ filterbank.T
-        dp = F.pad(dp, (0, ft_count * _FREQ_TILE - n_freqs)).view(
-            rows, ft_count, _FREQ_TILE)
-        dreim = torch.stack([2.0 * re * dp, 2.0 * im * dp], dim=2)
-        dframes = dreim.reshape(rows, -1) @ basis.T
+        basis, _, _ = _plain_basis(reim, fft_length, window, win_length)
+        dframes = dreim @ basis.T
+    return dframes, dfb
+
+
+# ---- the FFT kernels' plain versions, step by step ---------------------------
+
+def _rot4(a, inverse):
+    """``a·(−i)`` forward, ``a·(+i)`` inverse."""
+    return torch.complex(-a.imag, a.real) if inverse \
+        else torch.complex(a.imag, -a.real)
+
+
+def _dft_small(x, inverse):
+    """The kernels' 2-, 4- and 8-point DFTs of the list ``x``, outputs in
+    natural order."""
+    if len(x) == 2:
+        return [x[0] + x[1], x[0] - x[1]]
+    if len(x) == 4:
+        e0, e1 = x[0] + x[2], x[0] - x[2]
+        o0, o1 = x[1] + x[3], _rot4(x[1] - x[3], inverse)
+        return [e0 + o0, e1 + o1, e0 - o0, e1 - o1]
+    e, o = _dft_small(x[0::2], inverse), _dft_small(x[1::2], inverse)
+    h = math.sqrt(0.5)
+    w1 = complex(h, h) if inverse else complex(h, -h)
+    w3 = complex(-h, h) if inverse else complex(-h, -h)
+    o = [o[0], o[1] * w1, _rot4(o[2], inverse), o[3] * w3]
+    return [a + b for a, b in zip(e, o)] + [a - b for a, b in zip(e, o)]
+
+
+def _stockham_fft(z, tw, inverse: bool = False):
+    """The FFT kernels' transform of ``z (..., M)`` complex along its last
+    axis, pass by pass as ``csrc/fft_smem.cuh`` runs it: a Stockham autosort
+    FFT whose pass of radix ``R`` after radices multiplying to ``NS`` takes,
+    for butterfly ``b`` in ``[0, M/R)`` with ``k = b mod NS``, the points
+    ``b + r·M/R``, multiplies point ``r`` by ``w^(r·k)``, ``w = exp(−2πi/
+    (NS·R))`` (conjugated for the inverse), takes their ``R``-point DFT and
+    writes output ``r`` to ``(b − k)·R + k + r·NS``.  Unnormalised in both
+    directions.  ``tw`` is the kernels' table (:func:`_twiddle_np`, complex)
+    of a frame of ``2M`` samples, whose passes' sections start at ``M``."""
+    n = z.shape[-1]
+    if inverse:
+        tw = tw.conj()
+    offset = n
+    for radix, ns in _fft_plan(n):
+        b = torch.arange(n // radix, device=z.device)
+        k = b % ns
+        pts = [z[..., b + r * (n // radix)] for r in range(radix)]
+        if ns > 1:
+            pts = [pts[0]] + [pts[r] * tw[offset + (r - 1) * ns + k]
+                              for r in range(1, radix)]
+            offset += (radix - 1) * ns
+        z = torch.empty_like(z)
+        for r, value in enumerate(_dft_small(pts, inverse)):
+            z[..., (b - k) * radix + k + r * ns] = value
+    return z
+
+
+def _to_tiles(re, im, ft_count: int):
+    """``re``, ``im`` ``(..., n_freqs)`` in the residual's layout ``(...,
+    FT·2·FREQ_TILE)``: tile ``t`` columns ``[re_t | im_t]``, zeros in the
+    bins past ``n_freqs``."""
+    pad = ft_count * _FREQ_TILE - re.shape[-1]
+    parts = [F.pad(t, (0, pad)).reshape(t.shape[:-1] + (ft_count, 1,
+                                                        _FREQ_TILE))
+             for t in (re, im)]
+    return torch.cat(parts, dim=-2).reshape(re.shape[:-1] + (-1,))
+
+
+def _fwd_fft_plain(x2, filterbank, fft_length, hop_length, window,
+                   win_length, to_db, db_ref, amin, save_spec=False):
+    """Plain PyTorch version of the FFT forward kernel, step by step;
+    arguments and results as :func:`_fwd_res_plain`.  A windowed frame of
+    ``N = 2M`` samples is packed as ``z[m] = x[2m] + i·x[2m+1]``,
+    transformed by :func:`_stockham_fft` (``M`` points, the kernel's twiddle
+    table, whose first ``M`` entries are ``W``) and split into its bins: with
+    ``E_k = (Z_k + conj Z_{M−k})/2`` and ``O_k = (Z_k − conj Z_{M−k})/(2i)``,
+    ``X_k = E_k + W_k·O_k`` for ``k < M`` and ``X_M = E_0 − O_0``."""
+    n = fft_length
+    m = n // 2
+    ft_count = _cdiv(m + 1, _FREQ_TILE)
+    w, tw = _fft_consts(x2, n, window, win_length)
+    frames = x2.unfold(-1, n, hop_length) * w
+    zf = _stockham_fft(torch.complex(frames[..., 0::2], frames[..., 1::2]),
+                       tw)
+    k = torch.arange(m + 1, device=zf.device)
+    zk, zn = zf[..., k % m], zf[..., (m - k) % m]
+    e = 0.5 * (zk + zn.conj())
+    o = torch.complex(0.5 * (zk.imag + zn.imag), 0.5 * (zn.real - zk.real))
+    spec = e + torch.cat([tw[:m], -tw[:1]]) * o
+    re, im = spec.real, spec.imag
+    mel = (re * re + im * im) @ filterbank
+    if to_db:
+        mel = amplitude_to_db(mel, ref=db_ref, amin=amin, power=2.0)
+    reim = _to_tiles(re, im, ft_count) if save_spec else None
+    return mel.transpose(1, 2).contiguous(), reim
+
+
+def _dframes_fft_plain(dreim, fft_length, window, win_length):
+    """Plain PyTorch version of the backward's FFT frame-gradient pass,
+    step by step: ``dreim (rows, FT·2·FREQ_TILE)`` → ``dframes (rows,
+    fft)``.  With ``G = dre + i·dim``, ``dframes_n = w_n · Re Σ_{k=0}^{N/2}
+    G_k e^{+2πikn/N}``: the unnormalised inverse transform ``y`` of the
+    Hermitian spectrum ``Y_0 = Re G_0``, ``Y_{N/2} = Re G_{N/2}``, ``Y_k =
+    G_k/2`` (not ``irfft(G)``: DC and Nyquist weigh double).  As the kernel
+    runs it, ``M = N/2``: ``Z_k = (Y_k + conj Y_{M−k}) + i·(Y_k − conj
+    Y_{M−k})·conj W_k`` for ``k < M``, whose inverse ``M``-point transform
+    is ``z[m] = y[2m] + i·y[2m+1]``."""
+    n = fft_length
+    m = n // 2
+    rows = dreim.shape[0]
+    w, tw = _fft_consts(dreim, n, window, win_length)
+    ri = dreim.view(rows, -1, 2, _FREQ_TILE)
+    dre = ri[:, :, 0].reshape(rows, -1)[:, :m + 1]
+    dim = ri[:, :, 1].reshape(rows, -1)[:, :m + 1]
+    y = 0.5 * torch.complex(dre, dim)
+    y[:, 0] = dre[:, 0]
+    y[:, m] = dre[:, m]
+    k = torch.arange(m, device=dreim.device)
+    yk, yn = y[:, k], y[:, m - k].conj()
+    o = (yk - yn) * tw[:m].conj()
+    z = _stockham_fft((yk + yn) + torch.complex(-o.imag, o.real), tw,
+                      inverse=True)
+    return torch.stack([z.real, z.imag], dim=-1).reshape(rows, n) * w
+
+
+def _bwd_fft_plain(dmel, reim, filterbank, fft_length, window, win_length,
+                   need_dx, need_dfb):
+    """Plain PyTorch version of the backward kernel on the FFT route;
+    arguments and results as :func:`_bwd_plain`."""
+    dreim, dfb = _dfb_dreim_plain(dmel, reim, filterbank, need_dx, need_dfb)
+    dframes = (_dframes_fft_plain(dreim, fft_length, window, win_length)
+               if need_dx else None)
     return dframes, dfb
 
 
 # ---- the kernels' launch wrappers -------------------------------------------
 
 def _fused_mel_fwd_cuda(x2, filterbank, fft_length, hop_length, window,
-                        win_length, to_db, db_ref, amin, save_spec=False):
-    """Launch the forward kernel on ``x2 (streams, T)``; returns ``(out
+                        win_length, to_db, db_ref, amin, save_spec=False,
+                        _route=None):
+    """Launch a forward kernel on ``x2 (streams, T)``; returns ``(out
     (streams, num_mels, n_frames), reim or None)`` as
-    :func:`_fwd_res_plain`.  Raises on any input it does not take; never
-    computes the result another way."""
-    global KERNEL_LAUNCHES
+    :func:`_fwd_res_plain`.  The FFT kernel when
+    :func:`_fft_kernel_supported`, else the DFT-product kernel (``_route``
+    names one of them to compare both at one shape).  Raises on any input
+    it does not take; never computes the result another way."""
+    global KERNEL_LAUNCHES, FFT_KERNEL_LAUNCHES
+    route = _route_for(fft_length, _route)
     if not (x2.is_cuda and x2.dtype == torch.float32 and x2.ndim == 2
             and x2.is_contiguous()):
         raise ValueError("kernel input must be a contiguous float32 CUDA "
@@ -258,26 +517,38 @@ def _fused_mel_fwd_cuda(x2, filterbank, fft_length, hop_length, window,
         raise ValueError(f"input {tuple(x2.shape)} exceeds the kernel's "
                          f"grid ({_MAX_STREAMS} streams, 2**31 samples)")
     n_frames = 1 + (n_samples - fft_length) // hop_length
-    basis, n_freqs, ft_count = _basis_on(
-        x2.device, fft_length, _hashable_window(window), win_length)
+    win_key = _hashable_window(window)
+    ft_count = _cdiv(fft_length // 2 + 1, _FREQ_TILE)
     m_pad = _round_up(num_mels, _MEL_TILE)
     fbp = _fb_padded(filterbank, ft_count, m_pad).contiguous()
     out = torch.empty((streams, num_mels, n_frames), dtype=torch.float32,
                       device=x2.device)
-    reim = (torch.empty((streams, n_frames, basis.shape[1]),
+    reim = (torch.empty((streams, n_frames, ft_count * 2 * _FREQ_TILE),
                         dtype=torch.float32, device=x2.device)
             if save_spec else None)
     db_off = _LN10_INV_10 * math.log(max(amin, db_ref)) if to_db else 0.0
     lib = _kernel_lib()
+    tail = (num_mels, m_pad, int(to_db), float(amin), float(db_off))
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
-        rc = lib.tac_fused_mel_fwd(
-            x2.data_ptr(), basis.data_ptr(), fbp.data_ptr(), out.data_ptr(),
-            reim.data_ptr() if save_spec else None,
-            streams, n_samples, fft_length, hop_length, n_frames, ft_count,
-            num_mels, m_pad, int(to_db), float(amin), float(db_off), stream)
-    _launch_check(lib, rc, "forward")
+        if route == "fft":
+            w, tw = _fft_consts_on(x2.device, fft_length, win_key, win_length)
+            rc = lib.tac_fused_mel_fft_fwd(
+                x2.data_ptr(), w.data_ptr(), tw.data_ptr(), fbp.data_ptr(),
+                out.data_ptr(), reim.data_ptr() if save_spec else None,
+                streams, n_samples, fft_length, hop_length, n_frames, *tail,
+                stream)
+        else:
+            basis, _, _ = _basis_on(x2.device, fft_length, win_key,
+                                    win_length)
+            rc = lib.tac_fused_mel_fwd(
+                x2.data_ptr(), basis.data_ptr(), fbp.data_ptr(),
+                out.data_ptr(), reim.data_ptr() if save_spec else None,
+                streams, n_samples, fft_length, hop_length, n_frames,
+                ft_count, *tail, stream)
+    _launch_check(lib, rc, f"forward ({route})")
     KERNEL_LAUNCHES += 1
+    FFT_KERNEL_LAUNCHES += int(route == "fft")
     return out, reim
 
 
@@ -292,20 +563,24 @@ def _dfb_splits(rows: int, tiles: int):
 
 
 def _fused_mel_bwd_cuda(dmel, reim, filterbank, fft_length, window,
-                        win_length, need_dx, need_dfb):
+                        win_length, need_dx, need_dfb, _route=None):
     """Launch the backward kernel; arguments and results as
     :func:`_bwd_plain`.  The frame-gradient passes run only when
-    ``need_dx``, the filterbank-gradient pass only when ``need_dfb``.
+    ``need_dx``: as one kernel around an inverse FFT when
+    :func:`_fft_kernel_supported` (``dreim`` stays in registers), else as
+    pass A and the product with the basis (``_route`` names one of the
+    two).  The filterbank-gradient pass runs only when ``need_dfb``.
     Raises on any input it does not take."""
-    global BWD_KERNEL_LAUNCHES, BWD_DFRAMES_LAUNCHES
+    global BWD_KERNEL_LAUNCHES, BWD_DFRAMES_LAUNCHES, BWD_FFT_LAUNCHES
+    route = _route_for(fft_length, _route)
     for name, t in (("dmel", dmel), ("reim", reim)):
         if not (t.is_cuda and t.dtype == torch.float32 and t.ndim == 2
                 and t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous float32 CUDA "
                              f"matrix; got {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}")
-    basis, n_freqs, ft_count = _basis_on(
-        dmel.device, fft_length, _hashable_window(window), win_length)
+    n_freqs = fft_length // 2 + 1
+    ft_count = _cdiv(n_freqs, _FREQ_TILE)
     rows, m_pad = dmel.shape
     num_mels = filterbank.shape[1]
     if not (filterbank.device == dmel.device
@@ -315,7 +590,7 @@ def _fused_mel_bwd_cuda(dmel, reim, filterbank, fft_length, window,
                          f"{dmel.device}; got {filterbank.dtype} "
                          f"{tuple(filterbank.shape)} on {filterbank.device}")
     if (m_pad % _MEL_TILE or not num_mels <= m_pad < num_mels + _MEL_TILE
-            or reim.shape != (rows, basis.shape[1])
+            or reim.shape != (rows, ft_count * 2 * _FREQ_TILE)
             or reim.device != dmel.device):
         raise ValueError(f"dmel {tuple(dmel.shape)} / reim "
                          f"{tuple(reim.shape)} do not fit {num_mels} mels "
@@ -326,7 +601,18 @@ def _fused_mel_bwd_cuda(dmel, reim, filterbank, fft_length, window,
     fbp = _fb_padded(filterbank, ft_count, m_pad).contiguous()
     dev = dict(dtype=torch.float32, device=dmel.device)
     dframes = torch.empty((rows, fft_length), **dev) if need_dx else None
-    dreim = torch.empty_like(reim) if need_dx else None
+    # the frame passes' operands: the transposed filterbank, the window and
+    # the twiddles (one kernel), or the dreim scratch and the basis (two)
+    fbt = w = tw = dreim = basis = None
+    k_pad = 0
+    win_key = _hashable_window(window)
+    if need_dx and route == "fft":
+        fbt = fbp.t().contiguous()
+        w, tw = _fft_consts_on(dmel.device, fft_length, win_key, win_length)
+    elif need_dx:
+        dreim = torch.empty_like(reim)
+        basis, _, _ = _basis_on(dmel.device, fft_length, win_key, win_length)
+        k_pad = basis.shape[0]
     dfb = part = None
     n_splits = per = 0      # read by the library only with dfb
     if need_dfb:
@@ -339,13 +625,14 @@ def _fused_mel_bwd_cuda(dmel, reim, filterbank, fft_length, window,
     with torch.cuda.device(dmel.device):
         stream = torch.cuda.current_stream(dmel.device).cuda_stream
         rc = lib.tac_fused_mel_bwd(
-            dmel.data_ptr(), reim.data_ptr(), fbp.data_ptr(),
-            basis.data_ptr(), ptr(dreim), ptr(dframes), ptr(dfb), ptr(part),
-            rows, fft_length, basis.shape[0], ft_count, m_pad, n_splits, per,
-            stream)
-    _launch_check(lib, rc, "backward")
+            dmel.data_ptr(), reim.data_ptr(), fbp.data_ptr(), ptr(fbt),
+            ptr(basis), ptr(w), ptr(tw), ptr(dreim), ptr(dframes), ptr(dfb),
+            ptr(part),
+            rows, fft_length, k_pad, ft_count, m_pad, n_splits, per, stream)
+    _launch_check(lib, rc, f"backward ({route})")
     BWD_KERNEL_LAUNCHES += 1
     BWD_DFRAMES_LAUNCHES += int(need_dx)
+    BWD_FFT_LAUNCHES += int(need_dx and route == "fft")
     return dframes, (dfb[:n_freqs, :num_mels] if need_dfb else None)
 
 
@@ -454,8 +741,10 @@ def fused_melspectrogram(waveform: torch.Tensor,
     (trailing samples that fill no frame are dropped).
 
     ``precision`` is resolved and validated as in the JAX package
-    (:func:`resolve_precision`), but every tier runs the same kernels,
-    whose products are FP32 FMAs: ``split3``, ``split6`` and ``auto`` get
+    (:func:`resolve_precision`), but every tier runs the same kernels
+    (an f32 FFT per frame for ``fft_length`` a power of two from 256 to
+    2048, else an FP32 product with the DFT basis; the mel products are
+    FP32 FMAs on both routes): ``split3``, ``split6`` and ``auto`` get
     at least the accuracy they promise, and ``fast`` gets f32-grade output
     and gradients rather than bf16-grade.
 
