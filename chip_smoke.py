@@ -50,11 +50,16 @@ imports no JAX.  Phases, each printing its lines:
 11. the fused Griffin-Lim kernels vs their plain version at small shapes
     (fft 1024 / hop 256, 2048 / 512, 1024 / 512, 1024 / 1024, fft 400 / hop
     160, stereo, ``center=False``, a Hamming window), in both state
-    layouts: one iteration from the same state, the 4-iteration waveform,
-    the 32-iteration spectral convergence; tile-major against row-major;
-    the stage-bisect build's ``full`` variant bitwise against the solve;
+    layouts, on the route the size takes (the shared-memory FFT kernels for
+    a power of two from 256 to 2048, else the DFT-product kernels) and,
+    where that is the FFT route, on the DFT route too: one iteration from
+    the same state (the FFT kernels also against the plain version that
+    repeats their arithmetic step by step), the 4-iteration waveform, the
+    32-iteration spectral convergence; tile-major against row-major; two
+    runs and the stage-bisect build's ``full`` variant bitwise against the
+    solve;
 12. the inverse path, each part between a reset and a read of the
-    counters: (a) ``griffin_lim(method="pallas")`` on the magnitudes of 8 x
+    counters (every solve of it must take the FFT route): (a) ``griffin_lim(method="pallas")`` on the magnitudes of 8 x
     110 250 samples (fft 1024, hop 256, 431 frames, 32 iterations); (b) 4
     vocoder requests of 8 log-mels (8, 80, 431) through ``mel_to_audio`` at
     the Tacotron2 Griffin-Lim vocoder's settings (60 iterations) under
@@ -65,8 +70,9 @@ imports no JAX.  Phases, each printing its lines:
 14. BASELINE config 4: (4, 2, 32768) -> ``stft`` -> ``istft`` on the card
     (plain PyTorch, no kernel), max abs error <= 1e-4;
 15. the solve at full width (fft 1024 and fft 2048) checked against its
-    plain version and timed against it, against the ``matmul`` and ``fft``
-    loops and against a loop of ``torch.stft``/``torch.istft``.
+    plain versions and timed on both routes against them, against the
+    ``matmul`` and ``fft`` loops and against a loop of
+    ``torch.stft``/``torch.istft``; the stage bisect on both routes.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -222,10 +228,34 @@ def _gl_counts() -> tuple:
     return (fg.GL_KERNEL_LAUNCHES, fg.GL_TILE_MAJOR_LAUNCHES)
 
 
+def _gl_fft_count() -> int:
+    """Solves that took the FFT route."""
+    from torchaudio_contrib_tpu_torch.ops import fused_griffinlim as fg
+    return fg.GL_FFT_LAUNCHES
+
+
 def _reset_gl_counts() -> None:
     from torchaudio_contrib_tpu_torch.ops import fused_griffinlim as fg
     fg.GL_KERNEL_LAUNCHES = 0
     fg.GL_TILE_MAJOR_LAUNCHES = 0
+    fg.GL_FFT_LAUNCHES = 0
+
+
+def _gl_operands(mag, n_fft: int, hop: int, window, tile_major: bool) -> dict:
+    """``{route: operands}`` of the fused Griffin-Lim solve from the state
+    two plain iterations reach (a generic complex state): the DFT route's
+    (also the plain version's) and, where the size takes it, the FFT
+    route's, first."""
+    from torchaudio_contrib_tpu_torch.ops import fused, fused_griffinlim as fg
+    dft = fg._gl_prepare(mag, n_fft, hop, window, None, tile_major)[:5]
+    start, _ = fg._gl_solve_plain(*dft, n_fft, hop, 2, GL_FULL["momentum"],
+                                  tile_major)
+    ops = {}
+    if fused._fft_kernel_supported(n_fft):
+        ops["fft"] = (start,) + fg._gl_prepare(
+            mag, n_fft, hop, window, None, tile_major, "fft")[1:5]
+    ops["dft"] = (start,) + dft[1:]
+    return ops
 
 
 def _fft_flops(n_fft: int) -> float:
@@ -830,9 +860,10 @@ def _convergence(y, mag, n_fft: int, hop: int, window="hann",
 
 
 def phase_gl_parity(gen: torch.Generator) -> None:
-    """The fused Griffin-Lim kernels vs their plain version on the card,
+    """The fused Griffin-Lim kernels vs their plain versions on the card,
     row-major (the JAX package's first kernel) and tile-major (its layout
-    probe), and the stage-bisect build's ``full`` variant."""
+    probe), and the stage-bisect build's ``full`` variant: on the route the
+    size takes and, where that is the FFT route, on the DFT route too."""
     from torchaudio_contrib_tpu_torch.ops import fused_griffinlim as fg
     from torchaudio_contrib_tpu_torch.ops import stft, stft_output_length
     m = GL_FULL["momentum"]
@@ -850,72 +881,111 @@ def phase_gl_parity(gen: torch.Generator) -> None:
             else:
                 err_of, what = _rel, "max|kernel-plain|/max|plain|"
                 bars = (GL_STATE_PARITY, GL_WAVE_PARITY, GL_CONV_PARITY)
+            args = (mag, n_fft, hop, window)
             for tile_major in (False, True):
                 lay = "tile-major" if tile_major else "row-major"
-                ops = fg._gl_prepare(mag, n_fft, hop, window, None,
-                                     tile_major)[:5]
-                # one iteration in both, from the state two plain
+                # one iteration in every version, from the state two plain
                 # iterations reach (a generic complex state)
-                start, _ = fg._gl_solve_plain(*ops, n_fft, hop, 2, m,
-                                              tile_major)
-                ops = (start,) + ops[1:]
-                before = _gl_counts()
-                k_state, k_prev = fg._gl_solve_cuda(*ops, n_fft, hop, 1, m,
-                                                    tile_major)
-                p_state, p_prev = fg._gl_solve_plain(*ops, n_fft, hop, 1, m,
-                                                     tile_major)
-                args = (mag, n_fft, hop, window)
-                y4 = fg._gl_fused(*args, 4, m, length, center,
-                                  tile_major=tile_major)
+                ops = _gl_operands(mag, n_fft, hop, window, tile_major)
+                p_state, p_prev = fg._gl_solve_plain(*ops["dft"], n_fft, hop,
+                                                     1, m, tile_major)
                 y4_p = fg._gl_plain(*args, 4, m, length, center,
                                     tile_major=tile_major)
-                y32 = fg._gl_fused(*args, 32, m, length, center,
-                                   tile_major=tile_major)
                 y32_p = fg._gl_plain(*args, 32, m, length, center,
                                      tile_major=tile_major)
+                conv_p = _convergence(y32_p, mag, n_fft, hop, window, center)
+                before = _gl_counts() + (_gl_fft_count(),)
+                for route, route_ops in ops.items():
+                    k_state, k_prev = fg._gl_solve_cuda(
+                        *route_ops, n_fft, hop, 1, m, tile_major,
+                        _route=route)
+                    solve = partial(fg._gl_solve_cuda, _route=route)
+                    y4, y32 = (fg._gl_run(solve, route, *args, n, m, length,
+                                          center, None, tile_major)
+                               for n in (4, 32))
+                    torch.cuda.synchronize()
+                    errs = (_rel(k_prev, p_prev), err_of(k_state, p_state),
+                            err_of(y4, y4_p))
+                    conv = _convergence(y32, mag, n_fft, hop, window, center)
+                    step = ""
+                    if route == "fft":
+                        s_state, s_prev = fg._gl_solve_fft_plain(
+                            *route_ops, n_fft, hop, 1, m, tile_major)
+                        s_errs = (_rel(k_prev, s_prev),
+                                  err_of(k_state, s_state))
+                        step = (f" (against the step-by-step plain version "
+                                f"products {s_errs[0]:.3e}, state "
+                                f"{s_errs[1]:.3e})")
+                        _check(s_errs[0] <= GL_PRODUCT_PARITY
+                               and s_errs[1] <= bars[0],
+                               f"{name}, {lay}: FFT kernels vs their "
+                               f"step-by-step version {s_errs}")
+                    print(f"gl parity {name}, {lay}, {route.upper()} route: "
+                          f"{tuple(mag.shape)} -> {tuple(y4.shape)}; one "
+                          f"iteration max|kernel-plain|/max|plain| products "
+                          f"{errs[0]:.3e}, {what} state {errs[1]:.3e}{step}; "
+                          f"4-iteration waveform {errs[2]:.3e}; 32-iteration "
+                          f"convergence kernel {conv:.6f}, plain "
+                          f"{conv_p:.6f}", flush=True)
+                    _check(y4.shape == shape[:-1] + (length,)
+                           and all(bool(torch.isfinite(t).all())
+                                   for t in (k_state, k_prev, y4, y32)),
+                           f"{name}, {lay}, {route}: shape {tuple(y4.shape)} "
+                           f"or non-finite")
+                    _check(errs[0] <= GL_PRODUCT_PARITY and errs[1] <= bars[0]
+                           and errs[2] <= bars[1],
+                           f"{name}, {lay}, {route}: {errs} over "
+                           f"({GL_PRODUCT_PARITY}, {bars[0]}, {bars[1]})")
+                    _check(abs(conv - conv_p) <= bars[2],
+                           f"{name}, {lay}, {route}: convergence {conv} vs "
+                           f"{conv_p}")
+                    waves[route, tile_major] = y4
+                # the op itself takes the first of the routes
+                y4 = fg._gl_fused(*args, 4, m, length, center,
+                                  tile_major=tile_major)
                 torch.cuda.synchronize()
-                launched = [a - b for a, b in zip(_gl_counts(), before)]
-                errs = (_rel(k_prev, p_prev), err_of(k_state, p_state),
-                        err_of(y4, y4_p))
-                conv = [_convergence(y, mag, n_fft, hop, window, center)
-                        for y in (y32, y32_p)]
-                print(f"gl parity {name}, {lay}: {tuple(mag.shape)} -> "
-                      f"{tuple(y4.shape)}; one iteration max|kernel-plain|/"
-                      f"max|plain| products {errs[0]:.3e}, {what} state "
-                      f"{errs[1]:.3e}; 4-iteration waveform {errs[2]:.3e}; "
-                      f"32-iteration convergence kernel {conv[0]:.6f}, plain "
-                      f"{conv[1]:.6f}", flush=True)
-                _check(launched == [3, 3 * int(tile_major)],
-                       f"{name}, {lay}: launches {launched}")
-                _check(y4.shape == shape[:-1] + (length,)
-                       and all(bool(torch.isfinite(t).all())
-                               for t in (k_state, k_prev, y4, y32)),
-                       f"{name}, {lay}: shape {tuple(y4.shape)} or "
-                       f"non-finite")
-                _check(errs[0] <= GL_PRODUCT_PARITY and errs[1] <= bars[0]
-                       and errs[2] <= bars[1],
-                       f"{name}, {lay}: {errs} over ({GL_PRODUCT_PARITY}, "
-                       f"{bars[0]}, {bars[1]})")
-                _check(abs(conv[0] - conv[1]) <= bars[2],
-                       f"{name}, {lay}: convergence {conv}")
-                waves[tile_major] = y4
-            layouts = _rel(waves[True], waves[False])
-            # the bisect build's "full" variant is the solve itself
-            ops = fg._gl_prepare(mag, n_fft, hop, window)[:5]
-            solve = fg._gl_solve_cuda(*ops, n_fft, hop, 4, m)
-            full = fg._gl_solve_cuda(*ops, n_fft, hop, 4, m, False, "full")
-            nonorm = fg._gl_solve_cuda(*ops, n_fft, hop, 4, m, False,
-                                       "nonorm")
-            bitwise = all(torch.equal(a, b) for a, b in zip(solve, full))
-            print(f"gl parity {name}: tile-major vs row-major waveform "
-                  f"{layouts:.3e}; bisect 'full' bitwise equal to the solve: "
-                  f"{bitwise}; 'nonorm' differs: "
-                  f"{not torch.equal(nonorm[0], solve[0])}", flush=True)
-            _check(layouts <= GL_LAYOUT_PARITY,
-                   f"{name}: layouts differ by {layouts}")
-            _check(bitwise, f"{name}: bisect 'full' differs from the solve")
-            _check(not torch.equal(nonorm[0], solve[0]),
-                   f"{name}: the 'nonorm' switch changed nothing")
+                launched = [a - b for a, b in zip(
+                    _gl_counts() + (_gl_fft_count(),), before)]
+                n = 3 * len(ops) + 1
+                takes_fft = "fft" in ops
+                _check(launched == [n, n * int(tile_major),
+                                    4 * int(takes_fft)],
+                       f"{name}, {lay}: launches (all, tile-major, FFT "
+                       f"route) {launched}")
+                _check(torch.equal(y4, waves[next(iter(ops)), tile_major]),
+                       f"{name}, {lay}: the op did not take the "
+                       f"{next(iter(ops))} route")
+            for route in ops:
+                layouts = _rel(waves[route, True], waves[route, False])
+                same = torch.equal(waves[route, True], waves[route, False])
+                # two runs, and the bisect build's "full" variant, are the
+                # solve itself
+                prep = fg._gl_prepare(mag, n_fft, hop, window, None, False,
+                                      route)[:5]
+                solve = fg._gl_solve_cuda(*prep, n_fft, hop, 4, m,
+                                          _route=route)
+                again = fg._gl_solve_cuda(*prep, n_fft, hop, 4, m,
+                                          _route=route)
+                full = fg._gl_solve_cuda(*prep, n_fft, hop, 4, m, False,
+                                         "full", _route=route)
+                nonorm = fg._gl_solve_cuda(*prep, n_fft, hop, 4, m, False,
+                                           "nonorm", _route=route)
+                twice = all(torch.equal(a, b) for a, b in zip(solve, again))
+                bitwise = all(torch.equal(a, b) for a, b in zip(solve, full))
+                print(f"gl parity {name}, {route.upper()} route: tile-major "
+                      f"vs row-major waveform {layouts:.3e} (bitwise equal: "
+                      f"{same}); two runs bitwise equal: {twice}; bisect "
+                      f"'full' bitwise equal to the solve: {bitwise}; "
+                      f"'nonorm' differs: "
+                      f"{not torch.equal(nonorm[0], solve[0])}", flush=True)
+                _check(layouts <= GL_LAYOUT_PARITY
+                       and (same or route == "dft"),
+                       f"{name}, {route}: layouts differ by {layouts}")
+                _check(twice, f"{name}, {route}: two runs of the solve differ")
+                _check(bitwise,
+                       f"{name}, {route}: bisect 'full' differs from the solve")
+                _check(not torch.equal(nonorm[0], solve[0]),
+                       f"{name}, {route}: the 'nonorm' switch changed nothing")
 
 
 def phase_inverse_path(gen: torch.Generator):
@@ -923,7 +993,8 @@ def phase_inverse_path(gen: torch.Generator):
     fused Griffin-Lim counters: (a) ``griffin_lim``, (b) the vocoder's
     ``mel_to_audio`` requests, (c) the layout probe, (d) the stage bisect.
     Returns the launches of the row-major solve, the tile-major solve and
-    the bisect build, and what the later phases check."""
+    the bisect build, those of them on the FFT route, and what the later
+    phases check."""
     from torchaudio_contrib_tpu_torch import ops
     from torchaudio_contrib_tpu_torch.benchmarks import gl_bisect, gl_probe
     clips, samples = GL_FULL["clips"], GL_FULL["samples"]
@@ -942,24 +1013,29 @@ def phase_inverse_path(gen: torch.Generator):
                             momentum=GL_FULL["momentum"], length=samples,
                             method="pallas")
         torch.cuda.synchronize()
-        a_counts = _gl_counts()
+        a_counts, fft_counts = _gl_counts(), [_gl_fft_count()]
         _reset_gl_counts()
         waves = [ops.mel_to_audio(torch.exp(mel), method="pallas", **VOCODER)
                  for mel in logmels]
         torch.cuda.synchronize()
         b_counts = _gl_counts()
+        fft_counts.append(_gl_fft_count())
         _reset_gl_counts()
         probes = [gl_probe.run(f, h, 5.0) for f, h in GL_SHAPES]
         torch.cuda.synchronize()
         c_counts = _gl_counts()
+        fft_counts.append(_gl_fft_count())
         _reset_gl_counts()
         bisect = gl_bisect.run()
         torch.cuda.synchronize()
         d_counts = _gl_counts()
+        fft_counts.append(_gl_fft_count())
     print(f"inverse path: solves launched (all, tile-major): griffin_lim "
           f"{list(a_counts)}, 4 vocoder requests {list(b_counts)}, layout "
-          f"probe {list(c_counts)}, stage bisect {list(d_counts)}",
-          flush=True)
+          f"probe {list(c_counts)}, stage bisect {list(d_counts)}; of them "
+          f"on the FFT route {fft_counts}", flush=True)
+    _check(fft_counts == [a_counts[0], b_counts[0], c_counts[0], d_counts[0]],
+           "the inverse path did not go through the FFT-route kernels")
     _check(a_counts == (1, 0), f"griffin_lim launched {a_counts}")
     _check(b_counts == (4, 0), f"4 vocoder requests launched {b_counts}")
     _check(c_counts[1] >= 2 and c_counts[0] - c_counts[1] >= 2,
@@ -981,7 +1057,8 @@ def phase_inverse_path(gen: torch.Generator):
           f"{[p['rel_err'] for p in probes]}", flush=True)
     launches = (a_counts[0] + b_counts[0] + c_counts[0] - c_counts[1],
                 c_counts[1], d_counts[0])
-    return launches, (mag, y), probes, bisect
+    # every solve of these paths took the FFT route (checked above)
+    return launches, launches, (mag, y), probes, bisect
 
 
 def phase_gl_full(mag, y) -> None:
@@ -1033,13 +1110,41 @@ def _library_gl(mag, n_fft: int, hop: int, n_iter: int, momentum: float,
     return torch.istft(spec, n_fft, hop, window=w, length=length)
 
 
+def _gl_work(clips: int, n_frames: int, n_fft: int, hop: int, n_iter: int,
+             tensors) -> dict:
+    """Operation and byte counts of one fused Griffin-Lim solve.  ``flops``:
+    the function, an inverse and a forward real transform per frame and
+    iteration as FFTs.  ``design``: the FFT kernels' own count: each
+    transform a complex one of ``n_fft/2`` points with its Hermitian or
+    real-bin step (12 operations a bin) and the window, the overlap-add
+    gather, the epilogue (16 operations a padded bin).  ``dft_design``: the
+    DFT-product kernels', both transforms as dense products over ``ft``
+    padded 64-bin tiles of re and im.  ``traffic``: the bytes three
+    launches an iteration move through device memory: ``state`` and
+    ``prev`` read and written, ``mag`` read, the frames ``fr`` and the
+    signal ``xv`` written and read, every iteration."""
+    state, mag_t = tensors[0], tensors[1]
+    rows, half, ft = clips * n_frames, n_fft // 2, n_fft // 128 + 1
+    n_samples = (n_frames - 1) * hop + n_fft
+    transform = 5.0 * half * math.log2(half) + 12.0 * (half + 1) + n_fft
+    design = n_iter * (rows * (2 * transform + 16.0 * ft * 64)
+                       + clips * n_samples * (-(-n_fft // hop) + 1.0))
+    traffic = n_iter * 4.0 * (4 * state.numel() + mag_t.numel()
+                              + 2 * rows * n_fft + 2 * clips * n_samples)
+    return {"flops": n_iter * 2 * rows * _fft_flops(n_fft), "design": design,
+            "dft_design": n_iter * 2 * 2.0 * rows * (ft * 128) * n_fft,
+            "traffic": traffic}
+
+
 def phase_gl_timings(gen: torch.Generator, card: str, probes, bisect) -> tuple:
     """The solve at full width, fft 1024 and fft 2048: one iteration
-    checked against the plain version in both layouts, then the solve timed
-    against its plain version and the whole op against the other loops.
-    Returns the kernels-line entries of the row-major solve and the
-    tile-major solve (fft 1024) and of the bisect build (fft 2048)."""
+    checked against the plain versions in both layouts on both routes, then
+    the solve timed on both routes against its plain versions and the whole
+    op against the other loops.  Returns the kernels-line entries of the
+    row-major solve and the tile-major solve (fft 1024) and of the bisect
+    build (fft 2048)."""
     from torchaudio_contrib_tpu_torch import ops
+    from torchaudio_contrib_tpu_torch.benchmarks import gl_bisect
     from torchaudio_contrib_tpu_torch.ops import fused_griffinlim as fg
     clips, samples = GL_FULL["clips"], GL_FULL["samples"]
     n_iter, m = GL_FULL["n_iter"], GL_FULL["momentum"]
@@ -1050,45 +1155,77 @@ def phase_gl_timings(gen: torch.Generator, card: str, probes, bisect) -> tuple:
             mag = ops.stft(x, n_fft, hop).abs()
             for tile_major in (False, True):
                 lay = "tile-major" if tile_major else "row-major"
-                prep = fg._gl_prepare(mag, n_fft, hop, "hann", None,
-                                      tile_major)[:5]
-                start, _ = fg._gl_solve_plain(*prep, n_fft, hop, 2, m,
+                prep = _gl_operands(mag, n_fft, hop, "hann", tile_major)
+                want = fg._gl_solve_plain(*prep["dft"], n_fft, hop, 1, m,
+                                          tile_major)
+                step = fg._gl_solve_fft_plain(*prep["fft"], n_fft, hop, 1, m,
                                               tile_major)
-                prep = (start,) + prep[1:]
-                got = fg._gl_solve_cuda(*prep, n_fft, hop, 1, m, tile_major)
-                want = fg._gl_solve_plain(*prep, n_fft, hop, 1, m, tile_major)
-                errs = (_rel(got[1], want[1]), _rel(got[0], want[0]))
-                max_abs = (got[0] - want[0]).abs().max().item()
-                _check(errs[0] <= GL_PRODUCT_PARITY
-                       and errs[1] <= GL_STATE_PARITY,
-                       f"fft {n_fft}, {lay}: one iteration {errs}")
+                errs = {}
+                for route, route_ops in prep.items():
+                    got = fg._gl_solve_cuda(*route_ops, n_fft, hop, 1, m,
+                                            tile_major, _route=route)
+                    errs[route] = (_rel(got[1], want[1]),
+                                   _rel(got[0], want[0]))
+                    if route == "fft":
+                        max_abs = (got[0] - want[0]).abs().max().item()
+                        s_errs = (_rel(got[1], step[1]), _rel(got[0], step[0]))
+                    _check(errs[route][0] <= GL_PRODUCT_PARITY
+                           and errs[route][1] <= GL_STATE_PARITY,
+                           f"fft {n_fft}, {lay}, {route} route: one "
+                           f"iteration {errs[route]}")
+                _check(s_errs[0] <= GL_PRODUCT_PARITY
+                       and s_errs[1] <= GL_STATE_PARITY,
+                       f"fft {n_fft}, {lay}: FFT kernels vs their "
+                       f"step-by-step version {s_errs}")
+
+                def solve(route):
+                    return fg._gl_solve_cuda(*prep[route], n_fft, hop, n_iter,
+                                             m, tile_major, _route=route)
+
                 ms, plain_ms = _turns(
-                    lambda: fg._gl_solve_plain(*prep, n_fft, hop, n_iter, m,
-                                               tile_major),
-                    lambda: fg._gl_solve_cuda(*prep, n_fft, hop, n_iter, m,
-                                              tile_major), 1, 5)
-                # the function: an inverse and a forward transform per
-                # frame and iteration; the kernels: both as dense products
-                # over ft padded 64-bin tiles of re and im
-                n_frames, ft = mag.shape[-1], prep[2].shape[0] // 128
-                flops = n_iter * 2 * clips * n_frames * _fft_flops(n_fft)
-                design = n_iter * 2 * 2.0 * clips * n_frames \
-                    * (ft * 128) * n_fft
-                stats = {"max_abs_err": max_abs, "ms": ms,
-                         "plain_ms": plain_ms,
-                         **_bound(flops, _nbytes(*prep, got[0], got[1]),
-                                  design)}
+                    lambda: fg._gl_solve_plain(*prep["dft"], n_fft, hop,
+                                               n_iter, m, tile_major),
+                    lambda: solve("fft"), 2, 7)
+                dft_ms = _time_ms(lambda: solve("dft"), 1, 3)
+                fft_plain_ms = _time_ms(
+                    lambda: fg._gl_solve_fft_plain(*prep["fft"], n_fft, hop,
+                                                   n_iter, m, tile_major),
+                    1, 3)
+                n_frames = mag.shape[-1]
+                work = _gl_work(clips, n_frames, n_fft, hop, n_iter,
+                                prep["fft"])
+                stats = {"design": "smem_fft", "max_abs_err": max_abs,
+                         "ms": ms, "dft_ms": dft_ms, "plain_ms": plain_ms,
+                         "fft_plain_ms": fft_plain_ms,
+                         **_bound(work["flops"],
+                                  _nbytes(*prep["fft"], got[0], got[1]),
+                                  work["design"]),
+                         "dft_design_flop_ms":
+                             work["dft_design"] / PEAK_FP32 * 1e3,
+                         "traffic_floor_ms":
+                             work["traffic"] / PEAK_BYTES * 1e3}
                 print(f"timing [{card}]: fused Griffin-Lim solve, fft "
-                      f"{n_fft}, hop {hop}, {clips} x {mag.shape[-1]} "
-                      f"frames, {n_iter} iterations, {lay}: kernels "
-                      f"{ms:.3f} ms, plain version {plain_ms:.3f} ms, bound "
+                      f"{n_fft}, hop {hop}, {clips} x {n_frames} "
+                      f"frames, {n_iter} iterations, {lay}: kernels, FFT "
+                      f"route {ms:.3f} ms, DFT route {dft_ms:.3f} ms; plain "
+                      f"version {plain_ms:.3f} ms, step-by-step plain "
+                      f"version {fft_plain_ms:.3f} ms; bound "
                       f"{stats['bound_ms']:.4f} ms by {stats['bound_by']} "
-                      f"({flops / 1e9:.2f} GFLOP as FFTs); the kernels' "
-                      f"{design / 1e12:.3f} TFLOP at the FP32 peak "
-                      f"{stats['design_flop_ms']:.3f} ms; one iteration max|kernel-plain|/max|plain| "
-                      f"products {errs[0]:.3e}, state {errs[1]:.3e}",
+                      f"({work['flops'] / 1e9:.2f} GFLOP as FFTs), traffic "
+                      f"floor of three launches an iteration "
+                      f"{stats['traffic_floor_ms']:.3f} ms "
+                      f"({work['traffic'] / 1e9:.2f} GB); the FFT kernels' "
+                      f"{work['design'] / 1e9:.2f} GFLOP at the FP32 peak "
+                      f"{stats['design_flop_ms']:.3f} ms, the DFT products' "
+                      f"{work['dft_design'] / 1e12:.3f} TFLOP "
+                      f"{stats['dft_design_flop_ms']:.3f} ms; one iteration "
+                      f"max|kernel-plain|/max|plain| products, state: FFT "
+                      f"route {errs['fft'][0]:.3e}, {errs['fft'][1]:.3e} "
+                      f"(step-by-step {s_errs[0]:.3e}, {s_errs[1]:.3e}), DFT "
+                      f"route {errs['dft'][0]:.3e}, {errs['dft'][1]:.3e}",
                       flush=True)
                 entries[(n_fft, tile_major)] = stats
+                del prep, want, step, got
 
             def whole(method):
                 return ops.griffin_lim(mag, n_fft, hop, n_iter=n_iter,
@@ -1096,7 +1233,7 @@ def phase_gl_timings(gen: torch.Generator, card: str, probes, bisect) -> tuple:
                                        method=method)
 
             fused_ms, matmul_ms, fft_ms, lib_ms = (
-                _time_ms(lambda: whole("pallas"), 1, 3),
+                _time_ms(lambda: whole("pallas"), 2, 5),
                 _time_ms(lambda: whole("matmul"), 1, 3),
                 _time_ms(lambda: whole("fft"), 1, 3),
                 _time_ms(lambda: _library_gl(mag, n_fft, hop, n_iter, m,
@@ -1118,30 +1255,40 @@ def phase_gl_timings(gen: torch.Generator, card: str, probes, bisect) -> tuple:
                                     matmul_loop_ms=matmul_ms,
                                     fft_loop_ms=fft_ms,
                                     torch_stft_loop_ms=lib_ms)
+        bisect_dft = gl_bisect.run(route="dft", iters=3)
     print(f"timing [{card}]: stage bisect at fft 2048, hop 512, ms per "
-          f"variant: " + ", ".join(f"{k} {v:.3f}" for k, v in bisect.items()),
+          f"variant: FFT route "
+          + ", ".join(f"{k} {v:.3f}" for k, v in bisect.items())
+          + "; DFT route "
+          + ", ".join(f"{k} {v:.3f}" for k, v in bisect_dft.items()),
           flush=True)
     # the bisect build's own entry: its "full" variant at fft 2048, full
     # width, bitwise the solve, and one iteration against the plain version
     n_fft, hop = GL_SHAPES[1]
     with torch.inference_mode():
         mag = ops.stft(x, n_fft, hop).abs()
-        prep = fg._gl_prepare(mag, n_fft, hop, "hann")[:5]
-        start, _ = fg._gl_solve_plain(*prep, n_fft, hop, 2, m)
-        prep = (start,) + prep[1:]
-        full = fg._gl_solve_cuda(*prep, n_fft, hop, 1, m, False, "full")
-        solve = fg._gl_solve_cuda(*prep, n_fft, hop, 1, m)
-        want = fg._gl_solve_plain(*prep, n_fft, hop, 1, m)
-        bitwise = all(torch.equal(a, b) for a, b in zip(full, solve))
-        err = _rel(full[0], want[0])
-        max_abs = (full[0] - want[0]).abs().max().item()
-    print(f"stage bisect 'full' at fft {n_fft}, {clips} x {mag.shape[-1]} "
-          f"frames: bitwise equal to the solve: {bitwise}; one iteration "
-          f"max|kernel-plain|/max|plain| state {err:.3e}", flush=True)
-    _check(bitwise, "bisect 'full' differs from the solve at full width")
-    _check(err <= GL_STATE_PARITY, f"bisect 'full', one iteration: {err}")
+        prep = _gl_operands(mag, n_fft, hop, "hann", False)
+        want = fg._gl_solve_plain(*prep["dft"], n_fft, hop, 1, m)
+        for route, route_ops in prep.items():
+            full = fg._gl_solve_cuda(*route_ops, n_fft, hop, 1, m, False,
+                                     "full", _route=route)
+            solve = fg._gl_solve_cuda(*route_ops, n_fft, hop, 1, m,
+                                      _route=route)
+            bitwise = all(torch.equal(a, b) for a, b in zip(full, solve))
+            err = _rel(full[0], want[0])
+            if route == "fft":
+                max_abs = (full[0] - want[0]).abs().max().item()
+            print(f"stage bisect 'full' at fft {n_fft}, {clips} x "
+                  f"{mag.shape[-1]} frames, {route.upper()} route: bitwise "
+                  f"equal to the solve: {bitwise}; one iteration "
+                  f"max|kernel-plain|/max|plain| state {err:.3e}", flush=True)
+            _check(bitwise, f"bisect 'full' differs from the solve at full "
+                   f"width on the {route} route")
+            _check(err <= GL_STATE_PARITY,
+                   f"bisect 'full', {route} route, one iteration: {err}")
     bisect_entry = {**entries[(n_fft, False)], "max_abs_err": max_abs,
-                    "ms": bisect["full"], "variants_ms": bisect}
+                    "ms": bisect["full"], "dft_ms": bisect_dft["full"],
+                    "variants_ms": bisect, "dft_variants_ms": bisect_dft}
     n_fft = GL_SHAPES[0][0]
     return entries[(n_fft, False)], entries[(n_fft, True)], bisect_entry
 
@@ -1194,7 +1341,8 @@ def main() -> None:
     del cfg2_run, serving_run, cfg2_train, cfg3_train
     torch.cuda.empty_cache()
     phase_gl_parity(gen)
-    gl_launches, gl_run, probes, bisect = phase_inverse_path(gen)
+    gl_launches, gl_fft_launches, gl_run, probes, bisect = \
+        phase_inverse_path(gen)
     phase_gl_full(*gl_run)
     phase_config4(gen)
     gl_stats = phase_gl_timings(gen, card, probes, bisect)
@@ -1213,11 +1361,14 @@ def main() -> None:
          "launches": train_counts[1], **bwd_stats, **bwd_bound},
     ] + [
         {"name": name, "route": "cuda", "source": source + "fused_gl.cu",
-         "replaces": replaces, "launches": n, **entry}
-        for name, replaces, n, entry in zip(
+         "headers": [source + "fft_smem.cuh"], "replaces": replaces,
+         "launches": n, "fft_launches": on_fft, "dft_launches": n - on_fft,
+         **entry}
+        for name, replaces, n, on_fft, entry in zip(
             ("fused_gl", "fused_gl_tile_major", "fused_gl_bisect"),
             (gl_file + ":132", gl_file + ":261",
-             "benchmarks/r3_gl_bisect.py:97"), gl_launches, gl_stats)
+             "benchmarks/r3_gl_bisect.py:97"), gl_launches, gl_fft_launches,
+            gl_stats)
     ]
     for k in kernels:
         # a bound over a time measured for the same function is no bound

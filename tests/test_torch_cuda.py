@@ -7,6 +7,7 @@ file imports no JAX (the GPU machine has none), so it runs there without
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 import copy
+import functools
 
 import numpy as np
 import pytest
@@ -323,7 +324,10 @@ def _l2_err(got, want):
 @pytest.mark.parametrize("fft,hop,samples,window,center", GL_CASES)
 def test_gl_kernels_match_plain(cuda_device, fft, hop, samples, window,
                                 center, tile_major):
-    """One iteration from a generic state: the products (``prev``) within
+    """On the route the size takes and, where that is the FFT route, on
+    the DFT route too (the FFT kernels also against the plain version that
+    repeats their arithmetic step by step).
+    One iteration from a generic state: the products (``prev``) within
     1e-5 of peak and the projected state within 1e-4 (the projection
     divides by |upd|); the 4-iteration waveform within 1e-4 of peak.  With
     no overlap (hop = fft, Hann) the spectrum stays almost real from the
@@ -336,37 +340,65 @@ def test_gl_kernels_match_plain(cuda_device, fft, hop, samples, window,
     ops = tgl._gl_prepare(mag, fft, hop, window, None, tile_major)[:5]
     start, _ = tgl._gl_solve_plain(*ops, fft, hop, 2, 0.99, tile_major)
     ops = (start,) + ops[1:]
-    before = (tgl.GL_KERNEL_LAUNCHES, tgl.GL_TILE_MAJOR_LAUNCHES)
-    state, prev = tgl._gl_solve_cuda(*ops, fft, hop, 1, 0.99, tile_major)
-    assert (tgl.GL_KERNEL_LAUNCHES, tgl.GL_TILE_MAJOR_LAUNCHES) == (
-        before[0] + 1, before[1] + int(tile_major))
     want_state, want_prev = tgl._gl_solve_plain(*ops, fft, hop, 1, 0.99,
                                                 tile_major)
-    assert _peak_err(prev, want_prev) <= PARITY
-    assert err_of(state, want_state) <= bar
     length = tops.stft_output_length(mag.shape[-1], fft, hop, center=center)
     args = (mag, fft, hop, window, 4, 0.99, length, center)
-    got = tgl._gl_fused(*args, tile_major=tile_major)
     want = tgl._gl_plain(*args, tile_major=tile_major)
-    assert got.shape == (2, length) and bool(torch.isfinite(got).all())
+    takes = tfused._route_for(fft, None)
+    for route in dict.fromkeys((takes, "dft")):
+        if route == "fft":
+            ops = (start,) + tgl._gl_prepare(mag, fft, hop, window, None,
+                                             tile_major, "fft")[1:5]
+        before = (tgl.GL_KERNEL_LAUNCHES, tgl.GL_TILE_MAJOR_LAUNCHES,
+                  tgl.GL_FFT_LAUNCHES)
+        state, prev = tgl._gl_solve_cuda(*ops, fft, hop, 1, 0.99, tile_major,
+                                         _route=route)
+        assert (tgl.GL_KERNEL_LAUNCHES, tgl.GL_TILE_MAJOR_LAUNCHES,
+                tgl.GL_FFT_LAUNCHES) == (
+            before[0] + 1, before[1] + int(tile_major),
+            before[2] + int(route == "fft"))
+        assert _peak_err(prev, want_prev) <= PARITY
+        assert err_of(state, want_state) <= bar
+        if route == "fft":
+            step_state, step_prev = tgl._gl_solve_fft_plain(
+                *ops, fft, hop, 1, 0.99, tile_major)
+            assert _peak_err(prev, step_prev) <= PARITY
+            assert err_of(state, step_state) <= bar
+            ops = (start,) + tgl._gl_prepare(mag, fft, hop, window, None,
+                                             tile_major)[1:5]
+        solve = functools.partial(tgl._gl_solve_cuda, _route=route)
+        got = tgl._gl_run(solve, route, *args, None, tile_major)
+        assert got.shape == (2, length) and bool(torch.isfinite(got).all())
+        assert err_of(got, want) <= bar
+    # the op takes the route of the size
+    before = tgl.GL_KERNEL_LAUNCHES, tgl.GL_FFT_LAUNCHES
+    got = tgl._gl_fused(*args, tile_major=tile_major)
+    assert (tgl.GL_KERNEL_LAUNCHES, tgl.GL_FFT_LAUNCHES) == (
+        before[0] + 1, before[1] + int(takes == "fft"))
     assert err_of(got, want) <= bar
 
 
 @pytest.mark.cuda
 def test_gl_layouts_and_bisect_full_agree(cuda_device):
-    """Tile-major gives row-major's waveform; the stage bisect's ``full``
-    variant is the solve bit for bit, and every other variant is not."""
+    """Tile-major gives row-major's waveform (on the FFT route, which the
+    op takes at this size, bit for bit); on both routes the stage bisect's
+    ``full`` variant is the solve bit for bit, and every other variant is
+    not."""
     mag = _gl_mag(3, (2, 2, 6000), 512, 128).to(cuda_device)
     args = (mag, 512, 128, "hann", 8, 0.99, 6000, True)
     rows, tiles = tgl._gl_fused(*args), tgl._gl_fused(*args, tile_major=True)
     assert rows.shape == (2, 2, 6000)
-    assert _peak_err(tiles, rows) <= 1e-6
-    ops = tgl._gl_prepare(mag, 512, 128, "hann")[:5]
-    solve = tgl._gl_solve_cuda(*ops, 512, 128, 4, 0.99)
-    for variant in tgl.VARIANTS:
-        got = tgl._gl_solve_cuda(*ops, 512, 128, 4, 0.99, False, variant)
-        same = torch.equal(got[0], solve[0]) and torch.equal(got[1], solve[1])
-        assert same == (variant == "full"), variant
+    assert torch.equal(tiles, rows)
+    for route in ("fft", "dft"):
+        ops = tgl._gl_prepare(mag, 512, 128, "hann", route=route)[:5]
+        solve = tgl._gl_solve_cuda(*ops, 512, 128, 4, 0.99, _route=route)
+        for variant in tgl.VARIANTS:
+            got = tgl._gl_solve_cuda(*ops, 512, 128, 4, 0.99, False, variant,
+                                     _route=route)
+            same = (torch.equal(got[0], solve[0])
+                    and torch.equal(got[1], solve[1]))
+            assert same == (variant == "full"), (route, variant)
 
 
 @pytest.mark.cuda
@@ -380,10 +412,11 @@ def test_griffin_lim_pallas_on_card(cuda_device):
         got = tops.stft(y, 1024, 256).abs()
         return (torch.linalg.norm(got - mag) / torch.linalg.norm(mag)).item()
 
-    before = tgl.GL_KERNEL_LAUNCHES
+    before = tgl.GL_KERNEL_LAUNCHES, tgl.GL_FFT_LAUNCHES
     y = tops.griffin_lim(mag, 1024, 256, n_iter=32, length=22050,
                          method="pallas")
-    assert tgl.GL_KERNEL_LAUNCHES == before + 1
+    assert (tgl.GL_KERNEL_LAUNCHES, tgl.GL_FFT_LAUNCHES) == (before[0] + 1,
+                                                             before[1] + 1)
     plain = tgl._gl_plain(mag, 1024, 256, "hann", 32, 0.99, 22050, True)
     loop = tops.griffin_lim(mag, 1024, 256, n_iter=32, length=22050,
                             method="matmul")
@@ -415,13 +448,26 @@ def test_mel_to_audio_and_round_trip_on_card(cuda_device):
 @pytest.mark.cuda
 def test_gl_kernels_refuse_what_they_do_not_take(cuda_device):
     mag = _gl_mag(6, (1, 6000), 512, 128).to(cuda_device)
-    ops = tgl._gl_prepare(mag, 512, 128, "hann")[:5]
-    with pytest.raises(ValueError, match="unknown variant"):
-        tgl._gl_solve_cuda(*ops, 512, 128, 1, 0.99, False, "nodma")
-    with pytest.raises(ValueError, match="do not fit"):
-        tgl._gl_solve_cuda(*ops, 512, 128, 1, 0.99, True)
-    with pytest.raises(ValueError, match="float32 CUDA"):
-        tgl._gl_solve_cuda(ops[0].cpu(), *ops[1:], 512, 128, 1, 0.99)
+    before = tgl.GL_KERNEL_LAUNCHES
+    for route in ("fft", "dft"):
+        ops = tgl._gl_prepare(mag, 512, 128, "hann", route=route)[:5]
+        other = "dft" if route == "fft" else "fft"
+        with pytest.raises(ValueError, match="unknown variant"):
+            tgl._gl_solve_cuda(*ops, 512, 128, 1, 0.99, False, "nodma",
+                               _route=route)
+        with pytest.raises(ValueError, match="do not fit"):
+            tgl._gl_solve_cuda(*ops, 512, 128, 1, 0.99, True, _route=route)
+        # one route's operands on the other route
+        with pytest.raises(ValueError, match="do not fit"):
+            tgl._gl_solve_cuda(*ops, 512, 128, 1, 0.99, _route=other)
+        with pytest.raises(ValueError, match="float32 CUDA"):
+            tgl._gl_solve_cuda(ops[0].cpu(), *ops[1:], 512, 128, 1, 0.99,
+                               _route=route)
+    with pytest.raises(ValueError, match="power of two"):
+        mag400 = _gl_mag(6, (1, 6000), 400, 160).to(cuda_device)
+        tgl._gl_solve_cuda(*tgl._gl_prepare(mag400, 400, 160, "hann")[:5],
+                           400, 160, 1, 0.99, _route="fft")
+    assert tgl.GL_KERNEL_LAUNCHES == before
 
 
 @pytest.mark.cuda
@@ -447,8 +493,10 @@ def test_stft_conv_is_full_float32_on_card(cuda_device):
 @pytest.mark.cuda
 def test_gl_zero_iterations_launch_nothing(cuda_device):
     mag = _gl_mag(8, (1, 6000), 512, 128).to(cuda_device)
-    ops = tgl._gl_prepare(mag, 512, 128, "hann")[:5]
-    before = tgl.GL_KERNEL_LAUNCHES
-    state, prev = tgl._gl_solve_cuda(*ops, 512, 128, 0, 0.99)
-    assert tgl.GL_KERNEL_LAUNCHES == before
-    assert torch.equal(state, ops[0]) and not prev.any()
+    for route in ("fft", "dft"):
+        ops = tgl._gl_prepare(mag, 512, 128, "hann", route=route)[:5]
+        before = tgl.GL_KERNEL_LAUNCHES, tgl.GL_FFT_LAUNCHES
+        state, prev = tgl._gl_solve_cuda(*ops, 512, 128, 0, 0.99,
+                                         _route=route)
+        assert (tgl.GL_KERNEL_LAUNCHES, tgl.GL_FFT_LAUNCHES) == before
+        assert torch.equal(state, ops[0]) and not prev.any()

@@ -8,7 +8,9 @@ and forward + backward, a config 3 train step); ``mel_bisect`` times the
 fused mel kernels at config 2 over the number of mels, which separates the
 transform from the mel products; ``mel_ab`` prints those kernels' times for
 whichever tree ``PYTHONPATH`` names, to compare a change with its parent
-on one card.
+on one card, and ``gl_ab`` does so for the fused Griffin-Lim solve (both
+routes, the rounds a block takes, the stage switches).  The ``gl_*``
+benchmarks run the route the size takes and print it.
 """
 from __future__ import annotations
 

@@ -71,6 +71,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tac_fused_gl_solve.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
                                        i, i, i, i, f, i, p]
     lib.tac_fused_gl_solve.restype = i
+    lib.tac_fused_gl_solve_fft.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
+                                           i, i, i, i, f, i, p]
+    lib.tac_fused_gl_solve_fft.restype = i
     for tile in (lib.tac_fused_mel_fwd_tile, lib.tac_fused_mel_fft_tile,
                  lib.tac_fused_mel_bwd_tile, lib.tac_fused_gl_tile):
         tile.argtypes = [i]

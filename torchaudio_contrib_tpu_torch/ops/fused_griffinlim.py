@@ -4,14 +4,23 @@ kernels.
 Port of ``torchaudio_contrib_tpu/ops/fused_griffinlim.py``.  On a CUDA
 tensor :func:`_gl_fused` runs every projection of the solve through
 ``csrc/fused_gl.cu`` (built by :mod:`._cuda` on first use): per iteration a
-synthesis product ``fr = state · syn`` (the windowed inverse real DFT as a
-matrix product), an overlap-add with the clamped inverse envelope, and an
-analysis product that reads its frames straight from the enveloped signal
-and applies the momentum step and the magnitude projection in its epilogue.
-One call into the library runs all ``n_iter`` iterations on torch's current
-stream.  On a CPU tensor the same solve runs as :func:`_gl_solve_plain`,
-the plain PyTorch version in the kernels' layouts.  There is no other
-fallback: a CUDA tensor the kernels cannot take raises.
+synthesis ``fr = window · irfft(state)``, an overlap-add with the clamped
+inverse envelope, and an analysis that reads its frames straight from the
+enveloped signal and applies the momentum step and the magnitude projection
+in its epilogue.  One call into the library runs all ``n_iter`` iterations
+on torch's current stream.  On a CPU tensor the same solve runs as
+:func:`_gl_solve_plain`, the plain PyTorch version in the kernels' layouts.
+There is no other fallback: a CUDA tensor the kernels cannot take raises.
+
+Two routes of the kernels, by ``fft_length`` alone (the rule of the fused
+mel kernels, :func:`.fused._fft_kernel_supported`): a power of two from 256
+to 2048 takes the FFT kernels, which run both transforms of an iteration as
+shared-memory FFTs (``csrc/fft_smem.cuh``) and take the window and the
+twiddle table as operands; any other even size takes the DFT-product
+kernels, whose operands are the two dense bases ``syn`` and ``ana``.
+:func:`_gl_solve_plain` is the plain version of the DFT route,
+:func:`_gl_solve_fft_plain` repeats the FFT route's arithmetic step by
+step.
 
 Boundary semantics, as in the JAX package: the solve iterates in the
 *free-edge* domain.  It works on the padded signal of
@@ -23,7 +32,7 @@ design from the ``fft``/``matmul`` loops of :func:`.griffinlim.griffin_lim`
 zero.
 
 State, ``prev`` (the momentum memory: the unnormalised rebuilt spectrum),
-the bases and every product are float32 on the card (FP32 FMAs): the JAX
+the constants and all arithmetic are float32 on the card: the JAX
 kernel's bf16 state is a property of the TPU's matrix unit and is not
 carried over.
 
@@ -35,8 +44,9 @@ tile, the magnitudes ``(clips, n_frames, ft·FBT)``; with
 the same kernels with other strides.
 
 ``GL_KERNEL_LAUNCHES`` counts the solves launched on the card (one per
-call into the library, which runs ``3·n_iter`` kernels) and
-``GL_TILE_MAJOR_LAUNCHES`` those of them in tile-major layout.
+call into the library, which runs ``3·n_iter`` kernels),
+``GL_TILE_MAJOR_LAUNCHES`` those of them in tile-major layout and
+``GL_FFT_LAUNCHES`` those of them on the FFT route.
 """
 from __future__ import annotations
 
@@ -48,7 +58,8 @@ import torch.nn.functional as F
 
 from . import _cuda
 from .fused import (_basis_on, _cdiv, _round_up, _hashable_window,
-                    _FRAME_TILE, _FREQ_TILE, _K_TILE)
+                    _fft_consts_on, _route_for, _stockham_fft, _to_tiles,
+                    _FFT_MAX, _FFT_MIN, _FRAME_TILE, _FREQ_TILE, _K_TILE)
 from .stft import (_idft_matrices, _on, _resolve_window, _overlap_add,
                    frame_signal)
 from .windows import cola_window_sum
@@ -57,11 +68,12 @@ __all__ = ["fused_gl_supported"]
 
 GL_KERNEL_LAUNCHES = 0
 GL_TILE_MAJOR_LAUNCHES = 0
+GL_FFT_LAUNCHES = 0
 
 _FBT = _FREQ_TILE       # onesided bins per frequency tile (the analysis
                         # basis is the fused mel kernels' basis)
 _N_TILE = 64            # synthesis output samples per block
-_MAX_CLIPS = 65535      # grid.z
+_MAX_CLIPS = 65535      # grid.z (grid.y on the FFT route)
 
 # The stage switches of csrc/fused_gl.cu, for timing attribution: only
 # "full" computes Griffin-Lim.
@@ -82,6 +94,13 @@ def fused_gl_supported(fft_length: int, hop_length: int,
             and 0 < hop_length <= fft_length and n_frames >= 1)
 
 
+def _window_np(fft_length: int, win_key) -> np.ndarray:
+    """The config's window (float64, ``fft_length`` samples; Hann when
+    ``win_key`` is None)."""
+    return _resolve_window(win_key if win_key is not None else "hann",
+                           fft_length, fft_length)
+
+
 @functools.lru_cache(maxsize=16)
 def _syn_np(fft_length: int, win_key):
     """The synthesis basis ``(ft·2·FBT, round_up(fft, N_TILE))``, built in
@@ -91,8 +110,7 @@ def _syn_np(fft_length: int, win_key):
     are zero."""
     n_freqs = fft_length // 2 + 1
     ft = _cdiv(n_freqs, _FBT)
-    w = _resolve_window(win_key if win_key is not None else "hann",
-                        fft_length, fft_length)
+    w = _window_np(fft_length, win_key)
     icr, ici = _idft_matrices(fft_length)
     pad = ((0, ft * _FBT - n_freqs),
            (0, _round_up(fft_length, _N_TILE) - fft_length))
@@ -134,7 +152,7 @@ def _inv_envelope_of(fft_length: int, win_key, hop_length: int,
                      n_frames: int) -> np.ndarray:
     """:func:`_inv_envelope` of the config's window over the padded signal
     of ``(n_frames − 1)·hop + fft`` samples."""
-    return _inv_envelope(_syn_np(fft_length, win_key)[1], hop_length,
+    return _inv_envelope(_window_np(fft_length, win_key), hop_length,
                          n_frames,
                          (n_frames - 1) * hop_length + fft_length)
 
@@ -180,27 +198,28 @@ def _unpack(state, n_freqs: int, tile_major: bool) -> torch.Tensor:
     return torch.complex(re.contiguous(), im.contiguous())
 
 
-# ---- the solve: plain version and launch wrapper ---------------------------
+# ---- the solve: plain versions and launch wrapper --------------------------
 
-def _gl_solve_plain(state0, magT, syn, ana, inv_env, fft_length: int,
-                    hop_length: int, n_iter: int, momentum: float,
-                    tile_major: bool = False):
-    """Plain PyTorch version of the kernels' solve: ``(state, prev)`` after
-    ``n_iter`` free-edge projections from ``state0`` (``prev`` starts at
-    zero, so the first step projects ``(1 + momentum)·reim``), taking and
-    returning the kernels' layouts."""
+def _gl_iterate(state0, magT, inv_env, fft_length: int, hop_length: int,
+                n_iter: int, momentum: float, tile_major: bool, synthesis,
+                analysis):
+    """``(state, prev)`` after ``n_iter`` free-edge projections from
+    ``state0`` (``prev`` starts at zero, so the first step projects ``(1 +
+    momentum)·reim``), taking and returning the kernels' layouts.
+    ``synthesis`` maps a row-major state ``(clips, n_frames, ft·2·FBT)`` to
+    windowed frames ``(clips, n_frames, fft)``, ``analysis`` frames of the
+    enveloped signal to ``reim`` in the state's layout."""
     s5 = _row_major(state0, tile_major)
     bc, rows, ft = s5.shape[:3]
     state = s5.reshape(bc, rows, ft * 2 * _FBT)
     mag4 = (magT.permute(0, 2, 1, 3) if tile_major
             else magT.view(bc, rows, ft, _FBT))
     n_samples = (rows - 1) * hop_length + fft_length
-    syn, ana = syn[:, :fft_length], ana[:fft_length]
     prev = torch.zeros_like(state)
     for _ in range(n_iter):
-        fr = state @ syn                                 # (bc, rows, fft)
+        fr = synthesis(state)                            # (bc, rows, fft)
         xv = _overlap_add(fr, fft_length, hop_length, n_samples) * inv_env
-        reim = frame_signal(xv, fft_length, hop_length) @ ana
+        reim = analysis(frame_signal(xv, fft_length, hop_length))
         upd = (reim + momentum * (reim - prev)).view(bc, rows, ft, 2, _FBT)
         prev = reim
         nrm = torch.sqrt(upd[..., 0, :] ** 2 + upd[..., 1, :] ** 2)
@@ -217,30 +236,105 @@ def _gl_solve_plain(state0, magT, syn, ana, inv_env, fft_length: int,
     return back(state), back(prev)
 
 
+def _gl_solve_plain(state0, magT, syn, ana, inv_env, fft_length: int,
+                    hop_length: int, n_iter: int, momentum: float,
+                    tile_major: bool = False):
+    """Plain PyTorch version of the DFT-product kernels' solve (see
+    :func:`_gl_iterate`): both transforms as products with the dense bases
+    ``syn`` and ``ana``."""
+    syn, ana = syn[:, :fft_length], ana[:fft_length]
+    return _gl_iterate(state0, magT, inv_env, fft_length, hop_length, n_iter,
+                       momentum, tile_major, lambda state: state @ syn,
+                       lambda frames: frames @ ana)
+
+
+def _gl_solve_fft_plain(state0, magT, window, twiddle, inv_env,
+                        fft_length: int, hop_length: int, n_iter: int,
+                        momentum: float, tile_major: bool = False):
+    """Plain PyTorch version of the FFT kernels' solve, step by step as
+    ``csrc/fused_gl.cu`` runs it; arguments and results as
+    :func:`_gl_solve_plain` with the window ``(fft,)`` and the kernels'
+    twiddle table (``(fft, 2)`` real or ``(fft,)`` complex) in the bases'
+    place.  With ``N = fft_length``, ``M = N/2``:
+
+    * synthesis: the Hermitian spectrum ``Y = state/N`` with the imaginary
+      parts of DC and Nyquist dropped, ``Z_k = (Y_k + conj Y_{M−k}) + i·(Y_k
+      − conj Y_{M−k})·conj W_k`` for ``k < M``, whose unnormalised inverse
+      ``M``-point transform (:func:`~.fused._stockham_fft`) is ``z[m] =
+      y[2m] + i·y[2m+1]``, then the window: ``window · irfft(state)``;
+    * analysis: the windowed frame packed as ``z[m] = x[2m] + i·x[2m+1]``,
+      its ``M``-point transform, and the bins ``X_k = E_k + W_k·O_k`` (``X_M
+      = E_0 − O_0``) from its even and odd halves; padded bins are zero.
+    """
+    n, m = fft_length, fft_length // 2
+    tw = twiddle if twiddle.is_complex() else torch.view_as_complex(
+        twiddle.contiguous())
+    ft = _cdiv(m + 1, _FBT)
+    k_syn = torch.arange(m, device=state0.device)
+    k_ana = torch.arange(m + 1, device=state0.device)
+    w_ana = torch.cat([tw[:m], -tw[:1]])
+
+    def synthesis(state):
+        lead = state.shape[:2]
+        ri = state.reshape(*lead, ft, 2, _FBT)
+        re = ri[..., 0, :].reshape(*lead, -1)[..., :m + 1] * (1.0 / n)
+        im = ri[..., 1, :].reshape(*lead, -1)[..., :m + 1] * (1.0 / n)
+        im[..., 0] = 0.0
+        im[..., m] = 0.0
+        y = torch.complex(re, im)
+        yk, yn = y[..., k_syn], y[..., m - k_syn].conj()
+        o = (yk - yn) * tw[:m].conj()
+        z = _stockham_fft((yk + yn) + torch.complex(-o.imag, o.real), tw,
+                          inverse=True)
+        return torch.stack([z.real, z.imag], dim=-1).reshape(*lead, n) * window
+
+    def analysis(frames):
+        frames = frames * window
+        zf = _stockham_fft(torch.complex(frames[..., 0::2],
+                                         frames[..., 1::2]), tw)
+        zk, zn = zf[..., k_ana % m], zf[..., (m - k_ana) % m]
+        e = 0.5 * (zk + zn.conj())
+        o = torch.complex(0.5 * (zk.imag + zn.imag),
+                          0.5 * (zn.real - zk.real))
+        spec = e + w_ana * o
+        return _to_tiles(spec.real, spec.imag, ft)
+
+    return _gl_iterate(state0, magT, inv_env, fft_length, hop_length, n_iter,
+                       momentum, tile_major, synthesis, analysis)
+
+
 @functools.lru_cache(maxsize=1)
 def _kernel_lib():
     lib = _cuda.load()
-    want = (_FRAME_TILE, _FBT, _K_TILE, _N_TILE)
-    tiles = tuple(lib.tac_fused_gl_tile(i) for i in range(4))
+    want = (_FRAME_TILE, _FBT, _K_TILE, _N_TILE, _FFT_MIN, _FFT_MAX)
+    tiles = tuple(lib.tac_fused_gl_tile(i) for i in range(6))
     if tiles != want:
         raise RuntimeError(f"kernel tiles {tiles} do not match the host "
                            f"layout {want}")
     return lib
 
 
-def _gl_solve_cuda(state0, magT, syn, ana, inv_env, fft_length: int,
+def _gl_solve_cuda(state0, magT, basis_a, basis_b, inv_env, fft_length: int,
                    hop_length: int, n_iter: int, momentum: float,
-                   tile_major: bool = False, variant: str = "full"):
+                   tile_major: bool = False, variant: str = "full",
+                   _route=None):
     """Launch the solve on the card; arguments and results as
-    :func:`_gl_solve_plain`.  ``variant`` picks one of :data:`VARIANTS`
-    (stage switches for timing; only ``"full"`` is Griffin-Lim).  Raises on
-    any input it does not take; never computes the result another way."""
-    global GL_KERNEL_LAUNCHES, GL_TILE_MAJOR_LAUNCHES
+    :func:`_gl_solve_plain` on the DFT route (``basis_a``, ``basis_b`` are
+    ``syn``, ``ana``) and as :func:`_gl_solve_fft_plain` on the FFT route
+    (the window and the twiddle table).  The FFT kernels when
+    :func:`~.fused._fft_kernel_supported`, else the DFT-product kernels
+    (``_route`` names one of them to compare both at one shape).
+    ``variant`` picks one of :data:`VARIANTS` (stage switches for timing;
+    only ``"full"`` is Griffin-Lim).  Raises on any input it does not take;
+    never computes the result another way."""
+    global GL_KERNEL_LAUNCHES, GL_TILE_MAJOR_LAUNCHES, GL_FFT_LAUNCHES
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}: one of {VARIANTS}")
+    route = _route_for(fft_length, _route)
+    names = ("window", "twiddle") if route == "fft" else ("syn", "ana")
     want_ndim = 4 if tile_major else 3
-    for name, t in (("state0", state0), ("magT", magT), ("syn", syn),
-                    ("ana", ana), ("inv_env", inv_env)):
+    for name, t in (("state0", state0), ("magT", magT), (names[0], basis_a),
+                    (names[1], basis_b), ("inv_env", inv_env)):
         if not (t.is_cuda and t.dtype == torch.float32 and t.is_contiguous()
                 and t.device == state0.device):
             raise ValueError(f"{name} must be a contiguous float32 CUDA "
@@ -259,17 +353,22 @@ def _gl_solve_cuda(state0, magT, syn, ana, inv_env, fft_length: int,
         mag_want = (bc, rows, ft * _FBT)
     n_pad = _round_up(fft_length, _N_TILE)
     n_samples = (rows - 1) * hop_length + fft_length
+    if route == "fft":
+        bases_want = ((fft_length,), (fft_length, 2))
+    else:
+        bases_want = ((ft * 2 * _FBT, n_pad),
+                      (_round_up(fft_length, _K_TILE), ft * 2 * _FBT))
     if not (w2t == 2 * _FBT and state0.numel() == bc * rows * ft * 2 * _FBT
+            and ft == _cdiv(fft_length // 2 + 1, _FBT)
             and tuple(magT.shape) == mag_want
-            and tuple(syn.shape) == (ft * 2 * _FBT, n_pad)
-            and tuple(ana.shape) == (_round_up(fft_length, _K_TILE),
-                                     ft * 2 * _FBT)
+            and (tuple(basis_a.shape), tuple(basis_b.shape)) == bases_want
             and tuple(inv_env.shape) == (n_samples,)):
         raise ValueError(
             f"operands do not fit fft_length={fft_length}, hop_length="
-            f"{hop_length}: state {tuple(state0.shape)}, magnitudes "
-            f"{tuple(magT.shape)}, syn {tuple(syn.shape)}, ana "
-            f"{tuple(ana.shape)}, envelope {tuple(inv_env.shape)}")
+            f"{hop_length} on the {route.upper()} route: state "
+            f"{tuple(state0.shape)}, magnitudes {tuple(magT.shape)}, "
+            f"{names[0]} {tuple(basis_a.shape)}, {names[1]} "
+            f"{tuple(basis_b.shape)}, envelope {tuple(inv_env.shape)}")
     if not fused_gl_supported(fft_length, hop_length, rows):
         raise ValueError(f"fft_length={fft_length}, hop_length={hop_length},"
                          f" n_frames={rows} outside the kernels' rule "
@@ -289,31 +388,40 @@ def _gl_solve_cuda(state0, magT, syn, ana, inv_env, fft_length: int,
     fr = scratch((bc, rows, n_pad), dtype=torch.float32, device=state.device)
     xv = scratch((bc, n_samples), dtype=torch.float32, device=state.device)
     lib = _kernel_lib()
+    head = (state.data_ptr(), prev.data_ptr(), magT.data_ptr(),
+            basis_a.data_ptr(), basis_b.data_ptr(), inv_env.data_ptr(),
+            fr.data_ptr(), xv.data_ptr(), bc, rows, fft_length, hop_length,
+            ft)
+    tail = (int(tile_major), int(n_iter), float(momentum),
+            VARIANTS.index(variant))
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
-        rc = lib.tac_fused_gl_solve(
-            state.data_ptr(), prev.data_ptr(), magT.data_ptr(),
-            syn.data_ptr(), ana.data_ptr(), inv_env.data_ptr(),
-            fr.data_ptr(), xv.data_ptr(), bc, rows, fft_length, hop_length,
-            ft, n_pad, int(tile_major), int(n_iter), float(momentum),
-            VARIANTS.index(variant), stream)
+        if route == "fft":
+            rc = lib.tac_fused_gl_solve_fft(*head, *tail, stream)
+        else:
+            rc = lib.tac_fused_gl_solve(*head, n_pad, *tail, stream)
     if rc != 0:
-        raise RuntimeError(f"fused Griffin-Lim kernels failed to launch: "
+        raise RuntimeError(f"fused Griffin-Lim kernels ({route.upper()} "
+                           f"route) failed to launch: "
                            f"{lib.tac_error_string(rc).decode()} "
                            f"(cudaError {rc})")
     GL_KERNEL_LAUNCHES += 1
     GL_TILE_MAJOR_LAUNCHES += int(tile_major)
+    GL_FFT_LAUNCHES += int(route == "fft")
     return state, prev
 
 
 # ---- the op ----------------------------------------------------------------
 
 def _gl_prepare(mag_specgrams, fft_length: int, hop_length: int, window,
-                generator=None, tile_major: bool = False):
+                generator=None, tile_major: bool = False,
+                route: str = "dft"):
     """The solve's operands for magnitudes ``(..., n_freqs, n_frames)``:
-    ``(state0, magT, syn, ana, inv_env, window float64)``.  The initial
-    state is ``mag·exp(i·phase)``, with zero phase when ``generator`` is
-    None."""
+    ``(state0, magT, syn, ana, inv_env, window float64)`` for the DFT route
+    and its plain version, ``(state0, magT, window, twiddle, inv_env,
+    window float64)`` for the FFT route and its (no dense basis is built or
+    copied to the device there).  The initial state is ``mag·exp(i·phase)``,
+    with zero phase when ``generator`` is None."""
     n_freqs = fft_length // 2 + 1
     if mag_specgrams.shape[-2] != n_freqs:
         raise ValueError(f"magnitudes have {mag_specgrams.shape[-2]} bins; "
@@ -322,7 +430,13 @@ def _gl_prepare(mag_specgrams, fft_length: int, hop_length: int, window,
     mag = mag_specgrams.to(torch.float32).reshape(-1, n_freqs, n_frames)
     device = mag.device
     win_key = _hashable_window(window)
-    syn, ana, w, ft = _gl_bases_on(device, fft_length, win_key)
+    if _route_for(fft_length, route) == "fft":
+        basis_a, basis_b = _fft_consts_on(
+            device, fft_length, win_key if win_key is not None else "hann",
+            None)
+        w, ft = _window_np(fft_length, win_key), _cdiv(n_freqs, _FBT)
+    else:
+        basis_a, basis_b, w, ft = _gl_bases_on(device, fft_length, win_key)
     inv_env = _on(device, torch.float32, _inv_envelope_of, fft_length,
                   win_key, hop_length, n_frames)
     magL = mag.transpose(1, 2)
@@ -332,7 +446,7 @@ def _gl_prepare(mag_specgrams, fft_length: int, hop_length: int, window,
     else:
         re, im = magL, torch.zeros_like(magL)
     state0, magT = _pack(re, im, magL, ft, tile_major)
-    return state0, magT, syn, ana, inv_env, w
+    return state0, magT, basis_a, basis_b, inv_env, w
 
 
 def _gl_finish(state, lead, n_freqs: int, fft_length: int, hop_length: int,
@@ -355,24 +469,29 @@ def _gl_finish(state, lead, n_freqs: int, fft_length: int, hop_length: int,
     return y.reshape(lead + (y.shape[-1],))
 
 
-def _gl_run(solve, mag_specgrams, fft_length, hop_length, window, n_iter,
-            momentum, length, center, generator, tile_major):
-    state0, magT, syn, ana, inv_env, w = _gl_prepare(
-        mag_specgrams, fft_length, hop_length, window, generator, tile_major)
-    state, _ = solve(state0, magT, syn, ana, inv_env, fft_length, hop_length,
-                     int(n_iter), float(momentum), tile_major)
+def _gl_run(solve, route, mag_specgrams, fft_length, hop_length, window,
+            n_iter, momentum, length, center, generator, tile_major):
+    """Operands for ``route``, ``solve`` on them, the waveform."""
+    state0, magT, basis_a, basis_b, inv_env, w = _gl_prepare(
+        mag_specgrams, fft_length, hop_length, window, generator, tile_major,
+        route)
+    state, _ = solve(state0, magT, basis_a, basis_b, inv_env, fft_length,
+                     hop_length, int(n_iter), float(momentum), tile_major)
     return _gl_finish(state, mag_specgrams.shape[:-2],
                       mag_specgrams.shape[-2], fft_length, hop_length, w,
                       inv_env, length, center, tile_major)
 
 
 def _gl_plain(mag_specgrams, fft_length, hop_length, window, n_iter,
-              momentum, length, center, generator=None, tile_major=False):
+              momentum, length, center, generator=None, tile_major=False,
+              route: str = "dft"):
     """The fused Griffin-Lim's plain PyTorch version, on the tensor's own
     device: the same free-edge solve, operands and layouts as
-    :func:`_gl_fused`, with :func:`_gl_solve_plain` in the kernels'
-    place."""
-    return _gl_run(_gl_solve_plain, mag_specgrams, fft_length, hop_length,
+    :func:`_gl_fused`, with :func:`_gl_solve_plain` (``route="dft"``) or
+    :func:`_gl_solve_fft_plain` (``route="fft"``) in the kernels' place."""
+    solve = (_gl_solve_fft_plain if _route_for(fft_length, route) == "fft"
+             else _gl_solve_plain)
+    return _gl_run(solve, route, mag_specgrams, fft_length, hop_length,
                    window, n_iter, momentum, length, center, generator,
                    tile_major)
 
@@ -380,14 +499,16 @@ def _gl_plain(mag_specgrams, fft_length, hop_length, window, n_iter,
 def _gl_fused(mag_specgrams, fft_length, hop_length, window, n_iter,
               momentum, length, center, generator=None, tile_major=False):
     """The fused Griffin-Lim loop (the JAX package's ``_gl_pallas``); the
-    caller guarantees eligibility.  A CUDA tensor launches the kernels or
-    raises; a CPU tensor runs the plain version."""
+    caller guarantees eligibility.  A CUDA tensor launches the kernels of
+    the route its ``fft_length`` takes or raises; a CPU tensor runs the
+    plain version."""
     device = mag_specgrams.device.type
     if device == "cpu":
-        solve = _gl_solve_plain
+        solve, route = _gl_solve_plain, "dft"
     elif device == "cuda":
-        solve = _gl_solve_cuda
+        solve, route = _gl_solve_cuda, _route_for(fft_length, None)
     else:
         raise ValueError(f"unsupported device {mag_specgrams.device}")
-    return _gl_run(solve, mag_specgrams, fft_length, hop_length, window,
-                   n_iter, momentum, length, center, generator, tile_major)
+    return _gl_run(solve, route, mag_specgrams, fft_length, hop_length,
+                   window, n_iter, momentum, length, center, generator,
+                   tile_major)
