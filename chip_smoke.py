@@ -72,7 +72,29 @@ imports no JAX.  Phases, each printing its lines:
 15. the solve at full width (fft 1024 and fft 2048) checked against its
     plain versions and timed on both routes against them, against the
     ``matmul`` and ``fft`` loops and against a loop of
-    ``torch.stft``/``torch.istft``; the stage bisect on both routes.
+    ``torch.stft``/``torch.istft``; the stage bisect on both routes;
+16. the rules shared with the JAX package: ``power=1`` on a CUDA tensor
+    computes the plain chain and launches nothing; 65 600 streams through
+    the fused mel forward (fft 256, hop 64) and 65 600 clips through one
+    fused Griffin-Lim call on each route equal the same inputs run as two
+    slabs, bitwise; the build went into ``$TAC_TORCH_BUILD_DIR`` (phase 2
+    sets it, inside the checkout, when the caller has not);
+17. the corpus path, BASELINE config 5 at full width
+    (``benchmarks/corpus_run.py``: 512 files from 8 synthetic 10 s clips
+    at 16 kHz, batches of 256, 2 loader threads, 3 batches in flight, the
+    int16 wire, ``use_fused=True``, fft 2048, hop 512, 128 mels), one
+    warm-up batch first, the timed run between a reset and a read of the
+    counters (the fused forward once a batch, on the FFT route), sink rows
+    against the plain chain on the same dequantised clips; files/s,
+    frames/s, wall seconds, bytes a batch to the card, the kernel's time a
+    batch and the card's busy share; a run whose loader fails on every 7th
+    file; the float32 and mulaw8 wires, and the chunked path
+    (``use_fused=False``) against its CPU copy, on 64 files;
+18. the ops and layers with no kernel of their own (masking, deltas,
+    emphasis, spectral descriptors, effects, convolution, metrics, chroma,
+    CQT, pitch detection, DSP synthesis, beamforming; the torchaudio-named
+    transforms) on CUDA tensors against the same call on a CPU copy,
+    ``deemphasis`` on a 10 s clip among them.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -83,10 +105,14 @@ from __future__ import annotations
 import copy
 from functools import partial
 import json
+import logging
 import math
+import os
+from pathlib import Path
 import re
 import time
 
+import numpy as np
 import torch
 
 F32_PARITY = 1e-5      # kernel vs plain, max|diff| / max|plain|
@@ -120,6 +146,11 @@ GL_LAYOUT_PARITY = 1e-6    # tile-major vs row-major waveform
 GL_CONV_PARITY = 1e-3      # |convergence(kernel) - convergence(plain)|, 32 it.
 GL_CONV_SLACK = 0.05       # fused convergence <= the matmul loop's + this
 ISTFT_ATOL = 1e-4          # config 4 round trip, max abs error
+# Phase 18, the card against the CPU copy, relative to peak: plain f32 ops;
+# scans, torch.linalg and log-domain layers; the phase vocoder's float32
+# phases summed along time in another order.
+SCAN_PARITY = 1e-4
+VOCODER_PARITY = 1e-2
 # Published peaks of one H100 SXM (data sheet, 700 W): FP32 outside the
 # tensor cores, and HBM3.
 PEAK_FP32 = 67e12
@@ -323,9 +354,17 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     from torchaudio_contrib_tpu_torch.ops import _cuda, fused
+    # build where $TAC_TORCH_BUILD_DIR says: inside the checkout (a
+    # gitignored directory) unless the caller names another
+    os.environ.setdefault(_cuda.BUILD_DIR_ENV,
+                          str(Path(__file__).resolve().parent / "_local"
+                              / "kernels"))
     t0 = time.perf_counter()
     fused._kernel_lib()
     info = _cuda.build_info()
+    _check(Path(info["path"]).parent == _cuda.build_dir(),
+           f"the library {info['path']} is not in $TAC_TORCH_BUILD_DIR "
+           f"{_cuda.build_dir()}")
     print(f"build: {'nvcc built' if info['built'] else 'loaded'} "
           f"{info['path']} in {info['seconds']:.2f} s "
           f"(load {time.perf_counter() - t0:.2f} s); ptxas, per kernel: "
@@ -1293,6 +1332,328 @@ def phase_gl_timings(gen: torch.Generator, card: str, probes, bisect) -> tuple:
     return entries[(n_fft, False)], entries[(n_fft, True)], bisect_entry
 
 
+def phase_repairs(gen: torch.Generator) -> None:
+    """``power=1`` on the card takes the plain chain and launches nothing;
+    past 65 535 streams (clips) the wrappers launch slabs, bitwise the
+    same as two calls."""
+    from torchaudio_contrib_tpu_torch import ops
+    from torchaudio_contrib_tpu_torch.ops import _cuda, fused
+    from torchaudio_contrib_tpu_torch.ops import fused_griffinlim as fg
+    x = torch.randn((4, 16000), generator=gen).cuda()
+    fb = ops.create_mel_filter(64, 16000, 0.0, None, 257, device="cuda")
+    with torch.inference_mode():
+        before = _counts()[0], _fft_counts()[0]
+        got = fused.fused_melspectrogram(x, fb, 512, 128, power=1.0)
+        moved = (_counts()[0] - before[0], _fft_counts()[0] - before[1])
+        want = fused._reference(x, fb, 512, 128, "hann", 1.0, True, 1.0,
+                                1e-7)
+        err = _rel(got, want)
+        big = torch.randn((65600, 1024), generator=gen).cuda()
+        fb256 = ops.create_mel_filter(16, 16000, 0.0, None, 129,
+                                      device="cuda")
+        before = _counts()[0]
+        whole = fused.fused_melspectrogram(big, fb256, 256, 64)
+        b1_calls = _counts()[0] - before
+        b1_slabs = torch.equal(whole, torch.cat(
+            [fused.fused_melspectrogram(big[a:b], fb256, 256, 64)
+             for a, b in ((0, 65535), (65535, 65600))]))
+        del big, whole
+        mag = torch.rand((65600, 129, 4), generator=gen).cuda()
+        gl_slabs = {}
+        for route in ("fft", "dft"):
+            prep = fg._gl_prepare(mag, 256, 64, "hann", route=route)[:5]
+            before = fg.GL_KERNEL_LAUNCHES
+            state, prev = fg._gl_solve_cuda(*prep, 256, 64, 2, 0.99,
+                                            _route=route)
+            calls = fg.GL_KERNEL_LAUNCHES - before
+            same = True
+            for a, b in ((0, 65535), (65535, 65600)):
+                part = fg._gl_solve_cuda(prep[0][a:b].contiguous(),
+                                         prep[1][a:b].contiguous(), *prep[2:],
+                                         256, 64, 2, 0.99, _route=route)
+                same = (same and torch.equal(part[0], state[a:b])
+                        and torch.equal(part[1], prev[a:b]))
+            gl_slabs[route] = (calls, same)
+        del mag, prep, state, prev
+    torch.cuda.synchronize()
+    print(f"repairs: power=1 on the card: launches (all, FFT route) "
+          f"{moved}, max|op-chain|/max|chain| {err:.3e}; 65600 streams "
+          f"through the fused mel forward: 1 call counted {b1_calls}, "
+          f"bitwise two slabs {b1_slabs}; 65600 clips through one fused "
+          f"Griffin-Lim call (calls counted, bitwise two slabs): "
+          + ", ".join(f"{k} route {v}" for k, v in gl_slabs.items())
+          + f"; kernels built in $TAC_TORCH_BUILD_DIR {_cuda.build_dir()}",
+          flush=True)
+    _check(moved == (0, 0), f"power=1 launched a kernel: {moved}")
+    _check(err <= F32_PARITY, f"power=1: {err} > {F32_PARITY}")
+    _check(b1_calls == 1 and b1_slabs, "65600 streams: the slab loop")
+    _check(all(v == (1, True) for v in gl_slabs.values()),
+           f"65600 clips: the slab loop {gl_slabs}")
+
+
+def _corpus_rows(pre, rows: dict) -> float:
+    """max |sink row - plain chain| / max |plain chain| over ``rows`` (the
+    plain chain on the same dequantised clips, on the card)."""
+    from torchaudio_contrib_tpu_torch.benchmarks import corpus_run
+    from torchaudio_contrib_tpu_torch.ops import fused
+    mk = pre.mel_kwargs
+    ids = sorted(rows)
+    x, scale = corpus_run.staged_batch(pre, ids)
+    with torch.inference_mode():
+        want = fused._reference(pre._dequantize(x, scale), pre._fb,
+                                mk["fft_length"], mk["hop_length"], "hann",
+                                2.0, mk.get("to_db", True), 1.0, 1e-7)
+    got = torch.from_numpy(np.stack([rows[i] for i in ids]))
+    return _rel(got, want.cpu())
+
+
+def phase_corpus(gen: torch.Generator, card: str) -> dict:
+    """BASELINE config 5 at full width through ``CorpusPreprocessor``; see
+    the module docstring (phase 17).  Returns its numbers."""
+    from torchaudio_contrib_tpu_torch.benchmarks import corpus_run
+    cfg = corpus_run.CONFIG5
+    clips = corpus_run.synthetic_clips(gen)
+    rows = {}
+
+    def sink(i, row):
+        if i % 37 == 0:                   # 14 rows of the 512
+            rows[i] = row.copy()
+
+    pre = corpus_run.preprocessor(clips)
+    pre.sink = sink
+    pre.run(range(pre.batch_size))            # warm-up batch, untimed
+    rows.clear()
+    stats = corpus_run.measure(pre, cfg["files"])   # counters reset inside
+    row_err = _corpus_rows(pre, rows)
+    print(f"config 5 [{card}]: {stats['files']} files ({stats['failed']} "
+          f"failed) of {cfg['samples']} samples, batch {cfg['batch_size']}, "
+          f"{cfg['wire_format']} wire, fused: {stats['files_per_sec']:.1f} "
+          f"files/s, {stats['frames_per_sec']:,.0f} frames/s, wall "
+          f"{stats['wall_s']:.3f} s ({stats['batches']} batches, "
+          f"{stats['h2d_bytes_per_batch']:,} bytes a batch to the card); "
+          f"fused forward {stats['b1_ms_per_batch']:.3f} ms a batch by "
+          f"events ({stats['b1_trace_ms_per_batch']:.3f} traced; dequantise "
+          f"+ forward {stats['features_ms_per_batch']:.3f}); device busy "
+          f"{stats['busy_ms']:.2f} ms of the wall: busy share "
+          f"{stats['busy_share']:.4f}; launches (all, FFT route) "
+          f"{stats['launches']}, {stats['fft_launches']}; {len(rows)} sink "
+          f"rows vs the plain chain max|diff|/max|plain| {row_err:.3e}",
+          flush=True)
+    _check(stats["files"] == cfg["files"] and stats["failed"] == 0,
+           f"config 5: {stats['files']} done, {stats['failed']} failed")
+    _check(stats["launches"] == stats["fft_launches"] == stats["batches"]
+           == 2, f"config 5: launches {stats['launches']}, FFT route "
+           f"{stats['fft_launches']}, batches {stats['batches']}")
+    _check(len(rows) == 14 and row_err <= F32_PARITY,
+           f"config 5 sink rows: {len(rows)}, error {row_err}")
+
+    # a loader that fails on every 7th file: skipped, logged, counted
+    def flaky(i):
+        if i % 7 == 0:
+            raise IOError(f"synthetic decode failure {i}")
+        return clips[i % len(clips)]
+
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    log = logging.getLogger("torchaudio_contrib_tpu.corpus")
+    log.addHandler(handler)
+    log.propagate = False
+    try:
+        bad = corpus_run.preprocessor(clips, loader=flaky, retries=0)
+        bad_stats = bad.run(range(cfg["batch_size"]))
+    finally:
+        log.removeHandler(handler)
+        log.propagate = True
+    want_failed = len(range(0, cfg["batch_size"], 7))
+    skipped = sum(r.levelno == logging.ERROR for r in records)
+    print(f"config 5, loader failing on every 7th file: "
+          f"{bad_stats.files_done} done, {bad_stats.files_failed} failed, "
+          f"{skipped} logged skipped, {bad_stats.frames} frames", flush=True)
+    _check(bad_stats.files_failed == skipped == want_failed
+           and bad_stats.files_done == cfg["batch_size"] - want_failed,
+           f"failures: {bad_stats}")
+
+    # the other wires and the chunked path, 64 files in batches of 32
+    small = {}
+    for name, kw in (("float32", dict(wire_format="float32")),
+                     ("mulaw8", dict(wire_format="mulaw8")),
+                     ("chunked", dict(use_fused=False))):
+        got = {}
+        run = corpus_run.preprocessor(
+            clips, batch_size=32,
+            sink=lambda i, row, got=got: got.__setitem__(i, row.copy()),
+            **kw)
+        _reset_counts()
+        st = run.run(range(64))
+        launched = _counts()[0]
+        if name == "chunked":
+            cpu_rows = {}
+            mk = dict(run.mel_kwargs)
+            cpu = corpus_run.CorpusPreprocessor(
+                lambda i: clips[i % len(clips)], clips.shape[-1], 32,
+                device="cpu", wire_format=run.wire_format,
+                sink=lambda i, row: cpu_rows.__setitem__(i, row.copy()),
+                **mk)
+            cpu.run(range(64))
+            err = max(_rel(torch.from_numpy(got[i]),
+                           torch.from_numpy(cpu_rows[i])) for i in got)
+        else:
+            err = _corpus_rows(run, {i: got[i] for i in range(0, 64, 9)})
+        small[name] = (st.files_done, launched, err)
+        _check(st.files_done == 64 and len(got) == 64,
+               f"{name}: {st.files_done} files, {len(got)} rows")
+        _check(launched == (0 if name == "chunked" else 2),
+               f"{name}: {launched} fused launches")
+        _check(err <= F32_PARITY, f"{name}: rows differ by {err}")
+    print("config 5, 64 files in batches of 32 (files, fused launches, "
+          "max|diff|/max|ref|): " + ", ".join(
+              f"{k} {v[0]}, {v[1]}, {v[2]:.3e}" for k, v in small.items())
+          + " (the wires against the plain chain on the same dequantised "
+          "clips, the chunked path against its CPU copy)", flush=True)
+    return stats
+
+
+def _ops_cases(gen: torch.Generator) -> list:
+    """``(name, function, CPU inputs, bar)`` for phase 18: each function
+    runs on the inputs and on their CUDA copies.  The bar is F32_PARITY for
+    plain float32 ops; SCAN_PARITY for scans, ``torch.linalg`` and the
+    log-domain layers (dB and cepstra of near-silent bins amplify the
+    FFTs' rounding); VOCODER_PARITY for the phase vocoder's phases summed
+    along time in another order (``tests/test_torch_vocoder_ops.py``)."""
+    from torchaudio_contrib_tpu_torch import models, ops
+    from torchaudio_contrib_tpu_torch.models import transforms as tr
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen)
+
+    def pos(*shape):
+        return rn(*shape).abs()
+
+    wave, long_wave, spec_mag = rn(2, 8000), rn(2, 160000), pos(2, 129, 40)
+    n = torch.arange(8000, dtype=torch.float32)
+    tone = torch.stack([torch.sin(2 * math.pi * 220.0 * n / 8000),
+                        torch.sin(2 * math.pi * 330.0 * n / 8000)])
+    cspec = torch.complex(rn(2, 4, 65, 30), rn(2, 4, 65, 30))
+    mask = torch.rand((2, 65, 30), generator=gen)
+    cov = [torch.cov(rn(6, 40)) for _ in range(2)]
+    freqs = torch.linspace(200.0, 300.0, 4000)[:, None].repeat(1, 3) \
+        * torch.tensor([1.0, 2.0, 3.0])
+    amps = torch.rand((4000, 3), generator=gen)
+    cstft = torch.stft(wave, 256, 64, window=torch.hann_window(256),
+                       return_complex=True)
+
+    def g():
+        return torch.Generator().manual_seed(11)
+
+    def mvdr(sp, m, solution):
+        return tr.MVDR(1, solution)(sp, mask_s=m, mask_n=1.0 - m)
+
+    return [
+        ("compute_deltas", ops.compute_deltas, (spec_mag,), F32_PARITY),
+        ("preemphasis", ops.preemphasis, (wave,), F32_PARITY),
+        ("deemphasis, 10 s at 16 kHz", ops.deemphasis, (long_wave,),
+         SCAN_PARITY),
+        ("time_mask", lambda s: ops.time_mask(g(), s, 10, 2), (spec_mag,),
+         F32_PARITY),
+        ("freq_mask", lambda s: ops.freq_mask(g(), s, 8, 2), (spec_mag,),
+         F32_PARITY),
+        ("spectral_centroid", lambda s: ops.spectral_centroid(s, 16000),
+         (spec_mag,), F32_PARITY),
+        ("spectral_bandwidth", lambda s: ops.spectral_bandwidth(s, 16000),
+         (spec_mag,), SCAN_PARITY),
+        ("spectral_rolloff", lambda s: ops.spectral_rolloff(s, 16000),
+         (spec_mag,), F32_PARITY),
+        ("spectral_flatness", ops.spectral_flatness, (spec_mag,),
+         SCAN_PARITY),
+        ("zero_crossing_rate", ops.zero_crossing_rate, (wave,), F32_PARITY),
+        ("fade", lambda x: ops.fade(x, 500, 800, "half_sine"), (wave,),
+         F32_PARITY),
+        ("dcshift", lambda x: ops.dcshift(0.3 * x, 0.4, 0.05), (wave,),
+         F32_PARITY),
+        ("dither", lambda x: ops.dither(g(), x), (wave,), F32_PARITY),
+        ("add_noise", lambda x, y: ops.add_noise(x, y, 10.0), (wave, rn(2, 8000)),
+         F32_PARITY),
+        ("speed", lambda x: ops.speed(x, 8000, 1.1), (wave,), F32_PARITY),
+        ("sliding_window_cmn", lambda s: ops.sliding_window_cmn(
+            s, 20, 5, False, True), (spec_mag,), SCAN_PARITY),
+        ("apply_codec ALAW", lambda x: ops.apply_codec(0.3 * x, 8000, "wav",
+                                                       "ALAW"),
+         (wave,), F32_PARITY),
+        ("convolve", lambda x, k: ops.convolve(x, k, "same"),
+         (wave, rn(2, 65)), F32_PARITY),
+        ("fftconvolve", ops.fftconvolve, (wave, rn(2, 400)), F32_PARITY),
+        ("si_snr", ops.si_snr, (wave, rn(2, 8000)), F32_PARITY),
+        ("frechet_distance", ops.frechet_distance,
+         (rn(6), cov[0], rn(6), cov[1]), SCAN_PARITY),
+        ("chroma filterbank", lambda s: ops.apply_filterbank(
+            s, ops.create_chroma_filter(12, 16000, 129, device=s.device)),
+         (spec_mag,), F32_PARITY),
+        ("cqt", lambda x: ops.cqt(x, 8000, 128, 24, 110.0), (wave,),
+         F32_PARITY),
+        ("detect_pitch_frequency", lambda x: ops.detect_pitch_frequency(
+            x, 8000), (tone,), F32_PARITY),
+        ("oscillator_bank", lambda f, a: ops.oscillator_bank(f, a, 8000),
+         (freqs, amps), F32_PARITY),
+        ("filter_waveform", ops.filter_waveform,
+         (wave, 0.2 * rn(2, 8, 33)), F32_PARITY),
+        ("psd", ops.psd, (cspec, mask), SCAN_PARITY),
+        ("MVDR ref_channel", lambda s, m: mvdr(s, m, "ref_channel"),
+         (cspec, mask), SCAN_PARITY),
+        ("MVDR stv_evd", lambda s, m: mvdr(s, m, "stv_evd"), (cspec, mask),
+         SCAN_PARITY),
+        ("MVDR stv_power", lambda s, m: mvdr(s, m, "stv_power"),
+         (cspec, mask), SCAN_PARITY),
+        ("MFCC", tr.MFCC(16000, 13, 40, 512, 128), (wave,), SCAN_PARITY),
+        ("LFCC", tr.LFCC(16000, 13, 40, 512, 128), (wave,), SCAN_PARITY),
+        ("MelSpectrogram", tr.MelSpectrogram(16000, 400, n_mels=64, pad=4),
+         (wave,), F32_PARITY),
+        ("InverseMelScale", tr.InverseMelScale(129, 32, 16000),
+         (pos(2, 32, 40),), SCAN_PARITY),
+        ("AmplitudeToDB", tr.AmplitudeToDB("power", 80.0), (spec_mag,),
+         SCAN_PARITY),
+        ("BarkSpectrogram", tr.BarkSpectrogram(16000, 400, n_barks=32),
+         (wave,), F32_PARITY),
+        ("InverseBarkScale", tr.InverseBarkScale(129, 24, 16000),
+         (pos(2, 24, 40),), SCAN_PARITY),
+        ("ChromaSpectrogram", tr.ChromaSpectrogram(16000, 400), (wave,),
+         F32_PARITY),
+        ("Chromagram", models.Chromagram(12, 16000, fft_length=256,
+                                         hop_length=64), (wave,),
+         F32_PARITY),
+        ("TimeStretch", tr.TimeStretch(64, 129, 1.3), (cstft,),
+         VOCODER_PARITY),
+        ("PitchShift", tr.PitchShift(8000, 2.0, fft_length=256,
+                                     hop_length=64), (wave,),
+         VOCODER_PARITY),
+        ("SpecAugment", lambda s: tr.SpecAugment(2, 10, 2, 8)(
+            s, generator=g()), (spec_mag,), F32_PARITY),
+    ]
+
+
+def phase_ops_on_card(gen: torch.Generator) -> None:
+    """Phase 18: each op or layer with no kernel of its own on CUDA tensors
+    against the same call on the CPU copies."""
+    worst, lines = {}, []
+    for name, fn, args, bar in _ops_cases(gen):
+        cuda_args = tuple(a.cuda() for a in args)
+        if isinstance(fn, torch.nn.Module):
+            cpu_fn, cuda_fn = fn, copy.deepcopy(fn).cuda()
+        else:
+            cpu_fn = cuda_fn = fn
+        want = cpu_fn(*args)
+        got = cuda_fn(*cuda_args)
+        _check(got.is_cuda and got.shape == want.shape,
+               f"{name}: {tuple(got.shape)} on {got.device}")
+        err = _rel(got.cpu(), want)
+        worst[name] = err
+        lines.append(f"{name} {err:.1e}")
+        _check(err <= bar, f"{name} on the card vs CPU: {err} > {bar}")
+    torch.cuda.synchronize()
+    print(f"ops and layers on the card vs their CPU copies ({len(worst)}; "
+          "max|cuda-cpu|/max|cpu|): " + ", ".join(lines), flush=True)
+
+
 def _mel_bounds(x, mels: int, n_fft: int, hop: int) -> tuple:
     """The bounds of the fused mel forward and backward at ``x (B, 1, T)``.
     The function: one real transform per frame (an FFT's operations) plus
@@ -1346,6 +1707,11 @@ def main() -> None:
     phase_gl_full(*gl_run)
     phase_config4(gen)
     gl_stats = phase_gl_timings(gen, card, probes, bisect)
+    torch.cuda.empty_cache()
+    phase_repairs(gen)
+    torch.cuda.empty_cache()
+    corpus = phase_corpus(gen, card)
+    phase_ops_on_card(gen)
     source = "torchaudio_contrib_tpu_torch/csrc/"
     gl_file = "torchaudio_contrib_tpu/ops/fused_griffinlim.py"
     kernels = [
@@ -1353,7 +1719,10 @@ def main() -> None:
          "source": source + "fused_mel_fwd.cu",
          "headers": [source + "fft_smem.cuh"],
          "replaces": "torchaudio_contrib_tpu/ops/fused.py:440",
-         "launches": launches + train_counts[0], **stats, **fwd_bound},
+         "launches": launches + train_counts[0] + corpus["launches"],
+         "corpus_launches": corpus["launches"],
+         "corpus_ms_per_batch": corpus["b1_ms_per_batch"],
+         **stats, **fwd_bound},
         {"name": "fused_mel_bwd", "route": "cuda",
          "source": source + "fused_mel_bwd.cu",
          "headers": [source + "fft_smem.cuh"],

@@ -31,6 +31,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _rel(got, want):
+    """max |got - want| / max |want|, on the CPU."""
+    got, want = got.detach().cpu(), want.detach().cpu()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
 def _inputs(seed, shape, mels, sr, fft):
     x = np.random.default_rng(seed).standard_normal(shape)
     fb = tops.create_mel_filter(mels, sr, 0.0, None, fft // 2 + 1)
@@ -154,11 +160,17 @@ def test_kernel_gradients_flow(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(cuda_device):
-    x = torch.zeros((1, 4096), device=cuda_device)
+    """What the kernel does not take raises; ``power != 2`` is not among
+    it: the JAX package's rule sends it to the plain chain on the card,
+    decided before any launch, and no launch is counted."""
+    x = torch.randn((1, 4096), device=cuda_device)
     fb = tops.create_mel_filter(16, 16000, 0.0, None, 129,
                                 device=cuda_device)
-    with pytest.raises(ValueError, match="power=2"):
-        tops.fused_melspectrogram(x, fb, 256, 128, power=1.0)
+    before = _launches()
+    got = tops.fused_melspectrogram(x, fb, 256, 128, power=1.0)
+    assert _launches() == before
+    want = tfused._reference(x, fb, 256, 128, "hann", 1.0, True, 1.0, 1e-7)
+    assert got.is_cuda and _rel(got, want) <= PARITY
     with pytest.raises(ValueError, match="num_mels"):
         tops.fused_melspectrogram(
             x, torch.zeros((129, 800), device=cuda_device), 256, 128)
@@ -500,3 +512,83 @@ def test_gl_zero_iterations_launch_nothing(cuda_device):
                                          _route=route)
         assert (tgl.GL_KERNEL_LAUNCHES, tgl.GL_FFT_LAUNCHES) == before
         assert torch.equal(state, ops[0]) and not prev.any()
+
+
+# ---- the slab loop: more streams (clips) than a grid dimension holds ---------
+
+@pytest.mark.cuda
+def test_forward_kernel_runs_past_the_grid_limit(cuda_device):
+    """65 600 streams (two slabs) equal the same input run as two calls,
+    bitwise, with one launch counted."""
+    x = torch.randn((65600, 1024), device=cuda_device)
+    fb = tops.create_mel_filter(16, 16000, 0.0, None, 129,
+                                device=cuda_device)
+    with torch.inference_mode():
+        before = tfused.KERNEL_LAUNCHES
+        got = tops.fused_melspectrogram(x, fb, 256, 64)
+        assert tfused.KERNEL_LAUNCHES == before + 1
+        parts = [tops.fused_melspectrogram(x[a:b], fb, 256, 64)
+                 for a, b in ((0, 65535), (65535, 65600))]
+    assert torch.equal(got, torch.cat(parts))
+
+
+@pytest.mark.cuda
+def test_gl_kernels_run_past_the_grid_limit(cuda_device):
+    mag = torch.rand((65600, 129, 4), device=cuda_device)
+    for route in ("fft", "dft"):
+        ops = tgl._gl_prepare(mag, 256, 64, "hann", route=route)[:5]
+        before = tgl.GL_KERNEL_LAUNCHES
+        state, prev = tgl._gl_solve_cuda(*ops, 256, 64, 2, 0.99,
+                                         _route=route)
+        assert tgl.GL_KERNEL_LAUNCHES == before + 1
+        for a, b in ((0, 65535), (65535, 65600)):
+            part = tgl._gl_solve_cuda(ops[0][a:b].contiguous(),
+                                      ops[1][a:b].contiguous(), *ops[2:],
+                                      256, 64, 2, 0.99, _route=route)
+            assert torch.equal(part[0], state[a:b])
+            assert torch.equal(part[1], prev[a:b])
+
+
+# ---- the corpus path and the ops with no kernel, on the card ----------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["float32", "int16", "mulaw8"])
+def test_corpus_on_card_matches_cpu(cuda_device, wire):
+    from torchaudio_contrib_tpu_torch import parallel as tpar
+    clips = np.random.default_rng(3).standard_normal(
+        (5, 1, 8000)).astype(np.float32)
+    kw = dict(clip_samples=8000, batch_size=4, wire_format=wire,
+              num_workers=2, use_fused=True, fft_length=512,
+              hop_length=128, num_mels=32, sample_rate=16000)
+    rows = {}
+    for dev in ("cpu", "cuda"):
+        rows[dev] = {}
+        pre = tpar.CorpusPreprocessor(
+            lambda i: clips[i], device=dev,
+            sink=lambda i, m, d=dev: rows[d].__setitem__(i, torch.tensor(m)),
+            **kw)
+        before = tfused.KERNEL_LAUNCHES
+        stats = pre.run(range(5))
+        assert stats.files_done == 5
+    assert tfused.KERNEL_LAUNCHES == before + 2       # one per batch
+    for i in range(5):
+        assert (rows["cuda"][i] - rows["cpu"][i]).abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_new_ops_on_card_match_cpu(cuda_device):
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((2, 16000)).astype(np.float32))
+    xc = x.to(cuda_device)
+    assert _rel(tops.deemphasis(xc), tops.deemphasis(x)) <= 1e-4
+    assert _rel(tops.convolve(xc, xc[:, :65]), tops.convolve(x, x[:, :65])) \
+        <= PARITY
+    assert _rel(tops.cqt(xc, 16000, 256, 36, 65.0),
+                tops.cqt(x, 16000, 256, 36, 65.0)) <= PARITY
+    spec = torch.stft(x.view(2, 16000), 256, 64,
+                      window=torch.hann_window(256), return_complex=True)
+    mc = spec.view(1, 2, 129, -1)
+    w = tops.mvdr_weights_souden(tops.psd(mc), tops.psd(mc) * 0.5 + 1e-3)
+    wc = tops.mvdr_weights_souden(tops.psd(mc.to(cuda_device)),
+                                  tops.psd(mc.to(cuda_device)) * 0.5 + 1e-3)
+    assert _rel(wc, w) <= 1e-4

@@ -11,6 +11,10 @@ from torchaudio_contrib_tpu_torch.models import MelFrontendClassifier as TModel
 from torchaudio_contrib_tpu_torch.models.frontend import _same_pad
 from torchaudio_contrib_tpu_torch.utils import from_jax_params
 
+# the lane runs 6 test workers on 8 cores: torch's default of one
+# thread per core oversubscribes them, so these tests run it on 2
+torch.set_num_threads(2)
+
 CFG = dict(num_classes=10, num_mels=64, sample_rate=16000, fft_length=512,
            hop_length=128)
 

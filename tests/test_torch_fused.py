@@ -22,6 +22,10 @@ from torchaudio_contrib_tpu import ops as jops
 from torchaudio_contrib_tpu_torch import ops as tops
 from torchaudio_contrib_tpu_torch.ops import fused as tfused
 
+# the lane runs 6 test workers on 8 cores: torch's default of one
+# thread per core oversubscribes them, so these tests run it on 2
+torch.set_num_threads(2)
+
 ROOT = Path(__file__).resolve().parent.parent
 
 
@@ -156,7 +160,11 @@ def test_import_pulls_in_no_jax():
             "mel_profile\n"
             "from torchaudio_contrib_tpu_torch.ops import (griffinlim, "
             "fused_griffinlim, melinv, pitch, resample, phase_vocoder, "
-            "mulaw)\n"
+            "mulaw, features, augment, spectral, effects, convolve, "
+            "metrics, chroma, cqt, pitchdetect, dsp, beamform)\n"
+            "from torchaudio_contrib_tpu_torch import parallel\n"
+            "from torchaudio_contrib_tpu_torch.parallel import corpus\n"
+            "from torchaudio_contrib_tpu_torch.models import transforms\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'jaxlib' "
             "or m.startswith('torchaudio_contrib_tpu.') "
@@ -166,3 +174,80 @@ def test_import_pulls_in_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# ---- (e) the rules the CUDA path shares with the CPU path --------------------
+
+@pytest.mark.parametrize("to_db", [True, False])
+def test_power_other_than_two_takes_the_chain(rng, monkeypatch, to_db):
+    """``power != 2`` computes the plain chain, as the JAX package's
+    ``_kernel_eligible`` decides on every backend: the rule reads the
+    arguments only, so no kernel wrapper is reached and no launch is
+    counted (on the card too; ``tests/test_torch_cuda.py``)."""
+    def no_kernel(*args, **kwargs):
+        raise AssertionError("power != 2 must not reach the kernels")
+    monkeypatch.setattr(tfused, "_fused_apply", no_kernel)
+    x = rng.standard_normal((2, 4096)).astype(np.float32)
+    fb = _fb(32, 16000, 512)
+    before = tfused.KERNEL_LAUNCHES
+    got = tops.fused_melspectrogram(torch.from_numpy(x), fb, 512, 128,
+                                    power=1.0, to_db=to_db)
+    assert tfused.KERNEL_LAUNCHES == before
+    want = np.asarray(jops.fused_melspectrogram(
+        jnp.asarray(x), jnp.asarray(fb.numpy()), 512, 128, power=1.0,
+        to_db=to_db))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-5)
+
+
+def test_slabs_cover_the_streams_in_order():
+    assert tfused._slabs(0) == []
+    assert tfused._slabs(65535) == [(0, 65535)]
+    assert tfused._slabs(65600) == [(0, 65535), (65535, 65600)]
+    assert tfused._slabs(7, 3) == [(0, 3), (3, 6), (6, 7)]
+
+
+def test_slab_split_is_exact_in_the_plain_versions(rng):
+    """The wrappers launch a batch as slabs of streams (clips); each stream
+    is independent, so the slabs' results, in order, are the batch's,
+    bitwise: here through the kernels' plain versions, slabs of 3."""
+    from torchaudio_contrib_tpu_torch.ops import fused_griffinlim as tgl
+    x = torch.from_numpy(rng.standard_normal((7, 3000)).astype(np.float32))
+    fb = _fb(24, 16000, 256)
+    args = (fb, 256, 64, "hann", None, True, 1.0, 1e-7)
+    whole, reim = tfused._fwd_res_plain(x, *args, save_spec=True)
+    parts = [tfused._fwd_res_plain(x[a:b], *args, save_spec=True)
+             for a, b in tfused._slabs(7, 3)]
+    assert torch.equal(whole, torch.cat([p[0] for p in parts]))
+    assert torch.equal(reim, torch.cat([p[1] for p in parts]))
+    mag = tops.stft(x, 256, 64).abs()
+    ops = tgl._gl_prepare(mag, 256, 64, "hann")[:5]
+    state, prev = tgl._gl_solve_plain(*ops, 256, 64, 2, 0.99)
+    for a, b in tfused._slabs(7, 3):
+        part = tgl._gl_solve_plain(ops[0][a:b], ops[1][a:b], *ops[2:], 256,
+                                   64, 2, 0.99)
+        assert torch.equal(part[0], state[a:b])
+        assert torch.equal(part[1], prev[a:b])
+
+
+def test_build_directory_variable(monkeypatch, tmp_path):
+    """``TAC_TORCH_BUILD_DIR`` moves the build out of the package (which may
+    be read-only): the library is looked for and compiled there.  Checked
+    without building: the compiler's commands are captured, not run."""
+    from torchaudio_contrib_tpu_torch.ops import _cuda
+    monkeypatch.delenv(_cuda.BUILD_DIR_ENV, raising=False)
+    assert _cuda.build_dir() == _cuda._PKG / "_build"
+    target = tmp_path / "kernels"
+    monkeypatch.setenv(_cuda.BUILD_DIR_ENV, str(target))
+    assert _cuda.build_dir() == target
+    seen = []
+
+    def capture(cmds):
+        seen.extend(cmds)
+        raise RuntimeError("captured")
+    monkeypatch.setattr(_cuda, "_find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_cuda, "_run_all", capture)
+    with pytest.raises(RuntimeError, match="captured"):
+        _cuda._build_and_load()
+    outputs = [cmd[cmd.index("-o") + 1] for cmd in seen]
+    assert outputs and all(o.startswith(str(target)) for o in outputs)
+    assert target.is_dir() and not list(target.iterdir())

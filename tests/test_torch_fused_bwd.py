@@ -32,6 +32,10 @@ from torchaudio_contrib_tpu_torch.ops import fused as tfused
 from torchaudio_contrib_tpu_torch.ops.stft import (_overlap_add,
                                                    _pad_center, frame_signal)
 
+# the lane runs 6 test workers on 8 cores: torch's default of one
+# thread per core oversubscribes them, so these tests run it on 2
+torch.set_num_threads(2)
+
 GRAD_TOL = 1e-4
 
 # the shapes of test_torch_fused.py::test_plain_matches_jax

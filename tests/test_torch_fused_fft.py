@@ -33,6 +33,10 @@ from torchaudio_contrib_tpu_torch.ops.stft import (_dft_matrices,
                                                    _pad_center,
                                                    _resolve_window)
 
+# the lane runs 6 test workers on 8 cores: torch's default of one
+# thread per core oversubscribes them, so these tests run it on 2
+torch.set_num_threads(2)
+
 F32_TOL = 2e-6     # of peak: two float32 chains of the same transform
 F64_TOL = 1e-12    # of peak, in float64 against a float64 reference
 GRAD_TOL = 1e-4    # gradients against the JAX package (the BASELINE bar)

@@ -10,9 +10,12 @@ it is held
   bases) from the same numpy-seeded state, in float32 at the kernels' bars
   and in float64 to 1e-10, which proves the Hermitian / ``real_bin`` algebra
   and the DC / Nyquist weights without a card;
-* against the JAX package's Pallas kernels run through the Pallas
-  interpreter, at the shape and the bf16-grade bars of
-  ``tests/test_torch_griffinlim.py``, in both state layouts.
+* against the JAX package: one iteration against its Pallas kernels run
+  through the Pallas interpreter (one case per kernel, B3 and B4), at the
+  shape and the bf16-grade bar of ``tests/test_torch_griffinlim.py``; and
+  at every iteration count, in both layouts, against the same free-edge
+  solve written with the JAX package's plain float32 ops
+  (``jax_free_edge_gl`` of that file), at ``WAVE_PARITY``.
 
 The route rule and what the launch wrapper refuses are checked too.
 """
@@ -22,11 +25,16 @@ import torch
 import jax.numpy as jnp
 
 from torchaudio_contrib_tpu.ops.fused_griffinlim import _gl_pallas
+from test_torch_griffinlim import jax_free_edge_gl
 from torchaudio_contrib_tpu_torch import ops as tops
 from torchaudio_contrib_tpu_torch.ops import fused as tfused
 from torchaudio_contrib_tpu_torch.ops import fused_griffinlim as tgl
 from torchaudio_contrib_tpu_torch.ops.stft import (_dft_matrices,
                                                    _idft_matrices)
+
+# the lane runs 6 test workers on 8 cores: torch's default of one
+# thread per core oversubscribes them, so these tests run it on 2
+torch.set_num_threads(2)
 
 PRODUCT_PARITY = 1e-5       # prev after one iteration, of peak
 STATE_PARITY = 1e-4         # the projected state (divides by |upd|)
@@ -331,35 +339,42 @@ def mag():
 @pytest.mark.parametrize("tile_major", [False, True], ids=["B3", "B4"])
 @pytest.mark.parametrize("n_iter,measure,bar", [
     (1, _rel, 0.03), (2, _rel, 0.06), (3, _l2, 0.055)])
-def test_fft_plain_matches_pallas_interpret(interpret, mag, tile_major,
+def test_fft_plain_matches_pallas_interpret(request, mag, tile_major,
                                             n_iter, measure, bar):
-    """The Pallas kernels keep state, ``prev`` and the frames in bfloat16
-    and the port float32, so the two sit bf16-grade apart (the bars are
-    those of ``tests/test_torch_griffinlim.py``, twice the measured
-    distance); without momentum the port's solve is outside them."""
-    want = torch.from_numpy(np.array(_gl_pallas(
-        jnp.asarray(mag.numpy()), FFT, HOP, "hann", n_iter, M, T, True,
-        tile_major=tile_major)))
+    """The FFT route's plain version against the float32 JAX reference of
+    the free-edge solve at every iteration count, and after one iteration
+    against the interpreted Pallas kernel of each layout: those keep state,
+    ``prev`` and the frames in bfloat16 and the port float32, so they sit
+    bf16-grade apart (the bar of ``tests/test_torch_griffinlim.py``, twice
+    the measured distance).  Without momentum the port's solve is far
+    outside the float32 bar."""
     got = tgl._gl_plain(mag, FFT, HOP, "hann", n_iter, M, T, True,
                         tile_major=tile_major, route="fft")
+    want = torch.from_numpy(jax_free_edge_gl(mag, FFT, HOP, n_iter, M, T))
     assert got.shape == want.shape == (2, T)
-    assert measure(got, want) <= bar
+    assert _rel(got, want) <= WAVE_PARITY
+    if n_iter == 1:
+        request.getfixturevalue("interpret")
+        kernel = torch.from_numpy(np.array(_gl_pallas(
+            jnp.asarray(mag.numpy()), FFT, HOP, "hann", 1, M, T, True,
+            tile_major=tile_major)))
+        assert measure(got, kernel) <= bar
     if n_iter == 3:
         off = tgl._gl_plain(mag, FFT, HOP, "hann", 3, 0.0, T, True,
                             tile_major=tile_major, route="fft")
-        assert measure(off, want) > 1.5 * bar
+        assert _rel(off, want) > 0.1
 
 
 @pytest.mark.parametrize("tile_major", [False, True], ids=["B3", "B4"])
-def test_fft_plain_converges_where_pallas_interpret_does(interpret, mag,
-                                                         tile_major):
+def test_fft_plain_converges_where_pallas_interpret_does(mag, tile_major):
+    """8 iterations: the FFT route lands where the JAX package's free-edge
+    solve does (the Pallas kernels land there too,
+    ``tests/test_torch_griffinlim.py``), and where the DFT route does."""
     def convergence(y):
         s = tops.stft(y, FFT, HOP).abs()
         return float((s - mag).norm() / mag.norm())
 
-    y_j = torch.from_numpy(np.array(_gl_pallas(
-        jnp.asarray(mag.numpy()), FFT, HOP, "hann", 8, M, T, True,
-        tile_major=tile_major)))
+    y_j = torch.from_numpy(jax_free_edge_gl(mag, FFT, HOP, 8, M, T))
     y_t = tgl._gl_plain(mag, FFT, HOP, "hann", 8, M, T, True,
                         tile_major=tile_major, route="fft")
     y_d = tgl._gl_plain(mag, FFT, HOP, "hann", 8, M, T, True,

@@ -9,6 +9,10 @@ import jax.numpy as jnp
 import torchaudio_contrib_tpu as jt
 import torchaudio_contrib_tpu_torch as tt
 
+# the lane runs 6 test workers on 8 cores: torch's default of one
+# thread per core oversubscribes them, so these tests run it on 2
+torch.set_num_threads(2)
+
 ATOL = 1e-4
 
 

@@ -16,6 +16,10 @@ import jax.numpy as jnp
 from torchaudio_contrib_tpu import ops as jops
 from torchaudio_contrib_tpu_torch import ops as tops
 
+# the lane runs 6 test workers on 8 cores: torch's default of one
+# thread per core oversubscribes them, so these tests run it on 2
+torch.set_num_threads(2)
+
 VALUE_TOL = 1e-5
 GRAD_TOL = 1e-4
 

@@ -14,6 +14,10 @@ from torchaudio_contrib_tpu.ops import windows as jwin
 from torchaudio_contrib_tpu_torch import ops as tops
 from torchaudio_contrib_tpu_torch.ops import windows as twin
 
+# the lane runs 6 test workers on 8 cores: torch's default of one
+# thread per core oversubscribes them, so these tests run it on 2
+torch.set_num_threads(2)
+
 ATOL = 1e-4   # BASELINE.json's parity bar (float32 chains)
 
 

@@ -21,6 +21,10 @@ from torchaudio_contrib_tpu import ops as jops
 from torchaudio_contrib_tpu_torch import ops as tops
 import torchaudio_contrib_tpu_torch as tat
 
+# the lane runs 6 test workers on 8 cores: torch's default of one
+# thread per core oversubscribes them, so these tests run it on 2
+torch.set_num_threads(2)
+
 VOCODER = 1e-2
 
 

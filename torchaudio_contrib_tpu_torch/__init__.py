@@ -8,7 +8,13 @@ filterbanks, dB, the fused log-mel kernels forward and backward, MFCC
 and LFCC, the layer pipelines and ``MelFrontendClassifier`` with
 ``loss_fn`` and ``train_step``) and the inverse path (ISTFT, Griffin-Lim
 with its fused kernels, mel and bark inversion, ``mel_to_audio``, the
-phase vocoder, resampling, pitch shift, μ-law, bark filterbanks).
+phase vocoder, resampling, pitch shift, μ-law, bark filterbanks), the
+corpus path (``parallel``: streamed chunked STFT and the batch preprocessor
+with the fused kernel, on one GPU), the ops with no recurrence of their
+own (masking, deltas and emphasis, spectral descriptors, chroma, CQT,
+pitch detection, effects, convolution, DSP synthesis, metrics,
+beamforming) and the torchaudio-named transforms over them
+(``models.transforms``).
 Module names follow the JAX package's; the flat names below mirror its
 ``__init__`` for the symbols ported so far.
 
@@ -18,7 +24,7 @@ package.
 
 __version__ = "0.1.0"
 
-from . import ops, models, utils, benchmarks
+from . import ops, models, utils, benchmarks, parallel
 
 from .ops import (
     stft, istft, frame_signal, num_frames, stft_output_length,
@@ -51,7 +57,7 @@ from .models import (
 )
 
 __all__ = [
-    "ops", "models", "utils", "benchmarks",
+    "ops", "models", "utils", "benchmarks", "parallel",
     "stft", "istft", "frame_signal", "num_frames", "stft_output_length",
     "complex_norm", "angle", "magphase",
     "hertz_to_mel", "mel_to_hertz", "hertz_to_bark", "bark_to_hertz",

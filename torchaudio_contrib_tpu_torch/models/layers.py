@@ -2,7 +2,7 @@
 
 Port of ``torchaudio_contrib_tpu/models/layers.py`` (the mel front end's
 layers and the inverse path's: ISTFT, Griffin-Lim, time stretch, resample,
-μ-law, bark).  Every transform is an ``nn.Module``.  Derived arrays (windows,
+μ-law, bark; the chroma filterbank and chromagram).  Every transform is an ``nn.Module``.  Derived arrays (windows,
 filterbanks) are built from the layer's config and held as non-persistent
 buffers: they follow ``.to(device)`` but stay out of ``state_dict()``, so
 a checkpoint holds only trainable leaves — the JAX package's
@@ -19,6 +19,7 @@ from ..ops.complexops import complex_norm as _complex_norm
 from ..ops.db import (amplitude_to_db as _amplitude_to_db,
                       db_to_amplitude as _db_to_amplitude)
 from ..ops.filters import apply_filterbank as _apply_filterbank
+from ..ops.chroma import create_chroma_filter
 from ..ops.filters import create_bark_filter, create_mel_filter
 from ..ops.fused import fused_melspectrogram as _fused_mel
 from ..ops.griffinlim import griffin_lim as _griffin_lim
@@ -32,11 +33,12 @@ from ..ops.stft import stft as _stft_fn, istft as _istft_fn, _resolve_window
 __all__ = [
     "Transform", "Pipeline",
     "STFT", "ISTFT", "InverseSpectrogram", "ComplexNorm",
-    "Filterbank", "MelFilterbank", "BarkFilterbank", "ApplyFilterbank",
+    "Filterbank", "MelFilterbank", "BarkFilterbank", "ChromaFilterbank",
+    "ApplyFilterbank",
     "AmplitudeToDb", "DbToAmplitude",
     "MuLawEncoding", "MuLawDecoding",
     "Resample", "StretchSpecTime", "GriffinLim",
-    "Spectrogram", "Melspectrogram", "Barkspectrogram",
+    "Spectrogram", "Melspectrogram", "Barkspectrogram", "Chromagram",
     "FusedMelspectrogram",
 ]
 
@@ -181,6 +183,26 @@ class BarkFilterbank(Filterbank):
             bark_scale=bark_scale, dtype=dtype))
 
 
+class ChromaFilterbank(Filterbank):
+    """Gaussian pitch-class filterbank (librosa's design,
+    :func:`~..ops.chroma.create_chroma_filter`), with the same splice
+    points as :class:`MelFilterbank`: into a :func:`Spectrogram` pipeline
+    through :class:`ApplyFilterbank` (trainable too) for a chromagram."""
+
+    def __init__(self, n_chroma: int = 12, sample_rate: float = 22050,
+                 num_bins: int = 1025, tuning: float = 0.0,
+                 base_c: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.n_chroma = n_chroma
+        self.sample_rate = sample_rate
+        self.num_bins = num_bins
+        self.tuning = tuning
+        self.base_c = base_c
+        self._derived("filterbank", create_chroma_filter(
+            n_chroma, sample_rate, num_bins, tuning=tuning, base_c=base_c,
+            dtype=dtype))
+
+
 class ApplyFilterbank(Transform):
     """Project ``(..., freq, time)`` through a filterbank matrix.
 
@@ -323,7 +345,9 @@ class FusedMelspectrogram(Transform):
     ``Melspectrogram()`` pipeline.  ``trainable=True`` makes the
     filterbank an ``nn.Parameter``; its gradient (and the waveform's, when
     that requires grad) runs through the backward kernel on the GPU and
-    through autograd of the plain version on the CPU."""
+    through autograd of the plain version on the CPU.  ``power`` other
+    than 2 computes the plain chain on the input's device, the GPU
+    included, and launches no kernel (the JAX package's rule)."""
 
     def __init__(self, num_mels: int = 128, sample_rate: float = 22050,
                  f_min: float = 0.0, f_max: Optional[float] = None,
@@ -387,7 +411,9 @@ def Melspectrogram(num_mels: int = 128,
     ``fused=True`` returns the same computation as a one-stage
     ``Pipeline(FusedMelspectrogram)`` with the same (center=True by
     default) frame semantics; it requires the built-in mel filterbank,
-    ``power=2`` and default ``normalized``/``onesided``.
+    ``power=2`` and default ``normalized``/``onesided``, and raises at
+    construction otherwise, so a fused pipeline always launches the kernel
+    on a CUDA tensor.
     """
     power = spectrogram_kwargs.pop("power", 2.0)
     spec = Spectrogram(power=power, **spectrogram_kwargs)
@@ -437,4 +463,20 @@ def Barkspectrogram(n_barks: int = 128,
     fb = BarkFilterbank(n_barks=n_barks, sample_rate=sample_rate,
                         f_min=f_min, f_max=f_max,
                         num_bins=spec[0].num_freqs, bark_scale=bark_scale)
+    return Pipeline(*spec, ApplyFilterbank(fb, trainable=trainable))
+
+
+def Chromagram(n_chroma: int = 12,
+               sample_rate: float = 22050,
+               tuning: float = 0.0,
+               base_c: bool = True,
+               trainable: bool = False,
+               **spectrogram_kwargs) -> Pipeline:
+    """``Pipeline(STFT, ComplexNorm(2), ApplyFilterbank(chroma))`` factory
+    (torchaudio's ``ChromaSpectrogram`` capability)."""
+    power = spectrogram_kwargs.pop("power", 2.0)
+    spec = Spectrogram(power=power, **spectrogram_kwargs)
+    fb = ChromaFilterbank(n_chroma=n_chroma, sample_rate=sample_rate,
+                          num_bins=spec[0].num_freqs, tuning=tuning,
+                          base_c=base_c)
     return Pipeline(*spec, ApplyFilterbank(fb, trainable=trainable))

@@ -1,5 +1,8 @@
-"""Functional core of the PyTorch port (the mel front end's slices and
-the inverse path: ISTFT, Griffin-Lim, mel inversion, the vocoder ops).
+"""Functional core of the PyTorch port (the mel front end's slices, the
+inverse path: ISTFT, Griffin-Lim, mel inversion, the vocoder ops; and the
+ops with no recurrence of their own: masking, deltas and emphasis,
+spectral descriptors, chroma, CQT, pitch detection, effects, convolution,
+DSP synthesis, metrics, beamforming).
 
 Module names follow ``torchaudio_contrib_tpu.ops``; each module is the
 counterpart of the JAX module of the same name.
@@ -45,6 +48,24 @@ from .melinv import (create_inverse_mel_filter, create_inverse_bark_filter,
                      mel_to_linear, mel_to_audio)
 from .resample import resample
 from .pitch import pitch_shift
+from .augment import (mask_along_axis, mask_along_axis_iid,
+                      time_mask, freq_mask)
+from .features import compute_deltas, preemphasis, deemphasis
+from .spectral import (spectral_centroid, spectral_bandwidth,
+                       spectral_rolloff, spectral_flatness,
+                       zero_crossing_rate)
+from .chroma import create_chroma_filter, chroma_filterbank
+from .cqt import cqt_frequencies, create_cqt_kernel, cqt, pseudo_cqt
+from .pitchdetect import detect_pitch_frequency
+from .effects import (fade, gain, dither, dcshift, sliding_window_cmn,
+                      add_noise, speed, apply_codec)
+from .convolve import convolve, fftconvolve
+from .dsp import (oscillator_bank, adsr_envelope, extend_pitch,
+                  sinc_impulse_response, frequency_impulse_response,
+                  filter_waveform, exp_sigmoid)
+from .metrics import snr, si_snr, frechet_distance
+from .beamform import (psd, mvdr_weights_souden, mvdr_weights_rtf,
+                       rtf_evd, rtf_power, apply_beamforming)
 
 griffinlim = griffin_lim
 
@@ -69,4 +90,20 @@ __all__ = [
     "create_inverse_mel_filter", "create_inverse_bark_filter",
     "mel_to_linear", "mel_to_audio",
     "resample", "pitch_shift",
+    "mask_along_axis", "mask_along_axis_iid", "time_mask", "freq_mask",
+    "compute_deltas", "preemphasis", "deemphasis",
+    "spectral_centroid", "spectral_bandwidth", "spectral_rolloff",
+    "spectral_flatness", "zero_crossing_rate",
+    "create_chroma_filter", "chroma_filterbank",
+    "cqt_frequencies", "create_cqt_kernel", "cqt", "pseudo_cqt",
+    "detect_pitch_frequency",
+    "fade", "gain", "dither", "dcshift", "sliding_window_cmn",
+    "add_noise", "speed", "apply_codec",
+    "convolve", "fftconvolve",
+    "oscillator_bank", "adsr_envelope", "extend_pitch",
+    "sinc_impulse_response", "frequency_impulse_response",
+    "filter_waveform", "exp_sigmoid",
+    "snr", "si_snr", "frechet_distance",
+    "psd", "mvdr_weights_souden", "mvdr_weights_rtf", "rtf_evd",
+    "rtf_power", "apply_beamforming",
 ]

@@ -4,9 +4,11 @@ Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``), one
 ``nvcc`` per source, all started together (the shared headers
 ``csrc/*.cuh`` are found beside them), and linked into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build
-happens at first use, into ``_build/`` beside the package sources, under a
-name derived from the sources' hash, so an edited source is rebuilt and
-an unchanged one is loaded as it is.  There is no
+happens at first use, into the directory :func:`build_dir` names
+(``$TAC_TORCH_BUILD_DIR`` when set, so that an installed, read-only
+package can build its kernels elsewhere; else ``_build/`` beside the
+package sources), under a name derived from the sources' hash, so an
+edited source is rebuilt and an unchanged one is loaded as it is.  There is no
 fallback: if ``nvcc`` is missing or the build fails, :func:`load` raises
 with the compiler's output.
 
@@ -23,17 +25,26 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load", "build_info"]
+__all__ = ["load", "build_info", "build_dir"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
+BUILD_DIR_ENV = "TAC_TORCH_BUILD_DIR"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
 _info: dict = {}
+
+
+def build_dir() -> Path:
+    """Where the kernel library is built and looked for:
+    ``$TAC_TORCH_BUILD_DIR`` when it is set and not empty, else
+    ``_build/`` inside the package.  Read at each call."""
+    env = os.environ.get(BUILD_DIR_ENV)
+    return Path(env).expanduser() if env else _BUILD
 
 
 def _find_nvcc() -> str:
@@ -103,13 +114,14 @@ def _build_and_load() -> ctypes.CDLL:
     for path in srcs + headers:
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    so = _BUILD / f"libtac_kernels_{h.hexdigest()[:16]}.so"
+    out_dir = build_dir()
+    so = out_dir / f"libtac_kernels_{h.hexdigest()[:16]}.so"
     log = so.with_suffix(".log")
     built = False
     seconds = 0.0
     if not so.exists():
         nvcc = _find_nvcc()
-        _BUILD.mkdir(parents=True, exist_ok=True)
+        out_dir.mkdir(parents=True, exist_ok=True)
         tag = f"{os.getpid()}.tmp"
         objs = [so.with_name(f"{src.stem}.{tag}.o") for src in srcs]
         tmp = so.with_name(f"{so.name}.{tag}")

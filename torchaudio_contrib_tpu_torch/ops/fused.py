@@ -24,9 +24,15 @@ kernels of ``csrc/fused_mel_bwd.cu`` (whose frame-gradient passes are one
 kernel around the inverse FFT on the first route, two passes around the
 transposed product on the second) and the overlap-add onto the waveform.
 On a CPU tensor it runs :func:`_reference`, the plain PyTorch chain the
-kernels compute, with autograd.  There is no other fallback: a CUDA tensor
-the kernels cannot take raises, and so does a failed launch on either
-route.
+kernels compute, with autograd.  So does a call with ``power != 2`` on any
+device, as in the JAX package (its ``_kernel_eligible``): the rule is read
+from the arguments before anything is launched.  There is no other
+fallback: a CUDA tensor the kernels cannot take raises, and so does a
+failed build or launch on either route.
+
+The kernels put the stream (clip) index on a grid dimension of at most
+65 535 blocks; the wrappers launch larger batches as slabs of that many
+(:func:`_slabs`), one launch counted per call.
 
 ``KERNEL_LAUNCHES`` counts the forward kernels' launches,
 ``BWD_KERNEL_LAUNCHES`` the backward's, and ``BWD_DFRAMES_LAUNCHES`` those
@@ -71,7 +77,7 @@ _FREQ_TILE = 64     # onesided bins per frequency tile
 _K_TILE = 16        # fft samples per K step (basis rows pad to this)
 _MEL_TILE = 64      # mel columns per step (filterbank columns pad to this)
 _MAX_MELS = 704     # the (frames, mels) accumulator must fit shared memory
-_MAX_STREAMS = 65535  # grid.y
+_MAX_GRID_Y = 65535  # streams (clips) per launch: grid.y (grid.z)
 _DFB_BLOCKS = 264   # the dFB pass splits the rows to fill ~2 waves of SMs
 # csrc/fft_smem.cuh: the frame lengths the FFT kernels are built for
 # (powers of two; the complex transform has half the length), and the
@@ -107,6 +113,12 @@ def fused_mel_supported(fft_length: int, hop_length: int) -> bool:
     and any positive hop (frames are read from the waveform at any
     stride; ragged edges are masked in the kernel)."""
     return fft_length >= 2 and hop_length > 0
+
+
+def _slabs(n: int, size: int = _MAX_GRID_Y):
+    """``(start, stop)`` ranges of at most ``size`` that cover ``range(n)``
+    in order: the streams (clips) of one launch each."""
+    return [(s, min(s + size, n)) for s in range(0, n, size)]
 
 
 def _fft_kernel_supported(fft_length: int) -> bool:
@@ -513,9 +525,9 @@ def _fused_mel_fwd_cuda(x2, filterbank, fft_length, hop_length, window,
     if num_mels > _MAX_MELS:
         raise ValueError(f"num_mels={num_mels} exceeds the kernel's "
                          f"{_MAX_MELS}")
-    if streams > _MAX_STREAMS or n_samples >= 2 ** 31:
+    if n_samples >= 2 ** 31:
         raise ValueError(f"input {tuple(x2.shape)} exceeds the kernel's "
-                         f"grid ({_MAX_STREAMS} streams, 2**31 samples)")
+                         f"2**31 samples a stream")
     n_frames = 1 + (n_samples - fft_length) // hop_length
     win_key = _hashable_window(window)
     ft_count = _cdiv(fft_length // 2 + 1, _FREQ_TILE)
@@ -529,24 +541,21 @@ def _fused_mel_fwd_cuda(x2, filterbank, fft_length, hop_length, window,
     db_off = _LN10_INV_10 * math.log(max(amin, db_ref)) if to_db else 0.0
     lib = _kernel_lib()
     tail = (num_mels, m_pad, int(to_db), float(amin), float(db_off))
+    if route == "fft":
+        ops = _fft_consts_on(x2.device, fft_length, win_key, win_length)
+        entry, mid = lib.tac_fused_mel_fft_fwd, ()
+    else:
+        ops = _basis_on(x2.device, fft_length, win_key, win_length)[:1]
+        entry, mid = lib.tac_fused_mel_fwd, (ft_count,)
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
-        if route == "fft":
-            w, tw = _fft_consts_on(x2.device, fft_length, win_key, win_length)
-            rc = lib.tac_fused_mel_fft_fwd(
-                x2.data_ptr(), w.data_ptr(), tw.data_ptr(), fbp.data_ptr(),
-                out.data_ptr(), reim.data_ptr() if save_spec else None,
-                streams, n_samples, fft_length, hop_length, n_frames, *tail,
-                stream)
-        else:
-            basis, _, _ = _basis_on(x2.device, fft_length, win_key,
-                                    win_length)
-            rc = lib.tac_fused_mel_fwd(
-                x2.data_ptr(), basis.data_ptr(), fbp.data_ptr(),
-                out.data_ptr(), reim.data_ptr() if save_spec else None,
-                streams, n_samples, fft_length, hop_length, n_frames,
-                ft_count, *tail, stream)
-    _launch_check(lib, rc, f"forward ({route})")
+        for s0, s1 in _slabs(streams):
+            rc = entry(x2[s0].data_ptr(), *(t.data_ptr() for t in ops),
+                       fbp.data_ptr(), out[s0].data_ptr(),
+                       reim[s0].data_ptr() if save_spec else None,
+                       s1 - s0, n_samples, fft_length, hop_length, n_frames,
+                       *mid, *tail, stream)
+            _launch_check(lib, rc, f"forward ({route})")
     KERNEL_LAUNCHES += 1
     FFT_KERNEL_LAUNCHES += int(route == "fft")
     return out, reim
@@ -753,11 +762,14 @@ def fused_melspectrogram(waveform: torch.Tensor,
     ``Melspectrogram()`` pipeline.
 
     On a CPU tensor this runs the plain chain (:func:`_reference`), with
-    autograd.  On a CUDA tensor it launches the kernels, and ``power``
-    must be 2.  Gradients flow to the waveform and to the filterbank
-    through the backward kernel whenever either requires grad; under
-    ``torch.inference_mode()`` or ``torch.no_grad()`` the forward runs
-    without its residual.
+    autograd.  On a CUDA tensor it launches the kernels when ``power`` is 2
+    and computes the plain chain on the card for any other ``power``, as the
+    JAX package does on every backend; that rule is decided from the
+    arguments, before any launch, and such a call counts no launch.  A
+    failed build or launch raises.  Gradients flow to the waveform and to
+    the filterbank through the backward kernel whenever either requires
+    grad; under ``torch.inference_mode()`` or ``torch.no_grad()`` the
+    forward runs without its residual.
     """
     precision = resolve_precision(precision, fft_length,
                                   filterbank.shape[-1])
@@ -777,14 +789,11 @@ def fused_melspectrogram(waveform: torch.Tensor,
     if n_samples < fft_length:
         raise ValueError(f"input too short: {n_samples} < "
                          f"fft_length={fft_length}")
-    if waveform.device.type == "cpu":
+    if waveform.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {waveform.device}")
+    if waveform.device.type == "cpu" or power != 2.0:
         return _reference(waveform, filterbank, fft_length, hop_length,
                           window, power, to_db, db_ref, amin, win_length)
-    if waveform.device.type != "cuda":
-        raise ValueError(f"unsupported device {waveform.device}")
-    if power != 2.0:
-        raise ValueError("the fused kernel computes power=2 only; use "
-                         "melspectrogram() for other powers")
     return _fused_apply(waveform.to(torch.float32),
                         filterbank.to(torch.float32), fft_length,
                         hop_length, window, win_length, to_db, db_ref, amin,

@@ -11,6 +11,8 @@ in its epilogue.  One call into the library runs all ``n_iter`` iterations
 on torch's current stream.  On a CPU tensor the same solve runs as
 :func:`_gl_solve_plain`, the plain PyTorch version in the kernels' layouts.
 There is no other fallback: a CUDA tensor the kernels cannot take raises.
+The kernels hold the clip index on a grid dimension of at most 65 535
+blocks; a larger batch runs as slabs of clips, one launch counted per call.
 
 Two routes of the kernels, by ``fft_length`` alone (the rule of the fused
 mel kernels, :func:`.fused._fft_kernel_supported`): a power of two from 256
@@ -58,8 +60,9 @@ import torch.nn.functional as F
 
 from . import _cuda
 from .fused import (_basis_on, _cdiv, _round_up, _hashable_window,
-                    _fft_consts_on, _route_for, _stockham_fft, _to_tiles,
-                    _FFT_MAX, _FFT_MIN, _FRAME_TILE, _FREQ_TILE, _K_TILE)
+                    _fft_consts_on, _route_for, _slabs, _stockham_fft,
+                    _to_tiles, _FFT_MAX, _FFT_MIN, _FRAME_TILE, _FREQ_TILE,
+                    _K_TILE)
 from .stft import (_idft_matrices, _on, _resolve_window, _overlap_add,
                    frame_signal)
 from .windows import cola_window_sum
@@ -73,7 +76,6 @@ GL_FFT_LAUNCHES = 0
 _FBT = _FREQ_TILE       # onesided bins per frequency tile (the analysis
                         # basis is the fused mel kernels' basis)
 _N_TILE = 64            # synthesis output samples per block
-_MAX_CLIPS = 65535      # grid.z (grid.y on the FFT route)
 
 # The stage switches of csrc/fused_gl.cu, for timing attribution: only
 # "full" computes Griffin-Lim.
@@ -373,10 +375,9 @@ def _gl_solve_cuda(state0, magT, basis_a, basis_b, inv_env, fft_length: int,
         raise ValueError(f"fft_length={fft_length}, hop_length={hop_length},"
                          f" n_frames={rows} outside the kernels' rule "
                          f"({RULE})")
-    if (bc > _MAX_CLIPS or rows * max(n_pad, ft * 2 * _FBT) >= 2 ** 31
-            or n_samples >= 2 ** 31):
-        raise ValueError(f"{bc} clips of {rows} frames exceed the kernels' "
-                         f"grid ({_MAX_CLIPS} clips, 2**31 elements a clip)")
+    if rows * max(n_pad, ft * 2 * _FBT) >= 2 ** 31 or n_samples >= 2 ** 31:
+        raise ValueError(f"clips of {rows} frames exceed the kernels' "
+                         f"2**31 elements a clip")
     if n_iter < 0 or not 0 <= momentum < 1:
         raise ValueError(f"n_iter={n_iter}, momentum={momentum}")
     state = state0.clone()
@@ -388,23 +389,27 @@ def _gl_solve_cuda(state0, magT, basis_a, basis_b, inv_env, fft_length: int,
     fr = scratch((bc, rows, n_pad), dtype=torch.float32, device=state.device)
     xv = scratch((bc, n_samples), dtype=torch.float32, device=state.device)
     lib = _kernel_lib()
-    head = (state.data_ptr(), prev.data_ptr(), magT.data_ptr(),
-            basis_a.data_ptr(), basis_b.data_ptr(), inv_env.data_ptr(),
-            fr.data_ptr(), xv.data_ptr(), bc, rows, fft_length, hop_length,
-            ft)
+    mid = (rows, fft_length, hop_length, ft)
     tail = (int(tile_major), int(n_iter), float(momentum),
             VARIANTS.index(variant))
+    if route == "dft":
+        tail = (n_pad,) + tail
+    entry = (lib.tac_fused_gl_solve_fft if route == "fft"
+             else lib.tac_fused_gl_solve)
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
-        if route == "fft":
-            rc = lib.tac_fused_gl_solve_fft(*head, *tail, stream)
-        else:
-            rc = lib.tac_fused_gl_solve(*head, n_pad, *tail, stream)
-    if rc != 0:
-        raise RuntimeError(f"fused Griffin-Lim kernels ({route.upper()} "
-                           f"route) failed to launch: "
-                           f"{lib.tac_error_string(rc).decode()} "
-                           f"(cudaError {rc})")
+        # the clips are independent: a slab of them is one solve
+        for c0, c1 in _slabs(bc):
+            rc = entry(state[c0].data_ptr(), prev[c0].data_ptr(),
+                       magT[c0].data_ptr(), basis_a.data_ptr(),
+                       basis_b.data_ptr(), inv_env.data_ptr(),
+                       fr[c0].data_ptr(), xv[c0].data_ptr(), c1 - c0, *mid,
+                       *tail, stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"fused Griffin-Lim kernels ({route.upper()} route) "
+                    f"failed to launch: {lib.tac_error_string(rc).decode()} "
+                    f"(cudaError {rc})")
     GL_KERNEL_LAUNCHES += 1
     GL_TILE_MAJOR_LAUNCHES += int(tile_major)
     GL_FFT_LAUNCHES += int(route == "fft")

@@ -96,7 +96,8 @@ def mfcc(waveform: torch.Tensor,
     STFT → power → mel → dB(power) → DCT-II, differentiable end to end.
 
     ``use_fused=True`` computes the log-mel with the fused op
-    (``precision`` as in :func:`~.fused.fused_melspectrogram`).
+    (``precision`` as in :func:`~.fused.fused_melspectrogram`); the power
+    is always 2 here, so on a CUDA tensor that always launches the kernel.
     ``top_db`` is incompatible with it and raises, as does ``precision``
     without ``use_fused``.
     """
