@@ -1,4 +1,5 @@
-"""GPU smoke run of the PyTorch port's serving, training and inverse paths.
+"""GPU smoke run of the PyTorch port's serving, training and inverse paths,
+its corpus path and the IIR family.
 
     python3 chip_smoke.py
 
@@ -94,7 +95,31 @@ imports no JAX.  Phases, each printing its lines:
     emphasis, spectral descriptors, effects, convolution, metrics, chroma,
     CQT, pitch detection, DSP synthesis, beamforming; the torchaudio-named
     transforms) on CUDA tensors against the same call on a CPU copy,
-    ``deemphasis`` on a 10 s clip among them.
+    ``deemphasis`` on a 10 s clip among them;
+19. the IIR family and the ops beside it at full width, each part on
+    CUDA tensors against the same call on a CPU copy (1e-5 of peak, 1e-4
+    for scans and log-domain outputs, integers equal), timed by CUDA
+    events with its peak memory: (a) config 3's batch (32 x 10 s at 16
+    kHz) through ``Highpass(80)`` -> ``Equalizer(1000, +3 dB)`` ->
+    ``Lowpass(7000)`` -> ``FusedMelspectrogram`` (fft 512, hop 128, 64
+    mels) between a reset and a read of the counters (the fused forward
+    once, on the FFT route), then ``Vad(mode="trim")`` and ``vad_onset``
+    on the batch; (b) ``loudness`` and ``Loudness`` on 16 x 30 s stereo at
+    48 kHz against a float64 BS.1770 chain (1e-3 LU); (c) a biquad through
+    ``lfilter`` and ``filtfilt`` on config 2's batch, two rows and the
+    gradient against float64 scipy, one backward's peak memory, and the
+    same doubling in float32 for comparison; (d) ``overdrive``,
+    ``contrast``, ``phaser`` at decay 0.4 and 0.9 and ``flanger`` at regen
+    0 and 50 (linear and quadratic) on 8 x 10 s stereo at 44.1 kHz, one
+    row of each feedback path against a float64 loop, the pointer-jumping
+    rounds and the flanger's block count; (e) ``compute_kaldi_pitch`` on
+    8 x 10 s at 16 kHz (pitch tracks equal on voiced clips; on speech-like
+    clips at most 2 % of a clip's frames unequal); (f) ``compliance.kaldi``
+    ``fbank`` and ``mfcc`` on config 3's clips; (g) ``simulate_rir_ism``
+    (6 x 5 x 3 m, 8 mics, order 10; float32 delays of thousands of samples,
+    so 1e-4, also against a float64 NumPy build; two card runs' spread
+    printed), ``ray_tracing`` (10 000 rays) and one response applied
+    through ``fftconvolve``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -151,6 +176,22 @@ ISTFT_ATOL = 1e-4          # config 4 round trip, max abs error
 # phases summed along time in another order.
 SCAN_PARITY = 1e-4
 VOCODER_PARITY = 1e-2
+# Phase 19, the IIR family at full width, (batch, channels, samples, rate):
+# (a) config 3's batch through three biquads into the fused forward, and
+# the VAD on it; (b) 30 s stereo at 48 kHz through the BS.1770 meter; (c)
+# config 2's batch through a biquad and filtfilt; (d) 10 s stereo at 44.1
+# kHz through the effects; (e) Kaldi pitch, (batch, samples, rate); (f)
+# the Kaldi fbank and MFCC on config 3's clips; (g) a 6 x 5 x 3 m room.
+IIR = dict(pre=(32, 1, 160000, 16000), loud=(16, 2, 1440000, 48000),
+           filt=(32, 1, 661500, 22050), fx=(8, 2, 441000, 44100),
+           pitch=(8, 160000, 16000), kaldi=(32, 160000, 16000),
+           room=dict(room=(6.0, 5.0, 3.0), mics=8, max_order=10,
+                     rays=10000))
+LU_ATOL = 1e-3          # loudness, card vs float64 chain and CPU copy, LU
+# Kaldi pitch on speech-like clips, card vs CPU copy: the most of one
+# clip's frames whose Viterbi state may differ (1e-6 of noise moved up to
+# 0.8 % of a clip's frames on the CPU alone)
+PITCH_FLIP_SHARE = 0.02
 # Published peaks of one H100 SXM (data sheet, 700 W): FP32 outside the
 # tensor cores, and HBM3.
 PEAK_FP32 = 67e12
@@ -1654,6 +1695,494 @@ def phase_ops_on_card(gen: torch.Generator) -> None:
           "max|cuda-cpu|/max|cpu|): " + ", ".join(lines), flush=True)
 
 
+def _on_card(fn, reps: int = 3) -> tuple:
+    """``(output, ms, peak MiB)``: the output of one call of ``fn`` on the
+    card, the memory it took above what was allocated before it, and the
+    median of ``reps`` more calls by CUDA events (with ``reps=0``, that
+    first call's own time)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    ms = _time_ms(fn, 0, reps) if reps else start.elapsed_time(stop)
+    return out, ms, peak
+
+
+def _speech_batch(gen: torch.Generator, n: int, samples: int,
+                  sr: int) -> torch.Tensor:
+    """``(n, samples)`` clips: a noise floor, and from an onset that moves
+    by 0.5 s from clip to clip (none in every 8th) a voiced 120 Hz
+    harmonic tone with a 3 Hz syllable envelope."""
+    t = torch.arange(samples, dtype=torch.float64) / sr
+    voice = sum(torch.sin(2 * math.pi * 120.0 * k * t) / k
+                for k in range(1, 9))
+    voice = voice * 0.5 * (1 + torch.sin(2 * math.pi * 3.0 * t
+                                         - math.pi / 2))
+    x = 0.01 * torch.randn((n, samples), generator=gen, dtype=torch.float64)
+    for i in range(n):
+        if i % 8 != 7:
+            on = int((0.5 + 0.5 * (i % 8)) * sr)
+            x[i, on:] += 0.3 * voice[:samples - on]
+    return x.float()
+
+
+def _voiced_batch(gen: torch.Generator, n: int, samples: int,
+                  sr: int) -> tuple:
+    """``(n, samples)`` voiced clips and their ``f0``: equal harmonics up
+    to 900 Hz of an f0 on Kaldi pitch's lag grid, from 90 Hz up, and a
+    little noise.  Pure tones make near-ties: the NCCF peak of one
+    sinusoid is flat enough that 1e-6 of noise moves some frames' states
+    on the CPU alone (``tests/test_torch_kaldipitch.py``); the harmonics
+    sharpen the peak, and the same noise moves none."""
+    from torchaudio_contrib_tpu_torch.ops.kaldipitch import _lag_grid
+    hz = 4000.0 / _lag_grid(10, 80, 0.005)
+    f0 = torch.tensor([hz[np.abs(hz - (90.0 + 25.0 * i)).argmin()]
+                       for i in range(n)], dtype=torch.float64)
+    t = torch.arange(samples, dtype=torch.float64) / sr
+    x = torch.zeros((n, samples), dtype=torch.float64)
+    for i, f in enumerate(f0.tolist()):
+        for k in range(1, int(900 // f) + 1):
+            x[i] += torch.sin(2 * math.pi * k * f * t + 0.7 * k)
+    x = 0.3 * x / x.abs().amax(dim=1, keepdim=True)
+    return (x + 1e-3 * torch.randn((n, samples), generator=gen,
+                                   dtype=torch.float64)).float(), f0
+
+
+def _bs1770_f64(x: np.ndarray, sr: float) -> np.ndarray:
+    """BS.1770-4 integrated loudness of ``x (..., ch, t)`` in float64:
+    SciPy's ``lfilter`` for the K-weighting, NumPy for the gates (the
+    chain of ``tests/test_torch_loudness_vad.py``)."""
+    import scipy.signal as sps
+    from torchaudio_contrib_tpu_torch.ops.loudness import _k_weighting_coeffs
+    (b1, a1), (b2, a2) = _k_weighting_coeffs(sr)
+    y = sps.lfilter(b2, a2, sps.lfilter(b1, a1, np.asarray(x, np.float64)))
+    block = int(round(0.4 * sr))
+    hop = block // 4
+    z = np.stack([np.mean(y[..., i * hop:i * hop + block] ** 2, -1)
+                  for i in range(1 + (y.shape[-1] - block) // hop)], -1)
+    g = np.ones(z.shape[-2])
+    g[3:] = 1.41
+    zw = np.einsum("c,...cn->...n", g, z)
+    lb = -0.691 + 10 * np.log10(np.maximum(zw, 1e-30))
+    gated = lb > -70.0
+    mean = (zw * gated).sum(-1) / np.maximum(gated.sum(-1), 1)
+    rel = -0.691 + 10 * np.log10(np.maximum(mean, 1e-30)) - 10.0
+    gated = gated & (lb > rel[..., None])
+    mean = (zw * gated).sum(-1) / np.maximum(gated.sum(-1), 1)
+    return -0.691 + 10 * np.log10(np.maximum(mean, 1e-30))
+
+
+def _rir_f64(room, source, mics, max_order: int, absorption: float,
+             sr: float = 16000.0, c: float = 343.0,
+             taps: int = 81) -> np.ndarray:
+    """Image-source responses ``(n_mics, length)`` in float64 with NumPy:
+    every image of order <= ``max_order`` of a shoebox room with one
+    absorption on all walls, its Hann-windowed fractional-delay sinc added
+    at each mic by ``np.add.at``; the length is the port's default."""
+    room, source = np.asarray(room, np.float64), np.asarray(source)
+    mics = np.asarray(mics, np.float64)
+    r = np.arange(-max_order, max_order + 1)
+    n = np.stack(np.meshgrid(r, r, r, indexing="ij"), -1).reshape(-1, 1, 3)
+    p = np.stack(np.meshgrid([0, 1], [0, 1], [0, 1], indexing="ij"),
+                 -1).reshape(1, -1, 3)
+    n, p = (a.reshape(-1, 3) for a in np.broadcast_arrays(n, p))
+    hits = np.abs(n - p) + np.abs(n)
+    keep = hits.sum(-1) <= max_order
+    att = np.sqrt(1.0 - absorption) ** hits[keep].sum(-1)
+    img = (1 - 2 * p[keep]) * source + 2 * n[keep] * room
+    dist = np.maximum(np.linalg.norm(img[:, None] - mics[None], axis=-1),
+                      1e-3)
+    delay = dist * sr / c
+    half = taps // 2
+    length = int(math.ceil(np.linalg.norm(room * (2 * max_order + 2))
+                           * sr / c) + taps)
+    base = np.floor(delay)
+    k = np.arange(-half, half + 1)
+    arg = k - (delay - base)[..., None]
+    win = np.where(np.abs(arg) <= half + 1,
+                   0.5 * (1 + np.cos(np.pi * arg / (half + 1))), 0.0)
+    val = np.sinc(arg) * win * (att[:, None] / (4 * np.pi * dist))[..., None]
+    idx = base.astype(np.int64)[..., None] + k
+    out = np.zeros((mics.shape[0], length))
+    for m in range(mics.shape[0]):
+        ok = (idx[:, m] >= 0) & (idx[:, m] < length)
+        np.add.at(out[m], idx[:, m][ok], val[:, m][ok])
+    return out
+
+
+def _phaser_row_f64(x: list, sr: float, decay: float) -> list:
+    """The phaser on one channel, sample by sample in float64 (the ring
+    buffer of ``tests/test_modfx.py::_phaser_oracle``, default
+    parameters, with Python floats)."""
+    from torchaudio_contrib_tpu_torch.ops.modfx import _wave_table
+    d = int(3.0 * 0.001 * sr + 0.5)
+    m = int(sr / 0.5 + 0.5)
+    mod = _wave_table("sine", m, 1.0, float(d), math.pi / 2.0,
+                      as_int=True).tolist()
+    buf, out = [0.0] * d, []
+    delay_pos = mod_pos = 0
+    for xi in x:
+        idx = int((delay_pos + mod[mod_pos]) % d)
+        mod_pos = (mod_pos + 1) % m
+        delay_pos = (delay_pos + 1) % d
+        temp = xi * 0.4 + buf[idx] * decay
+        buf[delay_pos] = temp
+        out.append(temp * 0.74)
+    return out
+
+
+def _flanger_row_f64(x: list, sr: float, c: int, n_ch: int, regen: float,
+                     interpolation: str) -> list:
+    """The flanger on channel ``c`` of ``n_ch``, sample by sample in
+    float64 (the ring buffer of ``tests/test_modfx.py::_flanger_oracle``,
+    default delay, depth, width, speed and phase, with Python floats)."""
+    from torchaudio_contrib_tpu_torch.ops.modfx import _wave_table
+    delay_gain = 0.71
+    in_gain = 1.0 / (1.0 + delay_gain)
+    delay_gain = delay_gain / (1.0 + delay_gain)
+    fb = regen / 100.0
+    delay_gain *= 1.0 - abs(fb)
+    size = int(2.0 * 0.001 * sr + 0.5) + 2
+    lfo_len = max(int(sr / 0.5 + 0.5), 1)
+    lfo = _wave_table("sine", lfo_len, 0.0, size - 2.0, 3.0 * math.pi / 2.0,
+                      as_int=False).tolist()
+    off = int(np.round(25.0 / 100.0 * lfo_len * c / n_ch))
+    buf, out, pos = [0.0] * size, [], 0
+    for i, xi in enumerate(x):
+        pos = (pos + size - 1) % size
+        dly = lfo[(i + off) % lfo_len]
+        int_d = int(math.floor(dly))
+        frac = dly - int_d
+        a = buf[(pos + int_d) % size]
+        b = buf[(pos + int_d + 1) % size]
+        if interpolation == "linear":
+            delayed = a + (b - a) * frac
+        else:
+            cc = buf[(pos + int_d + 2) % size]
+            delayed = (a * (frac - 1) * (frac - 2) / 2
+                       - b * frac * (frac - 2) + cc * frac * (frac - 1) / 2)
+        buf[pos] = xi + delayed * fb
+        out.append(xi * in_gain + delayed * delay_gain)
+    return out
+
+
+def _iir_pipeline(gen: torch.Generator, card: str) -> int:
+    """Phase 19 (a): config 3's batch through ``Highpass(80)`` →
+    ``Equalizer(1000, +3 dB)`` → ``Lowpass(7000)`` → the fused forward
+    (fft 512, hop 128, 64 mels), between a reset and a read of the
+    counters; then ``Vad(mode="trim")`` and ``vad_onset`` on the batch.
+    Returns the fused forward's launches."""
+    from torchaudio_contrib_tpu_torch import models, ops
+    from torchaudio_contrib_tpu_torch.models import transforms as tr
+    from torchaudio_contrib_tpu_torch.ops import iir
+    b, c, t, sr = IIR["pre"]
+    x = _speech_batch(gen, b, t, sr)[:, None, :]
+    pipe = models.Pipeline(
+        tr.Highpass(sr, 80.0), tr.Equalizer(sr, 1000.0, 3.0),
+        tr.Lowpass(sr, 7000.0),
+        models.FusedMelspectrogram(num_mels=64, sample_rate=sr,
+                                   fft_length=512, hop_length=128))
+    pipe_c, xc = copy.deepcopy(pipe).cuda(), x.cuda()
+    with torch.inference_mode():
+        _reset_counts()
+        out, _, peak = _on_card(lambda: pipe_c(xc), reps=0)
+        launches, fft_launches = _counts()[0], _fft_counts()[0]
+        ms = _time_ms(lambda: pipe_c(xc), 1, 5)
+        filt_ms = _time_ms(lambda: pipe_c[:3](xc), 1, 5)
+        want = pipe(x)
+        err = _rel(out.cpu(), want)
+        onset, vad_ms, vad_peak = _on_card(lambda: ops.vad_onset(xc, sr))
+        (trim, valid), trim_ms, trim_peak = _on_card(
+            lambda: tr.Vad(sr, mode="trim")(xc))
+        onset_cpu = ops.vad_onset(x, sr)
+        trim_cpu, valid_cpu = tr.Vad(sr, mode="trim")(x)
+    n_meas = 1 + (t - 2 * sr // 20) // (sr // 20)
+    print(f"IIR pipeline [{card}]: {tuple(x.shape)} at {sr} Hz, Highpass(80)"
+          f" -> Equalizer(1000, +3 dB) -> Lowpass(7000) -> fused log-mel "
+          f"(fft 512, hop 128, 64 mels) {tuple(out.shape)}: {ms:.3f} ms "
+          f"(the three biquads {filt_ms:.3f}, {iir._doubling_steps(t)} "
+          f"doubling steps each), peak {peak:.0f} MiB; fused launches (all,"
+          f" FFT route) {launches}, {fft_launches}; vs the CPU copy "
+          f"max|diff|/max|cpu| {err:.2e}", flush=True)
+    print(f"IIR pipeline VAD: vad_onset {vad_ms:.3f} ms (peak "
+          f"{vad_peak:.0f} MiB), Vad(mode='trim') {trim_ms:.3f} ms (peak "
+          f"{trim_peak:.0f} MiB), "
+          f"{n_meas} noise-floor steps (one per measure frame); onsets "
+          f"{onset.flatten().tolist()}", flush=True)
+    _check(launches == fft_launches == 1,
+           f"IIR pipeline: fused launches {launches}, FFT route "
+           f"{fft_launches}")
+    _check(bool(torch.isfinite(out).all()) and err <= SCAN_PARITY,
+           f"IIR pipeline vs CPU: {err}")
+    _check(torch.equal(onset.cpu(), onset_cpu)
+           and torch.equal(valid.cpu(), valid_cpu)
+           and torch.equal(trim.cpu(), trim_cpu),
+           f"VAD on the card: {onset.flatten().tolist()} vs CPU "
+           f"{onset_cpu.flatten().tolist()}")
+    no_voice = onset_cpu.flatten()[7::8]
+    voiced = torch.cat([onset_cpu.flatten()[k::8] for k in range(7)])
+    _check(bool((no_voice == t).all()) and bool((voiced < t).all()),
+           f"VAD onsets: {onset_cpu.flatten().tolist()}")
+    return launches
+
+
+def _iir_loudness(gen: torch.Generator, card: str) -> None:
+    """Phase 19 (b): ``loudness`` and ``Loudness`` on 30 s stereo at
+    48 kHz against the float64 chain and the CPU copy."""
+    from torchaudio_contrib_tpu_torch import ops
+    from torchaudio_contrib_tpu_torch.models import transforms as tr
+    b, c, t, sr = IIR["loud"]
+    level = 0.1 * 10.0 ** (-3.0 * (torch.arange(b) % 8) / 20.0)
+    x = torch.randn((b, c, t), generator=gen) * level[:, None, None]
+    x[::2, :, 2 * t // 3:] *= 1e-4            # a gated quiet third
+    xc = x.cuda()
+    lk, ms, peak = _on_card(lambda: ops.loudness(xc, sr))
+    layer = tr.Loudness(sr)(xc)
+    ref = _bs1770_f64(x.numpy(), sr)
+    cpu = ops.loudness(x, sr)
+    err_ref = float(np.abs(lk.cpu().double().numpy() - ref).max())
+    err_cpu = (lk.cpu() - cpu).abs().max().item()
+    print(f"loudness [{card}]: {tuple(x.shape)} at {sr} Hz: {ms:.3f} ms, "
+          f"peak {peak:.0f} MiB; |card - float64 chain| {err_ref:.2e} LU, "
+          f"|card - CPU| {err_cpu:.2e} LU; LKFS {lk.cpu().tolist()[:4]}...",
+          flush=True)
+    _check(err_ref <= LU_ATOL and err_cpu <= LU_ATOL
+           and torch.equal(layer, lk),
+           f"loudness: {err_ref} LU from float64, {err_cpu} from CPU")
+
+
+def _iir_filters(gen: torch.Generator, card: str) -> None:
+    """Phase 19 (c): a biquad (RBJ high-pass at 40 Hz: poles near the unit
+    circle) through ``lfilter`` and ``filtfilt`` on config 2's batch; two
+    rows against float64 scipy, the rest against the CPU copy; one
+    backward through the doubling; the same scan in float32 for
+    comparison."""
+    import scipy.signal as sps
+    from torchaudio_contrib_tpu_torch import ops
+    from torchaudio_contrib_tpu_torch.ops import iir
+    b, c, t, sr = IIR["filt"]
+    bq, aq = iir._rbj("highpass", sr, 40.0, 0.707)
+    x = torch.randn((b, c, t), generator=gen)
+    xc = x.cuda()
+    y, ms, peak = _on_card(lambda: ops.lfilter(xc, aq, bq))
+    ff, ff_ms, ff_peak = _on_card(lambda: ops.filtfilt(xc, aq, bq))
+    err_cpu = _rel(y.cpu(), ops.lfilter(x, aq, bq))
+    ff_cpu = _rel(ff.cpu(), ops.filtfilt(x, aq, bq))
+    rows = (0, b // 2 + 1)
+    x64 = x[list(rows), 0].double().numpy()
+    ref = sps.lfilter(bq, aq, x64, axis=-1)
+    ff_ref = sps.lfilter(bq, aq, sps.lfilter(bq, aq, x64)[:, ::-1])[:, ::-1]
+    err_ref = _rel(y[list(rows), 0].cpu().double(), torch.from_numpy(ref))
+    ff_err_ref = _rel(ff[list(rows), 0].cpu().double(),
+                      torch.from_numpy(ff_ref.copy()))
+    g = torch.randn((b, c, t), generator=gen).cuda()
+
+    def fwd_bwd():
+        xg = xc.detach().requires_grad_()
+        (ops.lfilter(xg, aq, bq) * g).sum().backward()
+        return xg.grad
+
+    dx, bwd_ms, bwd_peak = _on_card(fwd_bwd)
+    g64 = g[list(rows), 0].cpu().double().numpy()
+    dref = sps.lfilter(bq, aq, g64[:, ::-1], axis=-1)[:, ::-1]
+    err_grad = _rel(dx[list(rows), 0].cpu().double(),
+                    torch.from_numpy(dref.copy()))
+    b_n, a_n = np.asarray(bq) / aq[0], np.asarray(aq) / aq[0]
+    y32, ms32, _ = _on_card(lambda: iir._recursive_part(
+        iir._fir_part(xc, b_n), a_n[1:]))
+    err32 = _rel(y32[list(rows), 0].cpu().double(), torch.from_numpy(ref))
+    print(f"lfilter [{card}]: RBJ high-pass 40 Hz on {tuple(x.shape)} at "
+          f"{sr} Hz, {iir._doubling_steps(t)} doubling steps: {ms:.3f} ms, "
+          f"peak {peak:.0f} MiB; filtfilt {ff_ms:.3f} ms, peak "
+          f"{ff_peak:.0f} MiB; forward + backward {bwd_ms:.3f} ms, peak "
+          f"{bwd_peak:.0f} MiB; two rows vs float64 scipy (max|diff|/max|ref|)"
+          f": lfilter {err_ref:.2e}, filtfilt {ff_err_ref:.2e}, gradient "
+          f"{err_grad:.2e}; vs the CPU copy: lfilter {err_cpu:.2e}, "
+          f"filtfilt {ff_cpu:.2e}; the same doubling in float32: "
+          f"{ms32:.3f} ms, {err32:.2e} from scipy", flush=True)
+    _check(err_ref <= F32_PARITY and ff_err_ref <= F32_PARITY
+           and err_grad <= F32_PARITY,
+           f"lfilter vs scipy: {err_ref}, {ff_err_ref}, grad {err_grad}")
+    _check(err_cpu <= SCAN_PARITY and ff_cpu <= SCAN_PARITY,
+           f"lfilter vs CPU: {err_cpu}, filtfilt {ff_cpu}")
+
+
+def _iir_effects(gen: torch.Generator, card: str) -> None:
+    """Phase 19 (d): the effects on 10 s stereo at 44.1 kHz against the
+    CPU copy; one row of each feedback path against a float64 loop."""
+    from torchaudio_contrib_tpu_torch import ops
+    from torchaudio_contrib_tpu_torch.ops import modfx
+    b, c, t, sr = IIR["fx"]
+    x = 0.3 * torch.randn((b, c, t), generator=gen)
+    xc = x.cuda()
+    cases = [
+        ("overdrive", lambda v: ops.overdrive(v), SCAN_PARITY, 3),
+        ("contrast", lambda v: ops.contrast(v), F32_PARITY, 3),
+        ("phaser decay 0.4 (unrolled)",
+         lambda v: ops.phaser(v, sr, decay=0.4), SCAN_PARITY, 3),
+        ("phaser decay 0.9 (pointer jumping)",
+         lambda v: ops.phaser(v, sr, decay=0.9), SCAN_PARITY, 3),
+        ("flanger regen 0", lambda v: ops.flanger(v, sr), F32_PARITY, 3),
+        ("flanger regen 50 linear",
+         lambda v: ops.flanger(v, sr, regen=50.0), SCAN_PARITY, 0),
+        ("flanger regen 50 quadratic",
+         lambda v: ops.flanger(v, sr, regen=50.0,
+                               interpolation="quadratic"), SCAN_PARITY, 0),
+    ]
+    outs, lines = {}, []
+    for name, fn, bar, reps in cases:
+        out, ms, peak = _on_card(lambda: fn(xc), reps)
+        err = _rel(out.cpu(), fn(x))
+        outs[name] = out
+        lines.append(f"{name} {ms:.3f} ms, peak {peak:.0f} MiB, {err:.1e}")
+        _check(err <= bar, f"{name} vs CPU: {err} > {bar}")
+    rounds = len(modfx._pointer_jumps(
+        modfx._phaser_lags(t, sr, 3.0, 0.5, True), 0.9))
+    blocks = {k: len(modfx._flanger_blocks(*modfx._flanger_taps(
+        c, t, sr, 0.0, 2.0, 71.0, 0.5, 25.0, "sinusoidal", k)[::2])) - 1
+        for k in ("linear", "quadratic")}
+    row = x[0, 1].double().tolist()
+    oracle = {
+        "phaser decay 0.9 (pointer jumping)": _phaser_row_f64(row, sr, 0.9),
+        "flanger regen 50 linear": _flanger_row_f64(row, sr, 1, c, 50.0,
+                                                    "linear"),
+        "flanger regen 50 quadratic": _flanger_row_f64(row, sr, 1, c, 50.0,
+                                                       "quadratic"),
+    }
+    oracle_err = {k: _rel(outs[k][0, 1].cpu().double(),
+                          torch.tensor(v, dtype=torch.float64))
+                  for k, v in oracle.items()}
+    print(f"effects [{card}]: {tuple(x.shape)} at {sr} Hz (card; "
+          f"max|cuda-cpu|/max|cpu|): " + "; ".join(lines), flush=True)
+    print(f"effects: phaser decay 0.9, {rounds} pointer-jumping rounds; "
+          f"flanger feedback, {blocks['linear']} blocks (linear), "
+          f"{blocks['quadratic']} (quadratic) of {t} samples; one row vs "
+          f"the float64 loop: " + ", ".join(
+              f"{k} {v:.1e}" for k, v in oracle_err.items()), flush=True)
+    _check(all(v <= F32_PARITY for v in oracle_err.values()),
+           f"effects vs the float64 loop: {oracle_err}")
+
+
+def _iir_features(gen: torch.Generator, card: str) -> None:
+    """Phase 19 (e), (f): Kaldi pitch on 8 x 10 s of voiced clips and of
+    speech-like clips, and the Kaldi fbank and MFCC on config 3's batch,
+    against the CPU copy."""
+    from torchaudio_contrib_tpu_torch import compliance, ops
+    b, t, sr = IIR["pitch"]
+    x, f0 = _voiced_batch(gen, b, t, sr)
+    out, ms, peak = _on_card(lambda: ops.compute_kaldi_pitch(x.cuda(), sr))
+    want = ops.compute_kaldi_pitch(x, sr)
+    err = _rel(out[..., 0].cpu(), want[..., 0])
+    track = want[:, 10:-10, 1].median(dim=1).values.double()
+    print(f"kaldi pitch [{card}]: {tuple(x.shape)} at {sr} Hz -> "
+          f"{tuple(out.shape)} ({out.shape[1]} Viterbi steps): {ms:.3f} ms, "
+          f"peak {peak:.0f} MiB; NCCF vs CPU {err:.1e}, pitch tracks equal: "
+          f"{torch.equal(out[..., 1].cpu(), want[..., 1])}; median pitch "
+          f"{[round(v, 1) for v in track.tolist()]} Hz", flush=True)
+    _check(torch.equal(out[..., 1].cpu(), want[..., 1])
+           and err <= SCAN_PARITY, f"kaldi pitch vs CPU: {err}")
+    _check(bool(((track - f0).abs() / f0 < 0.02).all()),
+           f"kaldi pitch tracks {track.tolist()}")
+    # speech-like clips (onsets, a noise floor, a 120 Hz voice): near-ties
+    # of the NCCF move a few frames' states under rounding alone
+    # (tests/test_torch_kaldipitch.py), so the share of unequal frames of
+    # each clip is bounded rather than 0
+    speech = _speech_batch(gen, b, t, sr)
+    out = ops.compute_kaldi_pitch(speech.cuda(), sr).cpu()
+    want = ops.compute_kaldi_pitch(speech, sr)
+    share = (out[..., 1] != want[..., 1]).double().mean(dim=1)
+    err = _rel(out[..., 0], want[..., 0])
+    print(f"kaldi pitch [{card}] on speech-like clips: unequal frames per "
+          f"clip {[round(v, 4) for v in share.tolist()]} (bar "
+          f"{PITCH_FLIP_SHARE}), NCCF vs CPU {err:.1e}", flush=True)
+    _check(float(share.max()) <= PITCH_FLIP_SHARE,
+           f"kaldi pitch on speech: unequal frames {share.tolist()}")
+
+    b, t, sr = IIR["kaldi"]
+    x = _speech_batch(gen, b, t, sr)
+    lines = []
+    for name in ("fbank", "mfcc"):
+        fn = getattr(compliance.kaldi, name)
+        out, ms, peak = _on_card(lambda: fn(x.cuda()))
+        err = _rel(out.cpu(), fn(x))
+        lines.append(f"{name} {tuple(out.shape)} {ms:.3f} ms, peak "
+                     f"{peak:.0f} MiB, vs CPU {err:.1e}")
+        _check(err <= SCAN_PARITY, f"kaldi {name} vs CPU: {err}")
+    print(f"compliance.kaldi [{card}]: {tuple(x.shape)} at {sr} Hz: "
+          + "; ".join(lines), flush=True)
+
+
+def _iir_room(gen: torch.Generator, card: str) -> None:
+    """Phase 19 (g): image-source responses and ray tracing of a 6 x 5 x 3
+    m room with 8 mics against the CPU copy; one response applied to a
+    clip through ``fftconvolve``."""
+    from torchaudio_contrib_tpu_torch import ops
+    cfg = IIR["room"]
+    room = np.asarray(cfg["room"])
+    src = np.array([1.5, 2.0, 1.2])
+    mics = np.stack([np.linspace(3.0, 5.0, cfg["mics"]),
+                     np.full(cfg["mics"], 3.5),
+                     np.full(cfg["mics"], 1.5)], axis=1)
+    kw = dict(max_order=cfg["max_order"], absorption=0.2)
+    mics_cpu = torch.as_tensor(mics)
+    rir, ms, peak = _on_card(lambda: ops.simulate_rir_ism(
+        room, src, mics_cpu.cuda(), **kw))
+    rir = rir.cpu()
+    again = ops.simulate_rir_ism(room, src, mics_cpu.cuda(), **kw).cpu()
+    cpu = ops.simulate_rir_ism(room, src, mics_cpu, **kw)
+    ref = torch.from_numpy(_rir_f64(room, src, mics, **kw))
+    spread, err = _rel(again, rir), _rel(rir, cpu)
+    card64, cpu64 = _rel(rir.double(), ref), _rel(cpu.double(), ref)
+    rkw = dict(absorption=0.3, scattering=0.1)
+    hist, rt_ms, rt_peak = _on_card(lambda: ops.ray_tracing(
+        room, src, mics_cpu.cuda(), cfg["rays"], **rkw), reps=1)
+    rt_err = _rel(hist.cpu(), ops.ray_tracing(room, src, mics_cpu,
+                                              cfg["rays"], **rkw))
+    clip = _speech_batch(gen, 1, 160000, 16000)
+    wet, conv_ms, conv_peak = _on_card(lambda: ops.fftconvolve(
+        clip.cuda(), rir[:1].cuda()))
+    conv_err = _rel(wet.cpu(), ops.fftconvolve(clip, rir[:1]))
+    print(f"room [{card}]: simulate_rir_ism {cfg['room']} m, "
+          f"{cfg['mics']} mics, max_order {cfg['max_order']} -> "
+          f"{tuple(rir.shape)}: {ms:.3f} ms, peak {peak:.0f} MiB, vs CPU "
+          f"{err:.1e}, card vs card {spread:.1e}, vs a float64 build: card "
+          f"{card64:.1e}, CPU {cpu64:.1e}; ray_tracing {cfg['rays']} rays -> "
+          f"{tuple(hist.shape)}: {rt_ms:.3f} ms, peak {rt_peak:.0f} MiB, vs "
+          f"CPU {rt_err:.1e}; fftconvolve of a 10 s clip with one response "
+          f"{conv_ms:.3f} ms, peak {conv_peak:.0f} MiB, vs CPU "
+          f"{conv_err:.1e}", flush=True)
+    # the order-10 delays run to ~8 700 samples, where a float32 delay is
+    # rounded to ~5e-4 of a sample and each tap with it: both float32
+    # builds sit ~3e-5 of peak from the float64 one, so they are held to
+    # it, and to each other, as the scans are
+    _check(max(err, card64, cpu64) <= SCAN_PARITY and rt_err <= F32_PARITY
+           and conv_err <= F32_PARITY and float(hist.sum()) > 0,
+           f"room: rir vs CPU {err}, vs float64 card {card64} CPU {cpu64}; "
+           f"rays {rt_err}, reverb {conv_err}")
+
+
+def phase_iir(gen: torch.Generator, card: str) -> int:
+    """Phase 19: the IIR family and the ops beside it at full width (the
+    module docstring).  Returns the fused forward's launches in (a)."""
+    launches = _iir_pipeline(gen, card)
+    torch.cuda.empty_cache()
+    _iir_loudness(gen, card)
+    torch.cuda.empty_cache()
+    _iir_filters(gen, card)
+    torch.cuda.empty_cache()
+    _iir_effects(gen, card)
+    _iir_features(gen, card)
+    _iir_room(gen, card)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _mel_bounds(x, mels: int, n_fft: int, hop: int) -> tuple:
     """The bounds of the fused mel forward and backward at ``x (B, 1, T)``.
     The function: one real transform per frame (an FFT's operations) plus
@@ -1712,6 +2241,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     corpus = phase_corpus(gen, card)
     phase_ops_on_card(gen)
+    iir_launches = phase_iir(gen, card)
     source = "torchaudio_contrib_tpu_torch/csrc/"
     gl_file = "torchaudio_contrib_tpu/ops/fused_griffinlim.py"
     kernels = [
@@ -1719,8 +2249,10 @@ def main() -> None:
          "source": source + "fused_mel_fwd.cu",
          "headers": [source + "fft_smem.cuh"],
          "replaces": "torchaudio_contrib_tpu/ops/fused.py:440",
-         "launches": launches + train_counts[0] + corpus["launches"],
+         "launches": launches + train_counts[0] + corpus["launches"]
+         + iir_launches,
          "corpus_launches": corpus["launches"],
+         "iir_pipeline_launches": iir_launches,
          "corpus_ms_per_batch": corpus["b1_ms_per_batch"],
          **stats, **fwd_bound},
         {"name": "fused_mel_bwd", "route": "cuda",

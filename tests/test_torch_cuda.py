@@ -592,3 +592,85 @@ def test_new_ops_on_card_match_cpu(cuda_device):
     wc = tops.mvdr_weights_souden(tops.psd(mc.to(cuda_device)),
                                   tops.psd(mc.to(cuda_device)) * 0.5 + 1e-3)
     assert _rel(wc, w) <= 1e-4
+
+
+# ---- the IIR family and its neighbours: the card against the CPU copy -------
+
+SCAN_PARITY = 1e-4   # scans and log-domain outputs, card vs CPU copy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [1, 2, 4, 10])
+def test_lfilter_and_filtfilt_on_card(cuda_device, order):
+    import scipy.signal as sps
+    b, a = sps.butter(order, 0.1)
+    x = torch.from_numpy(np.random.default_rng(order).standard_normal(
+        (3, 2, 48000)).astype(np.float32))
+    xc = x.to(cuda_device).requires_grad_()
+    got = tops.lfilter(xc, a, b)
+    assert _rel(got, tops.lfilter(x, a, b)) <= SCAN_PARITY
+    ref = sps.lfilter(b, a, x.numpy().astype(np.float64), axis=-1)
+    assert _rel(got, torch.from_numpy(ref)) <= PARITY
+    got.square().sum().backward()
+    xg = x.clone().requires_grad_()
+    tops.lfilter(xg, a, b).square().sum().backward()
+    assert _rel(xc.grad, xg.grad) <= SCAN_PARITY
+    assert _rel(tops.filtfilt(xc.detach(), a, b),
+                tops.filtfilt(x, a, b)) <= SCAN_PARITY
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(decay=0.4), dict(decay=0.9),
+                                dict(decay=0.99, sinusoidal=False)])
+def test_phaser_on_card(cuda_device, kw):
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 2, 44100)).astype(np.float32) * 0.3)
+    assert _rel(tops.phaser(x.to(cuda_device), 44100, **kw),
+                tops.phaser(x, 44100, **kw)) <= SCAN_PARITY
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(), dict(regen=50.0),
+                                dict(regen=-50.0, interpolation="quadratic",
+                                     delay=1.0)])
+def test_flanger_on_card(cuda_device, kw):
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 2, 22050)).astype(np.float32) * 0.3)
+    assert _rel(tops.flanger(x.to(cuda_device), 44100, **kw),
+                tops.flanger(x, 44100, **kw)) <= SCAN_PARITY
+
+
+@pytest.mark.cuda
+def test_vad_loudness_and_kaldi_pitch_on_card(cuda_device):
+    """Onsets and pitch tracks equal, on voiced clips: equal harmonics of
+    150 Hz (a pure tone's flat NCCF peak leaves neighbouring lags within
+    rounding of each other)."""
+    rng = np.random.default_rng(3)
+    t = np.arange(32000) / 16000
+    voice = sum(np.sin(2 * np.pi * 150.0 * k * t + 0.7 * k)
+                for k in range(1, 7))
+    speech = 0.05 * voice * (t > 1.0)
+    x = torch.from_numpy((speech + 0.01 * rng.standard_normal((4, 32000)))
+                         .astype(np.float32))
+    xc = x.to(cuda_device)
+    assert torch.equal(tops.vad_onset(xc, 16000).cpu(),
+                       tops.vad_onset(x, 16000))
+    lk = tops.loudness(xc.view(2, 2, -1), 16000).cpu()
+    assert (lk - tops.loudness(x.view(2, 2, -1), 16000)).abs().max() <= 1e-3
+    got = tops.compute_kaldi_pitch(xc, 16000).cpu()
+    want = tops.compute_kaldi_pitch(x, 16000)
+    assert torch.equal(got[..., 1], want[..., 1])
+    assert _rel(got[..., 0], want[..., 0]) <= SCAN_PARITY
+
+
+@pytest.mark.cuda
+def test_room_and_a_weighting_take_the_card_for_lists(cuda_device):
+    """A list or array input goes to the card; a tensor keeps its device."""
+    room, src, mics = [4.0, 3.0, 2.5], [1.0, 1.5, 1.0], [[3.0, 1.0, 2.0]]
+    rir = tops.simulate_rir_ism(room, src, mics, max_order=2)
+    assert rir.device.type == "cuda"
+    want = tops.simulate_rir_ism(room, src, torch.tensor(mics), max_order=2)
+    assert _rel(rir.cpu(), want) <= SCAN_PARITY
+    hist = tops.ray_tracing(room, src, mics, 500, time_thres=0.05)
+    assert hist.device.type == "cuda" and float(hist.sum()) > 0
+    assert tops.a_weighting([100.0, 1000.0]).device.type == "cuda"

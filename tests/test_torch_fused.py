@@ -162,6 +162,14 @@ def test_import_pulls_in_no_jax():
             "fused_griffinlim, melinv, pitch, resample, phase_vocoder, "
             "mulaw, features, augment, spectral, effects, convolve, "
             "metrics, chroma, cqt, pitchdetect, dsp, beamform)\n"
+            "import torchaudio_contrib_tpu_torch.ops.iir, "
+            "torchaudio_contrib_tpu_torch.ops.loudness, "
+            "torchaudio_contrib_tpu_torch.ops.vad, "
+            "torchaudio_contrib_tpu_torch.ops.modfx, "
+            "torchaudio_contrib_tpu_torch.ops.kaldipitch, "
+            "torchaudio_contrib_tpu_torch.ops.rir, "
+            "torchaudio_contrib_tpu_torch.ops.raytrace, "
+            "torchaudio_contrib_tpu_torch.compliance.kaldi\n"
             "from torchaudio_contrib_tpu_torch import parallel\n"
             "from torchaudio_contrib_tpu_torch.parallel import corpus\n"
             "from torchaudio_contrib_tpu_torch.models import transforms\n"

@@ -205,3 +205,60 @@ def test_chroma_layers(rng):
     assert _rel(got, want) <= F32
     trainable = tmodels.Chromagram(**kw, trainable=True)
     assert list(trainable.state_dict()) == ["2.filterbank"]
+
+
+# ---- the layers over the IIR family ---------------------------------------
+
+# name, constructor args, input shape: waveforms at 16 kHz
+IIR_LAYERS = [
+    ("Overdrive", dict(gain=15.0, colour=10.0), (2, 3000)),
+    ("Phaser", dict(sample_rate=16000, decay=0.5), (2, 3000)),
+    ("Flanger", dict(sample_rate=16000, phase=50.0), (2, 2, 1500)),
+    ("Contrast", dict(enhancement_amount=40.0), (2, 3000)),
+    ("Lowpass", dict(sample_rate=16000, cutoff_freq=3000.0), (2, 3000)),
+    ("Highpass", dict(sample_rate=16000, cutoff_freq=200.0, Q=0.9),
+     (2, 3000)),
+    ("Equalizer", dict(sample_rate=16000, center_freq=1000.0, gain_db=4.0),
+     (2, 3000)),
+]
+
+
+@pytest.mark.parametrize("name,kw,shape", IIR_LAYERS,
+                         ids=[c[0] for c in IIR_LAYERS])
+def test_iir_layer_matches_jax(rng, monkeypatch, name, kw, shape):
+    """The JAX layer with its package's ``lfilter`` swapped for float64
+    ``scipy.signal.lfilter``: the layer's own code, without the rounding
+    of a float32 scan (whose compile would cost half a second a case;
+    ``tests/test_torch_iir.py`` holds the scans to each other)."""
+    import scipy.signal as sps
+    from torchaudio_contrib_tpu.ops import iir as jiir
+
+    def lfilter64(w, a, b, *, clamp=False):
+        y = sps.lfilter(np.asarray(b, np.float64), np.asarray(a, np.float64),
+                        np.asarray(w, np.float64), axis=-1)
+        return np.clip(y, -1.0, 1.0) if clamp else y
+
+    monkeypatch.setattr(jiir, "lfilter", lfilter64)
+    x, jx = _pair(rng, *shape)
+    layer = getattr(ttr, name)(**kw)
+    assert isinstance(layer, torch.nn.Module)
+    assert not layer.state_dict()
+    assert getattr(tmodels, name) is getattr(ttr, name)
+    assert _rel(layer(0.3 * x), getattr(jtr, name)(**kw)(0.3 * jx)) <= SCAN
+
+
+def test_loudness_and_vad_layers_wrap_their_ops(rng):
+    """``Loudness`` and ``Vad`` (both modes) are their ops; the ops and
+    both layers are held to the JAX package's in
+    ``tests/test_torch_loudness_vad.py``."""
+    x, _ = _pair(rng, 2, 2, 8000)
+    assert torch.equal(ttr.Loudness(16000)(x), tops.loudness(x, 16000))
+    assert torch.equal(ttr.Vad(16000)(x), tops.vad_onset(x, 16000))
+    trimmed, valid = ttr.Vad(16000, mode="trim", trigger_level=5.0)(x[0])
+    want = tops.vad_trim(x[0], 16000, trigger_level=5.0)
+    assert torch.equal(trimmed, want[0]) and torch.equal(valid, want[1])
+    for name in ("Loudness", "Vad"):
+        assert getattr(tmodels, name) is getattr(ttr, name)
+        assert not getattr(ttr, name)(16000).state_dict()
+    with pytest.raises(ValueError, match="mode"):
+        ttr.Vad(16000, mode="bogus")

@@ -13,8 +13,11 @@ corpus path (``parallel``: streamed chunked STFT and the batch preprocessor
 with the fused kernel, on one GPU), the ops with no recurrence of their
 own (masking, deltas and emphasis, spectral descriptors, chroma, CQT,
 pitch detection, effects, convolution, DSP synthesis, metrics,
-beamforming) and the torchaudio-named transforms over them
-(``models.transforms``).
+beamforming), the IIR family (``lfilter`` and the biquads as log-depth
+doubling scans, BS.1770 loudness, VAD, the SoX modulation effects, Kaldi
+pitch), room acoustics (image-source responses, ray tracing), the Kaldi
+feature extractors (``compliance.kaldi``) and the torchaudio-named
+transforms over them (``models.transforms``).
 Module names follow the JAX package's; the flat names below mirror its
 ``__init__`` for the symbols ported so far.
 
@@ -24,7 +27,7 @@ package.
 
 __version__ = "0.1.0"
 
-from . import ops, models, utils, benchmarks, parallel
+from . import ops, models, utils, benchmarks, parallel, compliance
 
 from .ops import (
     stft, istft, frame_signal, num_frames, stft_output_length,
@@ -44,6 +47,15 @@ from .ops import (
     mel_to_linear, mel_to_audio,
     resample, pitch_shift,
     hann_window, hamming_window, blackman_window, get_window,
+    lfilter, filtfilt, biquad, lowpass_biquad, highpass_biquad,
+    bandpass_biquad, bandreject_biquad, allpass_biquad,
+    equalizer_biquad, bass_biquad, treble_biquad,
+    band_biquad, deemph_biquad, riaa_biquad,
+    loudness, a_weighting,
+    compute_kaldi_pitch,
+    overdrive, contrast, phaser, flanger,
+    vad, vad_onset, vad_trim,
+    simulate_rir_ism, ray_tracing,
 )
 from .models import (
     Transform, Pipeline,
@@ -57,7 +69,7 @@ from .models import (
 )
 
 __all__ = [
-    "ops", "models", "utils", "benchmarks", "parallel",
+    "ops", "models", "utils", "benchmarks", "parallel", "compliance",
     "stft", "istft", "frame_signal", "num_frames", "stft_output_length",
     "complex_norm", "angle", "magphase",
     "hertz_to_mel", "mel_to_hertz", "hertz_to_bark", "bark_to_hertz",
@@ -76,6 +88,15 @@ __all__ = [
     "mel_to_linear", "mel_to_audio",
     "resample", "pitch_shift",
     "hann_window", "hamming_window", "blackman_window", "get_window",
+    "lfilter", "filtfilt", "biquad", "lowpass_biquad", "highpass_biquad",
+    "bandpass_biquad", "bandreject_biquad", "allpass_biquad",
+    "equalizer_biquad", "bass_biquad", "treble_biquad",
+    "band_biquad", "deemph_biquad", "riaa_biquad",
+    "loudness", "a_weighting",
+    "compute_kaldi_pitch",
+    "overdrive", "contrast", "phaser", "flanger",
+    "vad", "vad_onset", "vad_trim",
+    "simulate_rir_ism", "ray_tracing",
     "Transform", "Pipeline",
     "STFT", "ISTFT", "InverseSpectrogram", "ComplexNorm",
     "Filterbank", "MelFilterbank", "BarkFilterbank", "ApplyFilterbank",

@@ -21,6 +21,8 @@ from .transforms import (
     LFCC, Convolve, FFTConvolve, SpeedPerturbation, AmplitudeToDB,
     MelSpectrogram, TimeStretch, SpecAugment, MVDR, BarkScale,
     InverseBarkScale, BarkSpectrogram, ChromaScale, ChromaSpectrogram,
+    Loudness, Vad, Overdrive, Phaser, Flanger, Contrast, Lowpass, Highpass,
+    Equalizer,
 )
 
 __all__ = [

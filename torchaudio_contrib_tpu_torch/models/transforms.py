@@ -9,9 +9,7 @@ from the config.  Randomised transforms (``FrequencyMasking``,
 ``generator=`` (a ``torch.Generator``, or None for the global one) in the
 call where the JAX layers take ``key=``.
 
-The layers over the IIR family (``Loudness``, ``Vad``, ``Overdrive``,
-``Phaser``, ``Flanger``, ``Contrast``, ``Lowpass``, ``Highpass``,
-``Equalizer``) and ``RNNTLoss`` wait for their ops.
+``RNNTLoss`` waits for its op (``rnnt_loss``).
 """
 from __future__ import annotations
 
@@ -25,11 +23,13 @@ from .layers import Transform
 from .. import ops as _ops
 
 __all__ = [
-    "MFCC", "PitchShift", "Speed", "AddNoise",
+    "MFCC", "Loudness", "PitchShift", "Speed", "AddNoise",
     "Fade", "Vol", "FrequencyMasking", "TimeMasking",
     "Preemphasis", "Deemphasis", "ComputeDeltas", "SlidingWindowCmn",
     "SpectralCentroid", "MelScale", "InverseMelScale",
-    "PSD", "SoudenMVDR", "RTFMVDR",
+    "PSD", "SoudenMVDR", "RTFMVDR", "Vad",
+    "Overdrive", "Phaser", "Flanger", "Contrast",
+    "Lowpass", "Highpass", "Equalizer",
     "LFCC", "Convolve", "FFTConvolve", "SpeedPerturbation",
     "AmplitudeToDB", "MelSpectrogram", "TimeStretch", "SpecAugment",
     "MVDR",
@@ -51,6 +51,17 @@ class MFCC(Transform):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _ops.mfcc(x, **self.kw)
+
+
+class Loudness(Transform):
+    """BS.1770-4 integrated loudness (LKFS) per clip."""
+
+    def __init__(self, sample_rate: int):
+        super().__init__()
+        self.sample_rate = sample_rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _ops.loudness(x, self.sample_rate)
 
 
 class PitchShift(Transform):
@@ -276,6 +287,91 @@ class RTFMVDR(Transform):
             raise TypeError("RTFMVDR requires rtf= and psd_n=")
         w = _ops.mvdr_weights_rtf(rtf, psd_n, **self.kw)
         return _ops.apply_beamforming(w, x)
+
+
+class Overdrive(Transform):
+    def __init__(self, gain: float = 20.0, colour: float = 20.0):
+        super().__init__()
+        self.gain, self.colour = gain, colour
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _ops.overdrive(x, self.gain, self.colour)
+
+
+class Phaser(Transform):
+    def __init__(self, sample_rate: float, **kwargs):
+        super().__init__()
+        self.sample_rate, self.kw = sample_rate, kwargs
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _ops.phaser(x, self.sample_rate, **self.kw)
+
+
+class Flanger(Transform):
+    def __init__(self, sample_rate: float, **kwargs):
+        super().__init__()
+        self.sample_rate, self.kw = sample_rate, kwargs
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _ops.flanger(x, self.sample_rate, **self.kw)
+
+
+class Contrast(Transform):
+    def __init__(self, enhancement_amount: float = 75.0):
+        super().__init__()
+        self.enhancement_amount = enhancement_amount
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _ops.contrast(x, self.enhancement_amount)
+
+
+class Lowpass(Transform):
+    def __init__(self, sample_rate: float, cutoff_freq: float,
+                 Q: float = 0.707):
+        super().__init__()
+        self.kw = (sample_rate, cutoff_freq, Q)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _ops.lowpass_biquad(x, *self.kw)
+
+
+class Highpass(Transform):
+    def __init__(self, sample_rate: float, cutoff_freq: float,
+                 Q: float = 0.707):
+        super().__init__()
+        self.kw = (sample_rate, cutoff_freq, Q)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _ops.highpass_biquad(x, *self.kw)
+
+
+class Equalizer(Transform):
+    def __init__(self, sample_rate: float, center_freq: float,
+                 gain_db: float, Q: float = 0.707):
+        super().__init__()
+        self.kw = (sample_rate, center_freq, gain_db, Q)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _ops.equalizer_biquad(x, *self.kw)
+
+
+class Vad(Transform):
+    """Voice activity detection (see ``ops/vad.py`` for the API split).
+    ``mode="onset"`` (default) → per-clip onset sample index;
+    ``mode="trim"`` → ``(trimmed, valid_length)``, a fixed-shape trim
+    (speech shifted to sample 0, zero-filled tail), torchaudio's
+    ``transforms.Vad`` at a shape that does not depend on the data."""
+
+    def __init__(self, sample_rate: int, mode: str = "onset", **kwargs):
+        super().__init__()
+        if mode not in ("onset", "trim"):
+            raise ValueError("mode must be 'onset' or 'trim'")
+        self.sample_rate, self.mode, self.kw = sample_rate, mode, kwargs
+
+    def forward(self, x: torch.Tensor):
+        if self.mode == "trim":
+            return _ops.vad_trim(x, self.sample_rate, **self.kw)
+        return _ops.vad_onset(x, self.sample_rate, **self.kw)
 
 
 class LFCC(Transform):

@@ -1,8 +1,10 @@
 """Functional core of the PyTorch port (the mel front end's slices, the
-inverse path: ISTFT, Griffin-Lim, mel inversion, the vocoder ops; and the
+inverse path: ISTFT, Griffin-Lim, mel inversion, the vocoder ops; the
 ops with no recurrence of their own: masking, deltas and emphasis,
 spectral descriptors, chroma, CQT, pitch detection, effects, convolution,
-DSP synthesis, metrics, beamforming).
+DSP synthesis, metrics, beamforming; the IIR family: ``lfilter`` and the
+biquads, loudness, VAD, the modulation effects, Kaldi pitch; room
+acoustics: image-source responses and ray tracing).
 
 Module names follow ``torchaudio_contrib_tpu.ops``; each module is the
 counterpart of the JAX module of the same name.
@@ -63,6 +65,16 @@ from .convolve import convolve, fftconvolve
 from .dsp import (oscillator_bank, adsr_envelope, extend_pitch,
                   sinc_impulse_response, frequency_impulse_response,
                   filter_waveform, exp_sigmoid)
+from .iir import (lfilter, filtfilt, biquad, lowpass_biquad, highpass_biquad,
+                  bandpass_biquad, bandreject_biquad, allpass_biquad,
+                  equalizer_biquad, bass_biquad, treble_biquad,
+                  band_biquad, deemph_biquad, riaa_biquad)
+from .loudness import loudness, a_weighting
+from .kaldipitch import compute_kaldi_pitch
+from .modfx import overdrive, contrast, phaser, flanger
+from .vad import vad, vad_onset, vad_trim
+from .rir import simulate_rir_ism
+from .raytrace import ray_tracing
 from .metrics import snr, si_snr, frechet_distance
 from .beamform import (psd, mvdr_weights_souden, mvdr_weights_rtf,
                        rtf_evd, rtf_power, apply_beamforming)
@@ -99,7 +111,14 @@ __all__ = [
     "detect_pitch_frequency",
     "fade", "gain", "dither", "dcshift", "sliding_window_cmn",
     "add_noise", "speed", "apply_codec",
-    "convolve", "fftconvolve",
+    "lfilter", "filtfilt", "biquad", "lowpass_biquad", "highpass_biquad",
+    "bandpass_biquad", "bandreject_biquad", "allpass_biquad",
+    "equalizer_biquad", "bass_biquad", "treble_biquad",
+    "band_biquad", "deemph_biquad", "riaa_biquad",
+    "loudness", "a_weighting", "compute_kaldi_pitch",
+    "overdrive", "contrast", "phaser", "flanger",
+    "vad", "vad_onset", "vad_trim",
+    "convolve", "fftconvolve", "simulate_rir_ism", "ray_tracing",
     "oscillator_bank", "adsr_envelope", "extend_pitch",
     "sinc_impulse_response", "frequency_impulse_response",
     "filter_waveform", "exp_sigmoid",
