@@ -1,5 +1,5 @@
 """GPU smoke run of the PyTorch port's serving, training and inverse paths,
-its corpus path and the IIR family.
+its corpus path, the IIR family and the ASR path.
 
     python3 chip_smoke.py
 
@@ -119,7 +119,25 @@ imports no JAX.  Phases, each printing its lines:
     (6 x 5 x 3 m, 8 mics, order 10; float32 delays of thousands of samples,
     so 1e-4, also against a float64 NumPy build; two card runs' spread
     printed), ``ray_tracing`` (10 000 rays) and one response applied
-    through ``fftconvolve``.
+    through ``fftconvolve``;
+20. the ASR path at full width, each part on CUDA tensors against a CPU
+    copy with TF32 off: (a) 16 x 10 s at 16 kHz through ``mfcc(...,
+    use_fused=True)`` (13 of 40 mels, fft 512, hop 160: the fused forward
+    once a step, on the FFT route) into ``Wav2Letter`` at full width
+    (~23 M parameters, 501 frames) trained by 4 SGD steps on ``ctc_loss``
+    against 60-120 tokens a clip between a reset and a read of the
+    counters; step 0's loss, emissions and gradients against the CPU copy;
+    ms per step with TF32 off and on; (b) ``DeepSpeech`` (2048 hidden) on
+    ``FusedMelspectrogram``'s 40-mel log-mel of the clips (the fused
+    forward once), forward and backward through ``ctc_loss``, 2 clips
+    against the CPU copy; (c) ``rnnt_loss`` on logits (8, 250, 101, 1024)
+    and ``rnnt_loss_fused`` from the encodings and a (1024, 1024) joiner,
+    equal to each other, two rows against the CPU copy, ms and peak MiB;
+    (d) greedy, beam (16) and lexicon + bigram LM (1 000 words, beam 16)
+    decoding of emissions planted from known transcripts (word error 0 by
+    ``edit_distance_batched``), the device searches equal to the host
+    searches on 2 clips, ``forced_align`` and ``merge_tokens`` recovering
+    the planted alignment, and the decoders timed on (a)'s emissions.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -192,6 +210,25 @@ LU_ATOL = 1e-3          # loudness, card vs float64 chain and CPU copy, LU
 # clip's frames whose Viterbi state may differ (1e-6 of noise moved up to
 # 0.8 % of a clip's frames on the CPU alone)
 PITCH_FLIP_SHARE = 0.02
+# Phase 20, the ASR path at full width: (a) 16 x 10 s at 16 kHz through
+# the fused MFCC (13 of 40 mels, fft 512, hop 160: 1001 frames) into
+# Wav2Letter (29 classes, 501 frames out) trained on CTC against 60-120
+# tokens a clip; (b) DeepSpeech (2048 hidden) on the fused 40-mel log-mel
+# of the same clips, checked on a sub-batch of ``ds_check`` clips on the
+# CPU; (c) RNN-T at conformer-RNN-T-base widths (models/factories.py:
+# 1024 symbols, encoding width 1024, 10 s at time reduction 4 -> 250
+# frames), 100 target tokens, batch 8; (d) decoding with beam 16 and a
+# lexicon of ``words`` words, the device searches against the host
+# searches on ``decode_check`` clips.
+ASR = dict(clips=16, samples=160000, sr=16000, classes=29,
+           mfcc=dict(sample_rate=16000, n_mfcc=13, num_mels=40,
+                     fft_length=512, hop_length=160),
+           targets=(60, 120), steps=4, lr=1e-3,
+           ds_mels=40, ds_hidden=2048, ds_check=2,
+           rnnt=(8, 250, 100, 1024, 1024),
+           words=1000, beam=16, decode_check=2)
+# device search scores vs the host's float64 search: |diff| / max(1, |host|)
+DECODE_REL = 1e-5
 # Published peaks of one H100 SXM (data sheet, 700 W): FP32 outside the
 # tensor cores, and HBM3.
 PEAK_FP32 = 67e12
@@ -2183,6 +2220,490 @@ def phase_iir(gen: torch.Generator, card: str) -> int:
     return launches
 
 
+def _asr_targets(gen: torch.Generator, n: int, lo: int, hi: int,
+                 classes: int) -> tuple:
+    """``(targets (n, hi), lengths (n,))``: token ids 1..classes-1 (0 is
+    the blank), ragged lengths in ``[lo, hi]``."""
+    tl = torch.randint(lo, hi + 1, (n,), generator=gen)
+    tg = torch.randint(1, classes, (n, hi), generator=gen)
+    return tg, tl
+
+
+def _param_grads(model) -> dict:
+    return {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+
+
+def _grad_err(got: dict, want: dict) -> float:
+    """A model's gradient against another's, relative to its peak:
+    max|got - want| / max|want| over all parameters.  Not per tensor: a
+    ReLU whose input rounds to the other side of 0 on one device moves
+    that frame's whole contribution, and the float32 CPU step itself lands
+    up to 1e-4 of a small tensor's own peak from a float64 step (Wav2Letter
+    at phase 20's width: `benchmarks/asr_profile.py`)."""
+    diff = max((got[k] - want[k]).abs().max().item() for k in want)
+    return diff / max(want[k].abs().max().item() for k in want)
+
+
+def _tf32(on: bool) -> None:
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+
+
+def _asr_train(gen: torch.Generator, card: str, x: torch.Tensor) -> tuple:
+    """Phase 20 (a): Wav2Letter (full width, MFCC input) trained on CTC
+    from the fused MFCC of the clips ``x``, between a reset and a read of
+    the counters; step 0 against the CPU copy (TF32 off); ms per step with
+    TF32 off and on.  Returns (B1 launches, the last emissions, numbers)."""
+    from torchaudio_contrib_tpu_torch import ops
+    from torchaudio_contrib_tpu_torch.models import Wav2Letter
+    a = ASR
+    tg, tl = _asr_targets(gen, a["clips"], *a["targets"], a["classes"])
+    model = Wav2Letter(num_classes=a["classes"], input_type="mfcc",
+                       num_features=a["mfcc"]["n_mfcc"], device="cpu",
+                       generator=gen)
+    card_model = copy.deepcopy(model).cuda()
+    opt = torch.optim.SGD(card_model.parameters(), lr=a["lr"])
+    xc, tgc, tlc = x.cuda(), tg.cuda(), tl.cuda()
+
+    def features():
+        with torch.no_grad():
+            return ops.mfcc(xc, **a["mfcc"], use_fused=True)
+
+    def step():
+        feats = features()
+        lp = torch.log_softmax(card_model(feats), -1)
+        loss = ops.ctc_loss(lp, tgc, None, tlc)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        return feats, lp, loss
+
+    _reset_counts()
+    losses = []
+    for i in range(a["steps"]):
+        feats, lp, loss = step()
+        losses.append(loss.item())
+        if i == 0:
+            first = (feats, lp.detach(), loss.detach(),
+                     _param_grads(card_model))
+    launches, fft_launches = _counts()[0], _fft_counts()[0]
+    feats, lp0, loss0, grads0 = first
+    n_params = sum(p.numel() for p in model.parameters())
+    feats_cpu = feats.cpu()
+    lp_cpu = torch.log_softmax(model(feats_cpu), -1)
+    loss_cpu = ops.ctc_loss(lp_cpu, tg, None, tl)
+    loss_cpu.backward()
+    loss_err = abs(loss0.item() - loss_cpu.item()) / abs(loss_cpu.item())
+    lp_err = _rel(lp0.cpu(), lp_cpu.detach())
+    grad_err = _grad_err(grads0, _param_grads(model))
+    feat_err = _rel(feats_cpu[:2], ops.mfcc(x[:2], **a["mfcc"]))
+
+    ms = {"off": _time_ms(step, 1, 3)}
+    with torch.no_grad():
+        feats = features()
+        emissions = torch.log_softmax(card_model(feats), -1)
+    _tf32(True)
+    try:
+        with torch.no_grad():
+            lp_tf32 = torch.log_softmax(card_model(feats), -1)
+        ms["on"] = _time_ms(step, 1, 3)
+    finally:
+        _tf32(False)
+    tf32_err = _rel(lp_tf32, emissions)
+    feat_ms = _time_ms(features, 1, 5)
+    lp_g = emissions.clone().requires_grad_()
+    ctc_ms = _time_ms(lambda: ops.ctc_loss(lp_g, tgc, None, tlc), 1, 3)
+    ctc_bwd_ms = _time_ms(
+        lambda: ops.ctc_loss(lp_g, tgc, None, tlc).backward(), 1, 3)
+    nums = {"w2l_params": n_params, "w2l_frames": tuple(emissions.shape),
+            "w2l_step_ms_tf32_off": ms["off"], "w2l_step_ms_tf32_on":
+            ms["on"], "mfcc_ms": feat_ms, "ctc_fwd_ms": ctc_ms,
+            "ctc_fwd_bwd_ms": ctc_bwd_ms, "w2l_losses": losses,
+            "w2l_loss_rel": loss_err, "w2l_emissions_err": lp_err,
+            "w2l_grad_err": grad_err, "w2l_tf32_emissions_err": tf32_err}
+    print(f"ASR (a) [{card}]: Wav2Letter ({n_params} parameters) on the "
+          f"fused MFCC {tuple(feats.shape)} of {tuple(x.shape)} at "
+          f"{a['sr']} Hz -> emissions {tuple(emissions.shape)}, CTC on "
+          f"{int(tl.min())}-{int(tl.max())} tokens, {a['steps']} SGD steps: "
+          f"losses {[round(v, 4) for v in losses]}; fused launches (all, FFT "
+          f"route) {launches}, {fft_launches}; step 0 vs the CPU copy (TF32 "
+          f"off): loss rel {loss_err:.2e}, emissions {lp_err:.2e}, gradients "
+          f"{grad_err:.2e} of peak; MFCC vs the plain chain {feat_err:.2e}; "
+          f"ms per step: TF32 off {ms['off']:.2f}, on {ms['on']:.2f} "
+          f"(emissions {tf32_err:.2e} from TF32 off); MFCC {feat_ms:.3f}, "
+          f"ctc_loss forward {ctc_ms:.2f}, forward + backward "
+          f"{ctc_bwd_ms:.2f} ({emissions.shape[1]} frames, "
+          f"{2 * int(tl.max()) + 1} states)", flush=True)
+    _check(launches == fft_launches and launches >= a["steps"],
+           f"ASR (a): fused launches {launches}, FFT route {fft_launches}")
+    _check(all(math.isfinite(v) for v in losses), f"ASR (a): {losses}")
+    _check(loss_err <= LOSS_RTOL and lp_err <= F32_PARITY
+           and grad_err <= GRAD_PARITY and feat_err <= SCAN_PARITY,
+           f"ASR (a) vs CPU: loss {loss_err}, emissions {lp_err}, "
+           f"gradients {grad_err}, MFCC {feat_err}")
+    return launches, emissions, nums
+
+
+def _asr_deepspeech(gen: torch.Generator, card: str,
+                    x: torch.Tensor) -> tuple:
+    """Phase 20 (b): DeepSpeech (2048 hidden) on 40-mel log-mels from
+    ``FusedMelspectrogram`` of the clips, one forward and backward through
+    ``ctc_loss``; a sub-batch against the CPU copy.  Returns (B1
+    launches, numbers)."""
+    from torchaudio_contrib_tpu_torch import models, ops
+    a = ASR
+    n = a["ds_check"]
+    tg, tl = _asr_targets(gen, a["clips"], *a["targets"], a["classes"])
+    mel = models.FusedMelspectrogram(
+        num_mels=a["ds_mels"], sample_rate=a["sr"],
+        fft_length=a["mfcc"]["fft_length"],
+        hop_length=a["mfcc"]["hop_length"], center=True).cuda()
+    ds = models.DeepSpeech(a["ds_mels"], a["ds_hidden"], a["classes"],
+                           device="cpu", generator=gen)
+    card_ds = copy.deepcopy(ds).cuda()
+    xc, tgc, tlc = x.cuda(), tg.cuda(), tl.cuda()
+
+    def run(feats, k):
+        card_ds.zero_grad()
+        lp = card_ds(feats[:k], log_probs=True)
+        loss = ops.ctc_loss(lp, tgc[:k], None, tlc[:k])
+        loss.backward()
+        return loss
+
+    _reset_counts()
+    with torch.no_grad():
+        feats = mel(xc).transpose(1, 2).contiguous()
+    loss = run(feats, a["clips"])
+    launches, fft_launches = _counts()[0], _fft_counts()[0]
+    sub = run(feats, n).item()
+    sub_grads = _param_grads(card_ds)
+    lp_cpu = ds(feats[:n].cpu(), log_probs=True)
+    loss_cpu = ops.ctc_loss(lp_cpu, tg[:n], None, tl[:n])
+    loss_cpu.backward()
+    loss_err = abs(sub - loss_cpu.item()) / abs(loss_cpu.item())
+    grad_err = _grad_err(sub_grads, _param_grads(ds))
+    ms = _time_ms(lambda: run(feats, a["clips"]), 1, 3)
+    mel_ms = _time_ms(lambda: mel(xc), 1, 5)
+    print(f"ASR (b) [{card}]: DeepSpeech ({a['ds_hidden']} hidden) on "
+          f"FusedMelspectrogram {tuple(feats.shape)}: loss "
+          f"{loss.item():.4f}; fused launches (all, FFT route) {launches}, "
+          f"{fft_launches}; forward + backward through ctc_loss "
+          f"{ms:.2f} ms, log-mel {mel_ms:.3f} ms; {n} clips vs the CPU copy "
+          f"(TF32 off): loss rel {loss_err:.2e}, gradients {grad_err:.2e} "
+          "of peak", flush=True)
+    _check(launches == fft_launches == 1,
+           f"ASR (b): fused launches {launches}, FFT route {fft_launches}")
+    _check(math.isfinite(loss.item()) and loss_err <= LOSS_RTOL
+           and grad_err <= GRAD_PARITY,
+           f"ASR (b) vs CPU: loss {loss_err}, gradients {grad_err}")
+    return launches, {"ds_fwd_bwd_ms": ms, "ds_mel_ms": mel_ms,
+                      "ds_loss_rel": loss_err, "ds_grad_err": grad_err}
+
+
+def _asr_rnnt(gen: torch.Generator, card: str) -> dict:
+    """Phase 20 (c): ``rnnt_loss`` on a materialised joint and
+    ``rnnt_loss_fused`` from the encodings, at conformer-RNN-T-base
+    widths; equal to each other, two rows against the CPU copy; ms and
+    peak MiB above the inputs."""
+    from torchaudio_contrib_tpu_torch import ops
+    b, t, u, j, v = ASR["rnnt"]
+    enc = torch.randn((b, t, j), generator=gen)
+    pred = torch.randn((b, u + 1, j), generator=gen)
+    w = torch.randn((j, v), generator=gen) / math.sqrt(j)
+    bias = 0.1 * torch.randn((v,), generator=gen)
+    tg = torch.randint(0, v - 1, (b, u), generator=gen)
+    ll = t - torch.randint(0, t // 5, (b,), generator=gen)
+    tl = torch.randint(u * 3 // 5, u + 1, (b,), generator=gen)
+    ll[0], tl[0] = t, u
+    enc_c, pred_c, w_c, b_c = (a.cuda() for a in (enc, pred, w, bias))
+    tg_c, ll_c, tl_c = tg.cuda(), ll.cuda(), tl.cuda()
+    joiner = {"w": w_c, "b": b_c}
+
+    def join(e, p):
+        return torch.relu(e[:, :, None] + p[:, None]) @ w_c + b_c
+
+    with torch.no_grad():
+        logits = join(enc_c, pred_c)
+    logits.requires_grad_(True)
+
+    def lattice():
+        loss = ops.rnnt_loss(logits, tg_c, ll_c, tl_c)
+        loss.backward()
+        logits.grad = None
+        return loss
+
+    e = enc_c.detach().requires_grad_(True)
+
+    def fused():
+        loss = ops.rnnt_loss_fused(e, pred_c, joiner, tg_c, logit_lengths=ll_c,
+                                   target_lengths=tl_c)
+        loss.backward()
+        return loss
+
+    _, lat_ms, lat_peak = _on_card(lattice)
+    _, fused_ms, fused_peak = _on_card(fused)
+    fwd_ms = _time_ms(lambda: ops.rnnt_loss(logits.detach(), tg_c, ll_c,
+                                            tl_c), 1, 3)
+    e.grad = None
+    fused_loss = fused()
+    g_fused = e.grad.clone()
+    e.grad = None
+    plain_loss = ops.rnnt_loss(join(e, pred_c), tg_c, ll_c, tl_c)
+    plain_loss.backward()
+    val_err = abs(fused_loss.item() - plain_loss.item()) \
+        / abs(plain_loss.item())
+    grad_err = _rel(g_fused.cpu(), e.grad.cpu())
+    with torch.no_grad():
+        rows_card = ops.rnnt_loss(logits[:2], tg_c[:2], ll_c[:2], tl_c[:2],
+                                  reduction="none").cpu()
+        rows_fused = ops.rnnt_loss_fused(
+            enc_c[:2], pred_c[:2], joiner, tg_c[:2], logit_lengths=ll_c[:2],
+            target_lengths=tl_c[:2], reduction="none").cpu()
+        lg_cpu = torch.relu(enc[:2, :, None] + pred[:2, None]) @ w + bias
+        rows_cpu = ops.rnnt_loss(lg_cpu, tg[:2], ll[:2], tl[:2],
+                                 reduction="none")
+    rows_err = max(_rel(rows_card, rows_cpu), _rel(rows_fused, rows_cpu))
+    mib = logits.numel() * 4 / 2 ** 20
+    print(f"ASR (c) [{card}]: rnnt_loss on logits {tuple(logits.shape)} "
+          f"({mib:.0f} MiB) forward {fwd_ms:.2f} ms, forward + backward "
+          f"{lat_ms:.2f} ms, peak {lat_peak:.0f} MiB above the inputs "
+          f"({t + u} anti-diagonals); rnnt_loss_fused from enc "
+          f"{tuple(e.shape)}, pred {tuple(pred.shape)}, joiner "
+          f"{tuple(w.shape)} (time_chunk {max(4, 512 // b)}) forward + "
+          f"backward {fused_ms:.2f} ms, peak "
+          f"{fused_peak:.0f} MiB; fused vs rnnt_loss(join(...)): value rel "
+          f"{val_err:.2e}, enc gradient {grad_err:.2e} of peak; two rows vs "
+          f"the CPU copy {rows_err:.2e}", flush=True)
+    _check(val_err <= LOSS_RTOL and grad_err <= GRAD_PARITY
+           and rows_err <= LOSS_RTOL,
+           f"ASR (c): fused vs lattice {val_err}, gradient {grad_err}, "
+           f"rows vs CPU {rows_err}")
+    _check(fused_peak < lat_peak,
+           f"ASR (c): fused peak {fused_peak} MiB >= lattice {lat_peak}")
+    return {"rnnt_fwd_ms": fwd_ms, "rnnt_fwd_bwd_ms": lat_ms,
+            "rnnt_peak_mib": lat_peak, "rnnt_fused_fwd_bwd_ms": fused_ms,
+            "rnnt_fused_peak_mib": fused_peak, "rnnt_fused_rel": val_err,
+            "rnnt_fused_grad_err": grad_err, "rnnt_rows_rel": rows_err}
+
+
+def _asr_lexicon(gen: torch.Generator, letters: list) -> tuple:
+    """``(words, arpa lines)``: ``ASR["words"]`` distinct words of 2-7
+    letters and a bigram ARPA LM over them (every word a unigram; each
+    word's bigrams with four others)."""
+    words, seen = [], set()
+    while len(words) < ASR["words"]:
+        n = int(torch.randint(2, 8, (1,), generator=gen))
+        w = "".join(letters[i] for i in torch.randint(
+            0, len(letters), (n,), generator=gen).tolist())
+        if w not in seen:
+            seen.add(w)
+            words.append(w)
+    uni = torch.rand((len(words),), generator=gen).double() + 0.1
+    uni = torch.log10(uni / uni.sum()).tolist()
+    pairs = torch.randint(0, len(words), (len(words), 4), generator=gen)
+    bigrams = {}
+    for i, row in enumerate(pairs.tolist()):
+        for k, p in enumerate(row):
+            bigrams.setdefault((i, p), f"{-0.3 - 0.5 * k:.3f}\t{words[i]} "
+                               f"{words[p]}")
+    bigrams = list(bigrams.values())
+    lines = ["\\data\\", f"ngram 1={len(words) + 2}",
+             f"ngram 2={len(bigrams)}", "", "\\1-grams:",
+             "-1.000\t<s>\t-0.300", "-1.500\t</s>"]
+    lines += [f"{p:.4f}\t{w}\t-0.300" for w, p in zip(words, uni)]
+    lines += ["", "\\2-grams:"] + bigrams + ["", "\\end\\"]
+    return words, lines
+
+
+def _peaky(gen: torch.Generator, words: list, tokens: list, n: int,
+           frames: int) -> tuple:
+    """Emissions (n, frames, len(tokens)) planted from transcripts: each
+    clip's words, "|" after each, every token held for 2-3 frames and
+    followed by a blank frame; N(0, 1) logits with +8 on the planted
+    token, log-softmaxed.  Returns (emissions, transcripts (word lists),
+    token sequences, spans [(token, start, end)])."""
+    v = len(tokens)
+    logits = torch.randn((n, frames, v), generator=gen)
+    plant = torch.zeros((n, frames), dtype=torch.long)
+    scripts, seqs, spans = [], [], []
+    for i in range(n):
+        pos, script, seq, sp = 2, [], [], []
+        while True:
+            w = words[int(torch.randint(0, len(words), (1,), generator=gen))]
+            toks = [tokens.index(c) for c in w] + [tokens.index("|")]
+            hold = torch.randint(2, 4, (len(toks),), generator=gen).tolist()
+            if pos + sum(hold) + len(hold) > frames - 4:
+                break
+            for tok, h in zip(toks, hold):
+                plant[i, pos:pos + h] = tok
+                sp.append((tok, pos, pos + h))
+                pos += h + 1
+            script.append(w)
+            seq += toks
+        scripts.append(script)
+        seqs.append(seq)
+        spans.append(sp)
+    logits.scatter_add_(2, plant[..., None], torch.full((n, frames, 1), 8.0))
+    return torch.log_softmax(logits, -1), scripts, seqs, spans
+
+
+def _pad_ids(rows: list) -> tuple:
+    """``(ids (n, longest), lengths (n,))``, padded with -1."""
+    longest = max(1, max(len(r) for r in rows))
+    ids = torch.full((len(rows), longest), -1, dtype=torch.long)
+    for i, r in enumerate(rows):
+        ids[i, :len(r)] = torch.tensor(r, dtype=torch.long)
+    return ids, torch.tensor([len(r) for r in rows])
+
+
+def _words_of(tokens_row: list, tokens: list, sil: int) -> list:
+    out, cur = [], ""
+    for tok in tokens_row:
+        if tok == sil:
+            out.append(cur)
+            cur = ""
+        else:
+            cur += tokens[tok]
+    return out + ([cur] if cur else [])
+
+
+def _asr_decode(gen: torch.Generator, card: str, trained) -> dict:
+    """Phase 20 (d): greedy, beam and lexicon + bigram LM decoding of
+    peaky emissions planted from known transcripts (WER 0 by
+    ``edit_distance_batched``), the device searches against the host
+    searches on ``ASR["decode_check"]`` clips, ``forced_align`` and
+    ``merge_tokens`` against the planted alignment; then the same decoders
+    on (a)'s trained emissions, for timing."""
+    from torchaudio_contrib_tpu_torch import models, ops
+    a = ASR
+    letters = [chr(ord("a") + i) for i in range(26)]
+    tokens = ["-", "|"] + letters + ["'"]
+    sil = tokens.index("|")
+    words, arpa = _asr_lexicon(gen, letters)
+    word_id = {w: i for i, w in enumerate(words)}
+    lp, scripts, seqs, spans = _peaky(gen, words, tokens, a["clips"],
+                                      trained.shape[1])
+    lpc = lp.cuda()
+    host = models.ctc_decoder([f"{w} {' '.join(w)}" for w in words], tokens,
+                              lm=models.ARPALM(arpa), nbest=a["beam"],
+                              beam_size=a["beam"], beam_threshold=math.inf)
+    t0 = time.perf_counter()
+    device = ops.device_ctc_decoder(host)
+    compile_s = time.perf_counter() - t0
+
+    def wer(hyp_words: list) -> int:
+        ref, rl = _pad_ids([[word_id[w] for w in s] for s in scripts])
+        hyp, hl = _pad_ids([[word_id.get(w, -2) for w in h]
+                            for h in hyp_words])
+        d = ops.edit_distance_batched(ref.cuda(), hyp.cuda(), rl.cuda(),
+                                      hl.cuda())
+        return int(d.sum())
+
+    def greedy():
+        return ops.ctc_greedy_decode(lpc)
+
+    def beam():
+        return ops.ctc_beam_decode(lpc, beam_width=a["beam"])
+
+    (gt, gl, _), greedy_ms, _ = _on_card(greedy, reps=3)
+    (bt, bl, bs), beam_ms, beam_peak = _on_card(beam, reps=1)
+    t0 = time.perf_counter()
+    lex = device(lpc)
+    lex_s = time.perf_counter() - t0
+    greedy_rows = [gt[i, :gl[i]].tolist() for i in range(a["clips"])]
+    beam_rows = [bt[i, 0, :bl[i, 0]].tolist() for i in range(a["clips"])]
+    wers = {"greedy": wer([_words_of(r, tokens, sil) for r in greedy_rows]),
+            "beam": wer([_words_of(r, tokens, sil) for r in beam_rows]),
+            "lexicon": wer([h[0].words for h in lex])}
+    _check(greedy_rows == seqs and beam_rows == seqs
+           and all(w == 0 for w in wers.values()),
+           f"ASR (d): decoded transcripts differ, word errors {wers}")
+
+    n = a["decode_check"]
+    t0 = time.perf_counter()
+    host_beam = [ops.ctc_prefix_beam_search(lp[i], beam_width=a["beam"],
+                                            nbest=a["beam"])
+                 for i in range(n)]
+    host_lex = host(lp[:n])
+    host_s = time.perf_counter() - t0
+    beam_err = 0.0
+    for i, hyps in enumerate(host_beam):
+        got = [bt[i, k, :bl[i, k]].tolist() for k in range(len(hyps))]
+        _check(got == [h.tokens for h in hyps],
+               f"ASR (d): device beam != host prefix search, clip {i}")
+        beam_err = max(beam_err, max(abs(float(bs[i, k]) - h.score)
+                                     / max(1.0, abs(h.score))
+                                     for k, h in enumerate(hyps)))
+    lex_err = 0.0
+    for i in range(n):
+        got, want = lex[i], host_lex[i]
+        _check([(h.words, h.tokens, h.timesteps) for h in got]
+               == [(h.words, h.tokens, h.timesteps) for h in want],
+               f"ASR (d): device lexicon search != host search, clip {i}")
+        lex_err = max(lex_err, max(abs(g.score - h.score)
+                                   / max(1.0, abs(h.score))
+                                   for g, h in zip(got, want)))
+    _check(beam_err <= DECODE_REL and lex_err <= DECODE_REL,
+           f"ASR (d): scores vs host: beam {beam_err}, lexicon {lex_err}")
+
+    tgt, tgt_len = _pad_ids(seqs)
+    tgt = tgt.clamp(min=0).cuda()
+    (ali, ali_scores), align_ms, _ = _on_card(
+        lambda: ops.forced_align(lpc, tgt, None, tgt_len.cuda()), reps=1)
+    recovered = all(
+        [(s.token, s.start, s.end) for s in ops.merge_tokens(
+            ali[i], ali_scores[i])] == spans[i] for i in range(a["clips"]))
+    _check(recovered, "ASR (d): merge_tokens spans != the planted alignment")
+
+    tc = trained.cuda()
+    trained_ms = {
+        "greedy": _time_ms(lambda: ops.ctc_greedy_decode(tc), 1, 3),
+        "beam": _time_ms(lambda: ops.ctc_beam_decode(
+            tc, beam_width=a["beam"]), 0, 1),
+        "lexicon": _time_ms(lambda: device(tc), 0, 1)}
+    dist_ms = _time_ms(lambda: ops.edit_distance_batched(gt, gt, gl, gl), 1, 3)
+    n_tok = [len(s) for s in seqs]
+    print(f"ASR (d) [{card}]: peaky emissions {tuple(lp.shape)} of "
+          f"{sum(len(s) for s in scripts)} planted words "
+          f"({min(n_tok)}-{max(n_tok)} tokens a clip), lexicon of "
+          f"{len(words)} words ({device.tables.child.shape[0]} trie nodes), "
+          f"bigram ARPA LM ({device.tables.lm_score.shape[0]} states, tables "
+          f"compiled in {compile_s:.2f} s); word errors {wers}; ms a batch: "
+          f"greedy {greedy_ms:.3f}, beam (16) {beam_ms:.1f} (peak "
+          f"{beam_peak:.0f} MiB), lexicon + LM (16) {lex_s * 1e3:.1f} "
+          f"(host clock, n-best read back), forced_align {align_ms:.1f}, "
+          f"edit distance {dist_ms:.3f}; device vs host searches on {n} "
+          f"clips: equal, scores rel beam {beam_err:.2e}, lexicon "
+          f"{lex_err:.2e} (host {host_s:.1f} s); merge_tokens spans = the "
+          f"planted alignment; on (a)'s trained emissions: greedy "
+          f"{trained_ms['greedy']:.3f}, beam {trained_ms['beam']:.1f}, "
+          f"lexicon {trained_ms['lexicon']:.1f} ms", flush=True)
+    return {"greedy_ms": greedy_ms, "beam_ms": beam_ms,
+            "lexicon_ms": lex_s * 1e3, "align_ms": align_ms,
+            "edit_distance_ms": dist_ms, "lexicon_compile_s": compile_s,
+            "beam_rel": beam_err, "lexicon_rel": lex_err, "wer": wers,
+            "trained_ms": trained_ms}
+
+
+def phase_asr(gen: torch.Generator, card: str) -> int:
+    """Phase 20: the ASR path at full width (the module docstring).
+    Returns the fused forward's launches in (a) and (b)."""
+    a = ASR
+    x = _speech_batch(gen, a["clips"], a["samples"], a["sr"])
+    w2l_launches, emissions, nums = _asr_train(gen, card, x)
+    torch.cuda.empty_cache()
+    ds_launches, ds_nums = _asr_deepspeech(gen, card, x)
+    torch.cuda.empty_cache()
+    rnnt_nums = _asr_rnnt(gen, card)
+    torch.cuda.empty_cache()
+    decode_nums = _asr_decode(gen, card, emissions.cpu())
+    launches = w2l_launches + ds_launches
+    print("ASR path [" + card + "]: " + json.dumps(
+        {**nums, **ds_nums, **rnnt_nums, **decode_nums,
+         "fused_launches": launches}), flush=True)
+    return launches
+
+
 def _mel_bounds(x, mels: int, n_fft: int, hop: int) -> tuple:
     """The bounds of the fused mel forward and backward at ``x (B, 1, T)``.
     The function: one real transform per frame (an FFT's operations) plus
@@ -2242,6 +2763,8 @@ def main() -> None:
     corpus = phase_corpus(gen, card)
     phase_ops_on_card(gen)
     iir_launches = phase_iir(gen, card)
+    torch.cuda.empty_cache()
+    asr_launches = phase_asr(gen, card)
     source = "torchaudio_contrib_tpu_torch/csrc/"
     gl_file = "torchaudio_contrib_tpu/ops/fused_griffinlim.py"
     kernels = [
@@ -2250,9 +2773,10 @@ def main() -> None:
          "headers": [source + "fft_smem.cuh"],
          "replaces": "torchaudio_contrib_tpu/ops/fused.py:440",
          "launches": launches + train_counts[0] + corpus["launches"]
-         + iir_launches,
+         + iir_launches + asr_launches,
          "corpus_launches": corpus["launches"],
          "iir_pipeline_launches": iir_launches,
+         "asr_launches": asr_launches,
          "corpus_ms_per_batch": corpus["b1_ms_per_batch"],
          **stats, **fwd_bound},
         {"name": "fused_mel_bwd", "route": "cuda",

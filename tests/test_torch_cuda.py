@@ -674,3 +674,119 @@ def test_room_and_a_weighting_take_the_card_for_lists(cuda_device):
     hist = tops.ray_tracing(room, src, mics, 500, time_thres=0.05)
     assert hist.device.type == "cuda" and float(hist.sum()) > 0
     assert tops.a_weighting([100.0, 1000.0]).device.type == "cuda"
+
+
+# ---- the ASR path: losses, alignment, decoders and models ------------------
+
+def _asr_emissions(seed, b, t, c):
+    x = np.random.default_rng(seed).standard_normal((b, t, c)) * 2
+    x = x - np.log(np.exp(x).sum(-1, keepdims=True))
+    return torch.from_numpy(x.astype(np.float32))
+
+
+@pytest.mark.cuda
+def test_ctc_loss_and_alignment_on_card(cuda_device):
+    """Values, gradients, the Viterbi path and the edit distance: a CUDA
+    tensor in, a CUDA tensor out, as on the CPU copy."""
+    lp = _asr_emissions(4, 3, 60, 7)
+    tg = torch.from_numpy(np.random.default_rng(5).integers(1, 7, (3, 12)))
+    il, tl = torch.tensor([60, 41, 25]), torch.tensor([12, 8, 3])
+    want, want_g = [], []
+    for dev in ("cpu", cuda_device):
+        x = lp.to(dev).detach().requires_grad_(True)
+        loss = tops.ctc_loss(x, tg.to(dev), il.to(dev), tl.to(dev))
+        loss.backward()
+        assert loss.device == x.device
+        want.append(loss.detach().cpu())
+        want_g.append(x.grad.cpu())
+    assert _rel(want[1], want[0]) <= PARITY
+    assert _rel(want_g[1], want_g[0]) <= GRAD_PARITY
+    ca, cs = tops.forced_align(lp.to(cuda_device), tg.to(cuda_device),
+                               il.to(cuda_device), tl.to(cuda_device))
+    pa, ps = tops.forced_align(lp, tg, il, tl)
+    assert ca.device.type == "cuda" and torch.equal(ca.cpu(), pa)
+    assert (cs.cpu() - ps).abs().max() <= 1e-5
+    d = tops.edit_distance_batched(tg.to(cuda_device), ca, tl.to(cuda_device))
+    assert d.device.type == "cuda"
+    assert torch.equal(d.cpu(), tops.edit_distance_batched(tg, pa, tl))
+
+
+@pytest.mark.cuda
+def test_ctc_decoders_on_card(cuda_device):
+    lp = _asr_emissions(6, 3, 40, 6)
+    il = torch.tensor([40, 30, 9])
+    got = tops.ctc_greedy_decode(lp.to(cuda_device), il.to(cuda_device))
+    want = tops.ctc_greedy_decode(lp, il)
+    assert all(g.device.type == "cuda" for g in got)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    got = tops.ctc_beam_decode(lp.to(cuda_device), il.to(cuda_device),
+                               beam_width=8)
+    want = tops.ctc_beam_decode(lp, il, beam_width=8)
+    fin = torch.isfinite(want[2])
+    assert torch.equal(torch.isfinite(got[2].cpu()), fin)
+    assert torch.equal(got[0].cpu()[fin], want[0][fin])
+    assert (got[2].cpu()[fin] - want[2][fin]).abs().max() <= 1e-5
+    from torchaudio_contrib_tpu_torch.models import ctc_decoder
+    tokens = ["-", "|", "a", "b", "c", "d"]
+    host = ctc_decoder(["ab a b", "ba b a", "cad c a d", "dab d a b"],
+                       tokens, beam_size=6, nbest=3,
+                       beam_threshold=float("inf"))
+    dev = tops.device_ctc_decoder(host)
+    lp6 = _asr_emissions(7, 2, 20, 6)
+    got, want = dev(lp6.to(cuda_device)), host(lp6)
+    for gb, wb in zip(got, want):
+        assert [h.words for h in gb] == [h.words for h in wb]
+        assert [h.tokens for h in gb] == [h.tokens for h in wb]
+        for g, w in zip(gb, wb):
+            assert abs(g.score - w.score) <= 1e-5 * max(1.0, abs(w.score))
+
+
+@pytest.mark.cuda
+def test_rnnt_losses_on_card(cuda_device):
+    rng = np.random.default_rng(8)
+    b, t, u, j, v = 3, 30, 6, 16, 9
+    enc = torch.from_numpy(rng.standard_normal((b, t, j)).astype(np.float32))
+    pred = torch.from_numpy(rng.standard_normal((b, u + 1, j))
+                            .astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((j, v)) / 4).astype(np.float32))
+    bias = torch.zeros(v)
+    tg = torch.from_numpy(rng.integers(0, v - 1, (b, u)))
+    ll, tl = torch.tensor([30, 22, 9]), torch.tensor([6, 4, 0])
+    vals, grads = [], []
+    for dev in ("cpu", cuda_device):
+        e = enc.to(dev).detach().requires_grad_(True)
+        joint = torch.relu(e[:, :, None] + pred.to(dev)[:, None]) \
+            @ w.to(dev) + bias.to(dev)
+        plain = tops.rnnt_loss(joint, tg.to(dev), ll.to(dev), tl.to(dev))
+        fused = tops.rnnt_loss_fused(
+            e, pred.to(dev), {"w": w.to(dev), "b": bias.to(dev)}, tg.to(dev),
+            logit_lengths=ll.to(dev), target_lengths=tl.to(dev),
+            time_chunk=7)
+        assert fused.device == e.device
+        (g,) = torch.autograd.grad(fused, e)
+        vals += [plain.detach().cpu(), fused.detach().cpu()]
+        grads.append(g.cpu())
+    assert all(_rel(v_, vals[0]) <= PARITY for v_ in vals[1:])
+    assert _rel(grads[1], grads[0]) <= GRAD_PARITY
+
+
+@pytest.mark.cuda
+def test_asr_models_on_card(cuda_device):
+    from torchaudio_contrib_tpu_torch.models import DeepSpeech, Wav2Letter
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (2, 13, 60)).astype(np.float32))
+    for compat in ("tpu", "torchaudio"):
+        cpu = Wav2Letter(29, "mfcc", 13, compat, device="cpu",
+                         generator=torch.Generator().manual_seed(1))
+        card = copy.deepcopy(cpu).to(cuda_device)
+        got = card(x.to(cuda_device))
+        assert got.device.type == "cuda"
+        assert _rel(got, cpu(x)) <= PARITY
+    assert next(Wav2Letter(5, "mfcc", 13).parameters()).device.type \
+        == "cuda"
+    ds = DeepSpeech(13, 64, 29, device="cpu",
+                    generator=torch.Generator().manual_seed(2))
+    xs = x.transpose(1, 2).contiguous()
+    got = copy.deepcopy(ds).to(cuda_device)(xs.to(cuda_device), True)
+    assert _rel(got, ds(xs, True)) <= PARITY

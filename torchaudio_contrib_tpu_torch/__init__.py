@@ -16,10 +16,14 @@ pitch detection, effects, convolution, DSP synthesis, metrics,
 beamforming), the IIR family (``lfilter`` and the biquads as log-depth
 doubling scans, BS.1770 loudness, VAD, the SoX modulation effects, Kaldi
 pitch), room acoustics (image-source responses, ray tracing), the Kaldi
-feature extractors (``compliance.kaldi``) and the torchaudio-named
-transforms over them (``models.transforms``).
-Module names follow the JAX package's; the flat names below mirror its
-``__init__`` for the symbols ported so far.
+feature extractors (``compliance.kaldi``), the torchaudio-named
+transforms over them (``models.transforms``), and the ASR training and
+decoding path: the CTC and RNN-T losses (``RNNTLoss``), forced alignment,
+edit distance, greedy, beam and lexicon + n-gram LM CTC decoding (host
+and device searches) and the Wav2Letter and DeepSpeech models, fed by the
+fused front end.
+Module names follow the JAX package's; the flat names below are those of
+its ``__init__`` that are ported so far.
 
 This package imports torch and NumPy only — never JAX, and never the JAX
 package.
@@ -56,6 +60,20 @@ from .ops import (
     overdrive, contrast, phaser, flanger,
     vad, vad_onset, vad_trim,
     simulate_rir_ism, ray_tracing,
+    chroma_filterbank, mask_along_axis, mask_along_axis_iid, time_mask,
+    freq_mask, compute_deltas, preemphasis, deemphasis, spectral_centroid,
+    spectral_bandwidth, spectral_rolloff, spectral_flatness,
+    zero_crossing_rate, create_chroma_filter, cqt_frequencies,
+    create_cqt_kernel, cqt, pseudo_cqt, detect_pitch_frequency, fade, gain,
+    dither, dcshift, sliding_window_cmn, add_noise, speed, apply_codec,
+    convolve, fftconvolve, oscillator_bank, adsr_envelope, extend_pitch,
+    sinc_impulse_response, frequency_impulse_response, filter_waveform,
+    exp_sigmoid, forced_align, merge_tokens, TokenSpan, edit_distance,
+    edit_distance_batched, rnnt_loss, rnnt_loss_fused, ctc_greedy_decode,
+    ctc_prefix_beam_search, ctc_beam_decode, CTCHypothesis, ctc_loss, snr,
+    si_snr, frechet_distance, psd, mvdr_weights_souden, mvdr_weights_rtf,
+    rtf_evd, rtf_power, apply_beamforming, ctc_lexicon_beam_decode,
+    device_ctc_decoder, DeviceCTCDecoder,
 )
 from .models import (
     Transform, Pipeline,
@@ -66,6 +84,16 @@ from .models import (
     Resample, StretchSpecTime, GriffinLim,
     Spectrogram, Melspectrogram, Barkspectrogram, FusedMelspectrogram,
     MelFrontendClassifier,
+    AmplitudeToDB, MelSpectrogram, TimeStretch, SpecAugment, MVDR,
+    BarkScale, InverseBarkScale, BarkSpectrogram, ChromaScale,
+    ChromaSpectrogram, ChromaFilterbank, Chromagram, Wav2Letter, DeepSpeech,
+    CTCDecoderLM, ZeroLM, ARPALM, CTCDecoder, CTCDecoderOutput, ctc_decoder,
+    MFCC, Loudness, PitchShift, Speed, AddNoise, Fade, Vol,
+    FrequencyMasking, TimeMasking, Preemphasis, Deemphasis, ComputeDeltas,
+    SlidingWindowCmn, SpectralCentroid, MelScale, InverseMelScale, PSD,
+    SoudenMVDR, RTFMVDR, Vad, Overdrive, Phaser, Flanger, Contrast, Lowpass,
+    Highpass, Equalizer, RNNTLoss, LFCC, Convolve, FFTConvolve,
+    SpeedPerturbation,
 )
 
 __all__ = [
@@ -106,4 +134,31 @@ __all__ = [
     "Spectrogram", "Melspectrogram", "Barkspectrogram",
     "FusedMelspectrogram",
     "MelFrontendClassifier",
+    "chroma_filterbank", "mask_along_axis", "mask_along_axis_iid",
+    "time_mask", "freq_mask", "compute_deltas", "preemphasis", "deemphasis",
+    "spectral_centroid", "spectral_bandwidth", "spectral_rolloff",
+    "spectral_flatness", "zero_crossing_rate", "create_chroma_filter",
+    "cqt_frequencies", "create_cqt_kernel", "cqt", "pseudo_cqt",
+    "detect_pitch_frequency", "fade", "gain", "dither", "dcshift",
+    "sliding_window_cmn", "add_noise", "speed", "apply_codec", "convolve",
+    "fftconvolve", "oscillator_bank", "adsr_envelope", "extend_pitch",
+    "sinc_impulse_response", "frequency_impulse_response",
+    "filter_waveform", "exp_sigmoid", "forced_align", "merge_tokens",
+    "TokenSpan", "edit_distance", "edit_distance_batched", "rnnt_loss",
+    "rnnt_loss_fused", "ctc_greedy_decode", "ctc_prefix_beam_search",
+    "ctc_beam_decode", "CTCHypothesis", "ctc_loss", "snr", "si_snr",
+    "frechet_distance", "psd", "mvdr_weights_souden", "mvdr_weights_rtf",
+    "rtf_evd", "rtf_power", "apply_beamforming", "ctc_lexicon_beam_decode",
+    "device_ctc_decoder", "DeviceCTCDecoder",
+    "AmplitudeToDB", "MelSpectrogram", "TimeStretch", "SpecAugment", "MVDR",
+    "BarkScale", "InverseBarkScale", "BarkSpectrogram", "ChromaScale",
+    "ChromaSpectrogram", "ChromaFilterbank", "Chromagram", "Wav2Letter",
+    "DeepSpeech", "CTCDecoderLM", "ZeroLM", "ARPALM", "CTCDecoder",
+    "CTCDecoderOutput", "ctc_decoder", "MFCC", "Loudness", "PitchShift",
+    "Speed", "AddNoise", "Fade", "Vol", "FrequencyMasking", "TimeMasking",
+    "Preemphasis", "Deemphasis", "ComputeDeltas", "SlidingWindowCmn",
+    "SpectralCentroid", "MelScale", "InverseMelScale", "PSD", "SoudenMVDR",
+    "RTFMVDR", "Vad", "Overdrive", "Phaser", "Flanger", "Contrast",
+    "Lowpass", "Highpass", "Equalizer", "RNNTLoss", "LFCC", "Convolve",
+    "FFTConvolve", "SpeedPerturbation",
 ]

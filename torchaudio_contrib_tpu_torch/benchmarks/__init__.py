@@ -10,7 +10,10 @@ transform from the mel products; ``mel_ab`` prints those kernels' times for
 whichever tree ``PYTHONPATH`` names, to compare a change with its parent
 on one card, and ``gl_ab`` does so for the fused Griffin-Lim solve (both
 routes, the rounds a block takes, the stage switches).  The ``gl_*``
-benchmarks run the route the size takes and print it.
+benchmarks run the route the size takes and print it.  ``corpus_run``
+times BASELINE config 5; ``asr_profile`` traces the ASR path's training
+step, RNN-T loss and beam search at ``chip_smoke.py`` phase 20's shapes and
+holds the step's gradient against a float64 step.
 """
 from __future__ import annotations
 

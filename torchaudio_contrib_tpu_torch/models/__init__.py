@@ -1,6 +1,7 @@
 """Layer API and models of the PyTorch port (the mel front end's and the
-inverse path's slices, and the torchaudio-named transforms over the ported
-ops)."""
+inverse path's slices, the torchaudio-named transforms over the ported
+ops, the classic ASR models Wav2Letter and DeepSpeech, and the host
+lexicon + LM CTC decoder)."""
 from .layers import (
     Transform, Pipeline,
     STFT, ISTFT, InverseSpectrogram, ComplexNorm,
@@ -13,6 +14,11 @@ from .layers import (
     FusedMelspectrogram,
 )
 from .frontend import MelFrontendClassifier
+from .asr import Wav2Letter, DeepSpeech
+from .decoder import (
+    CTCDecoderLM, ZeroLM, ARPALM,
+    CTCDecoder, CTCDecoderOutput, ctc_decoder,
+)
 from . import transforms
 from .transforms import (
     MFCC, PitchShift, Speed, AddNoise, Fade, Vol, FrequencyMasking,
@@ -22,7 +28,7 @@ from .transforms import (
     MelSpectrogram, TimeStretch, SpecAugment, MVDR, BarkScale,
     InverseBarkScale, BarkSpectrogram, ChromaScale, ChromaSpectrogram,
     Loudness, Vad, Overdrive, Phaser, Flanger, Contrast, Lowpass, Highpass,
-    Equalizer,
+    Equalizer, RNNTLoss,
 )
 
 __all__ = [
@@ -35,6 +41,8 @@ __all__ = [
     "Resample", "StretchSpecTime", "GriffinLim",
     "Spectrogram", "Melspectrogram", "Barkspectrogram", "Chromagram",
     "FusedMelspectrogram",
-    "MelFrontendClassifier",
+    "MelFrontendClassifier", "Wav2Letter", "DeepSpeech",
+    "CTCDecoderLM", "ZeroLM", "ARPALM",
+    "CTCDecoder", "CTCDecoderOutput", "ctc_decoder",
     "transforms",
 ] + list(transforms.__all__)

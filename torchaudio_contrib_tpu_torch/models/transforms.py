@@ -8,8 +8,6 @@ from the config.  Randomised transforms (``FrequencyMasking``,
 ``TimeMasking``, ``SpecAugment``, ``SpeedPerturbation``) take an explicit
 ``generator=`` (a ``torch.Generator``, or None for the global one) in the
 call where the JAX layers take ``key=``.
-
-``RNNTLoss`` waits for its op (``rnnt_loss``).
 """
 from __future__ import annotations
 
@@ -29,7 +27,7 @@ __all__ = [
     "SpectralCentroid", "MelScale", "InverseMelScale",
     "PSD", "SoudenMVDR", "RTFMVDR", "Vad",
     "Overdrive", "Phaser", "Flanger", "Contrast",
-    "Lowpass", "Highpass", "Equalizer",
+    "Lowpass", "Highpass", "Equalizer", "RNNTLoss",
     "LFCC", "Convolve", "FFTConvolve", "SpeedPerturbation",
     "AmplitudeToDB", "MelSpectrogram", "TimeStretch", "SpecAugment",
     "MVDR",
@@ -372,6 +370,26 @@ class Vad(Transform):
         if self.mode == "trim":
             return _ops.vad_trim(x, self.sample_rate, **self.kw)
         return _ops.vad_onset(x, self.sample_rate, **self.kw)
+
+
+class RNNTLoss(Transform):
+    """Transducer loss over :func:`~..ops.rnnt.rnnt_loss`.
+
+    ``forward(logits, targets, logit_lengths, target_lengths)`` — a loss
+    takes the lattice plus labels, so this transform departs from the
+    single-``x`` call shape (as torchaudio's does)."""
+
+    def __init__(self, blank: int = -1, clamp: float = -1.0,
+                 reduction: str = "mean",
+                 fused_log_softmax: bool = True):
+        super().__init__()
+        self.kw = dict(blank=blank, clamp=clamp, reduction=reduction,
+                       fused_log_softmax=fused_log_softmax)
+
+    def forward(self, logits, targets, logit_lengths=None,
+                target_lengths=None):
+        return _ops.rnnt_loss(logits, targets, logit_lengths,
+                              target_lengths, **self.kw)
 
 
 class LFCC(Transform):

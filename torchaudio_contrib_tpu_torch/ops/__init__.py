@@ -4,7 +4,9 @@ ops with no recurrence of their own: masking, deltas and emphasis,
 spectral descriptors, chroma, CQT, pitch detection, effects, convolution,
 DSP synthesis, metrics, beamforming; the IIR family: ``lfilter`` and the
 biquads, loudness, VAD, the modulation effects, Kaldi pitch; room
-acoustics: image-source responses and ray tracing).
+acoustics: image-source responses and ray tracing; the ASR losses and
+decoders: CTC and RNN-T losses, forced alignment, edit distance, greedy,
+beam and lexicon + LM beam search).
 
 Module names follow ``torchaudio_contrib_tpu.ops``; each module is the
 counterpart of the JAX module of the same name.
@@ -75,6 +77,16 @@ from .modfx import overdrive, contrast, phaser, flanger
 from .vad import vad, vad_onset, vad_trim
 from .rir import simulate_rir_ism
 from .raytrace import ray_tracing
+from .align import forced_align, merge_tokens, TokenSpan
+from .edit import edit_distance, edit_distance_batched
+from .rnnt import rnnt_loss, rnnt_loss_fused
+from .ctcloss import ctc_loss
+from .lexdecode import (LexiconTables, CompiledLexicon,
+                        compile_lexicon_tables,
+                        ctc_lexicon_beam_decode, DeviceCTCDecoder,
+                        device_ctc_decoder)
+from .ctcdecode import (ctc_greedy_decode, ctc_prefix_beam_search,
+                        ctc_beam_decode, CTCHypothesis)
 from .metrics import snr, si_snr, frechet_distance
 from .beamform import (psd, mvdr_weights_souden, mvdr_weights_rtf,
                        rtf_evd, rtf_power, apply_beamforming)
@@ -122,7 +134,13 @@ __all__ = [
     "oscillator_bank", "adsr_envelope", "extend_pitch",
     "sinc_impulse_response", "frequency_impulse_response",
     "filter_waveform", "exp_sigmoid",
-    "snr", "si_snr", "frechet_distance",
+    "forced_align", "merge_tokens", "TokenSpan",
+    "edit_distance", "edit_distance_batched", "rnnt_loss", "rnnt_loss_fused",
+    "ctc_greedy_decode", "ctc_prefix_beam_search", "ctc_beam_decode",
+    "CTCHypothesis",
+    "LexiconTables", "CompiledLexicon", "compile_lexicon_tables",
+    "ctc_lexicon_beam_decode", "DeviceCTCDecoder", "device_ctc_decoder",
+    "ctc_loss", "snr", "si_snr", "frechet_distance",
     "psd", "mvdr_weights_souden", "mvdr_weights_rtf", "rtf_evd",
     "rtf_power", "apply_beamforming",
 ]

@@ -1,4 +1,6 @@
 """Utilities of the PyTorch port."""
-from .convert import from_jax_params
+from .convert import (from_jax_params, wav2letter_from_jax_params,
+                      deepspeech_from_jax_params)
 
-__all__ = ["from_jax_params"]
+__all__ = ["from_jax_params", "wav2letter_from_jax_params",
+           "deepspeech_from_jax_params"]
