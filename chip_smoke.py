@@ -1,5 +1,6 @@
 """GPU smoke run of the PyTorch port's serving, training and inverse paths,
-its corpus path, the IIR family and the ASR path.
+its corpus path, the IIR family, the ASR path and the streaming transducer
+family.
 
     python3 chip_smoke.py
 
@@ -137,7 +138,28 @@ imports no JAX.  Phases, each printing its lines:
     decoding of emissions planted from known transcripts (word error 0 by
     ``edit_distance_batched``), the device searches equal to the host
     searches on 2 clips, ``forced_align`` and ``merge_tokens`` recovering
-    the planted alignment, and the decoders timed on (a)'s emissions.
+    the planted alignment, and the decoders timed on (a)'s emissions;
+21. the streaming transducer family at full width (no kernel: the launch
+    counters stay at 0, the bundle's extractor being the plain chain), on
+    CUDA tensors against a CPU copy with TF32 off: (a) 4 requests of 10 s
+    of speech-like audio at 16 kHz served by
+    ``pipelines.EMFORMER_RNNT_BASE_LIBRISPEECH.get_model(generator=...)``
+    (20 x 512 Emformer, 4097 symbols) under ``torch.inference_mode()``:
+    the bundle's extractor (checked against its CPU copy and a float64
+    build, 1e-4 of peak: a log-domain output), then segment by
+    segment (16 + 4 input frames) through ``stream_greedy_step``, and
+    through ``stream_transcribe`` + ``RNNTBeamSearch.infer_batched`` (beam
+    8), the tokens read back each segment; the streamed greedy grid equal
+    to one-shot ``greedy_decode``'s, the streamed beam equal to
+    ``decode_batched``'s, the host beam ``__call__`` equal to the batched
+    beam on one request, the one-shot encodings within 1e-4 of peak of the
+    CPU copy's; ms per segment (median and max) beside the 160 ms of audio
+    a segment holds, one-shot ``transcribe`` ms, peak MiB; (b)
+    ``conformer_rnnt_base()`` trained by SGD on ``RNNT.loss`` (fused) over
+    8 x 10 s of the extractor's features with 60-100 target tokens: the
+    loss (1e-5 relative) and gradients (1e-4 of the whole gradient's peak)
+    of 2 clips against the CPU copy, ms per step and the shares of the
+    model's forward + backward and of the fused loss's.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -229,6 +251,26 @@ ASR = dict(clips=16, samples=160000, sr=16000, classes=29,
            words=1000, beam=16, decode_check=2)
 # device search scores vs the host's float64 search: |diff| / max(1, |host|)
 DECODE_REL = 1e-5
+# Phase 21, the streaming transducer family at full width: (a) 4 requests
+# of 10 s at 16 kHz served by EMFORMER_RNNT_BASE_LIBRISPEECH (20 x 512
+# Emformer, 4097 symbols, ~77 M parameters) a segment (16 + 4 input frames)
+# at a time, greedy and beam 8, max 4 symbols a frame; (b)
+# conformer_rnnt_base (16 x 256 Conformer, 1024-wide encodings, 1024
+# symbols) trained on 8 x 10 s of the bundle's features (250 reduced
+# frames) against 60-100 tokens, ``check`` clips against the CPU copy.
+# The random model's 4097-way posteriors are near flat, which no trained
+# model's are: its beam would be a field of near-ties that float32 orders
+# by rounding.  So the joiner is made as confident as a trained one: its
+# weights times ``joiner_scale``, and blank's bias raised until greedy
+# decoding of the requests emits ``tokens_per_frame`` (a sentencepiece
+# model's pace: a piece every 160 ms) (``_confident_joiner``).
+RNNT_SERVE = dict(requests=4, samples=160000, sr=16000, beam=8,
+                  max_symbols=4, joiner_scale=8.0, tokens_per_frame=0.25)
+RNNT_TRAIN = dict(clips=8, samples=160000, targets=(60, 100), symbols=1024,
+                  lr=1e-5, check=2)
+# beams against each other: |diff| / max(1, |score|) (float32 running sums
+# against the host beam's float64 ones over ~1000 tokens)
+BEAM_REL = 1e-4
 # Published peaks of one H100 SXM (data sheet, 700 W): FP32 outside the
 # tensor cores, and HBM3.
 PEAK_FP32 = 67e12
@@ -2704,6 +2746,327 @@ def phase_asr(gen: torch.Generator, card: str) -> int:
     return launches
 
 
+def _segments(feats: torch.Tensor, T: int, S: int, R: int):
+    """``(chunk (B, S + R, D), utt_lengths, rc_lengths)`` a segment of
+    full-length streams ``feats (B, T + R, D)``: ``S`` utterance slots
+    (zero-padded past ``T``: the last segment may be short) and the ``R``
+    lookahead frames after the segment's valid ones."""
+    B = feats.shape[0]
+    nseg = -(-T // S)
+    ext = torch.nn.functional.pad(feats, (0, 0, 0, nseg * S - T))
+    for i in range(nseg):
+        base, rc = i * S, min(i * S + S, T)
+        yield (torch.cat([ext[:, base:base + S], ext[:, rc:rc + R]], 1),
+               torch.full((B,), min(S, T - base)),
+               torch.full((B,), min(R, T + R - rc)))
+
+
+def _confident_joiner(model, enc) -> float:
+    """Scale the joiner by ``RNNT_SERVE["joiner_scale"]`` and raise blank's
+    bias, by bisection, until greedy decoding of ``enc`` emits about
+    ``RNNT_SERVE["tokens_per_frame"]``.  Returns the raise."""
+    a = RNNT_SERVE
+    lin, blank = model.joiner.linear, model.blank
+    lengths = torch.full((enc.shape[0],), enc.shape[1])
+
+    def rate(r: float) -> float:
+        with torch.no_grad():
+            lin.bias[blank] = r
+        grid, _ = model._greedy_on_enc(enc, lengths, a["max_symbols"],
+                                       model.greedy_init_state(len(enc)))
+        return (grid != blank).sum().item() / enc.shape[:2].numel()
+
+    with torch.no_grad():
+        lin.weight.mul_(a["joiner_scale"])
+    lo, hi = 0.0, 1.0
+    while rate(hi) > a["tokens_per_frame"]:
+        lo, hi = hi, 2 * hi
+    for _ in range(8):
+        mid = (lo + hi) / 2
+        lo, hi = (mid, hi) if rate(mid) > a["tokens_per_frame"] \
+            else (lo, mid)
+    rate(hi)
+    return hi
+
+
+def _same_nbest(got: list, want: list) -> float:
+    """Fails unless the n-best lists hold the same sequences in the same
+    order; returns the largest |score diff| / max(1, |score|)."""
+    err = 0.0
+    _check(len(got) == len(want), "beams: batch sizes differ")
+    for g, w in zip(got, want):
+        _check([t for t, _ in g] == [t for t, _ in w],
+               f"beams: n-best sequences differ ({len(g)} vs {len(w)} "
+               "hypotheses)")
+        err = max([err] + [abs(a - b) / max(1.0, abs(b))
+                           for (_, a), (_, b) in zip(g, w)])
+    return err
+
+
+def _rnnt_serve(gen: torch.Generator, card: str) -> dict:
+    """Phase 21 (a): the Emformer-RNNT bundle serving 4 requests, streamed
+    and one-shot, greedy and beam (the module docstring)."""
+    from torchaudio_contrib_tpu_torch.pipelines import \
+        EMFORMER_RNNT_BASE_LIBRISPEECH as bundle
+    a = RNNT_SERVE
+    B, ms_ = a["requests"], a["max_symbols"]
+    S, R = bundle.segment_length, bundle.right_context_length
+    stride = bundle.time_reduction_stride
+    x = _speech_batch(gen, B, a["samples"], a["sr"])
+    model_cpu = bundle.get_model(gen, device="cpu").eval()
+    n_params = sum(p.numel() for p in model_cpu.parameters())
+    with torch.inference_mode():
+        extract_cpu = bundle.get_feature_extractor(device="cpu")
+        feats_cpu = extract_cpu(x)
+        # the log of a float32 FFT's power: a quiet bin's rounding, which
+        # is relative to its frame's loudest, becomes an absolute error
+        feats64 = extract_cpu.double()(x.double())
+    # the utterance: the extractor's frames less the lookahead, trimmed to
+    # a stride multiple (the JAX bundle's docstring asks the same)
+    T = (feats_cpu.shape[1] - R) // stride * stride
+    t_red = T // stride
+    feats_cpu, feats64 = feats_cpu[:, :T + R], feats64[:, :T + R]
+    lengths = torch.full((B,), T)
+    with torch.inference_mode():
+        enc_cpu, _ = model_cpu.transcribe(feats_cpu, lengths)
+    blank_raise = _confident_joiner(model_cpu, enc_cpu)
+    model = copy.deepcopy(model_cpu).cuda()
+    search = bundle.get_decoder(model, beam_width=a["beam"])
+    max_tokens = t_red * ms_
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    _reset_gl_counts()
+    with torch.inference_mode():
+        extract = bundle.get_feature_extractor()
+        feats = extract(x.cuda())[:, :T + R]
+        feat_err = _rel(feats.cpu(), feats_cpu)
+        feat64_err = (_rel(feats.cpu().double(), feats64),
+                      _rel(feats_cpu.double(), feats64))
+        lc = lengths.cuda()
+
+        def timed(fn):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            stop.record()
+            stop.synchronize()
+            return out, start.elapsed_time(stop)
+
+        # one segment of each decoder first, untimed: a server is warm
+        first = next(_segments(feats, T, S, R))
+        model.stream_greedy_step(first[0], model.init_stream_state(B),
+                                 max_symbols=ms_, utt_lengths=first[1],
+                                 rc_lengths=first[2])[0].cpu()
+        f, ol, _ = model.stream_transcribe(
+            first[0], model.transcriber.init_state(B),
+            utt_lengths=first[1], rc_lengths=first[2])
+        search.infer_batched(f, ol, search.init_batched_state(B, max_tokens))
+
+        # streamed greedy: a server reads each segment's tokens back
+        state = model.init_stream_state(B)
+        grids, greedy_ms = [], []
+        for chunk, ul, rl in _segments(feats, T, S, R):
+            def seg():
+                g, _, st = model.stream_greedy_step(
+                    chunk, state, max_symbols=ms_, utt_lengths=ul,
+                    rc_lengths=rl)
+                return g.cpu(), st
+            (g, state), ms = timed(seg)
+            grids.append(g)
+            greedy_ms.append(ms)
+        grid_stream = torch.cat(grids, 1)[:, :t_red]
+
+        # streamed batched beam: encodings a segment, the beam's carry
+        carry = search.init_batched_state(B, max_tokens)
+        enc_state = model.transcriber.init_state(B)
+        enc_stream, beam_ms = [], []
+        for chunk, ul, rl in _segments(feats, T, S, R):
+            def seg():
+                f, ol, st = model.stream_transcribe(
+                    chunk, enc_state, utt_lengths=ul, rc_lengths=rl)
+                nbest, c = search.infer_batched(f, ol, carry)
+                return f, st, nbest, c
+            (f, enc_state, beam_stream, carry), ms = timed(seg)
+            enc_stream.append(f)
+            beam_ms.append(ms)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+        (enc, _), transcribe_ms = timed(lambda: model.transcribe(feats, lc))
+        transcribe_ms = min(transcribe_ms, _time_ms(
+            lambda: model.transcribe(feats, lc), 1, 3))
+        grid, greedy_full_ms = timed(lambda: model.greedy_decode(
+            feats, lc, max_symbols=ms_, compact=False).cpu())
+        beam, beam_full_ms = timed(lambda: search.decode_batched(
+            feats, lc, max_tokens=max_tokens))
+        one, one_ms = timed(lambda: search.decode_batched(
+            feats[:1], lc[:1], max_tokens=max_tokens))
+        host, host_ms = timed(lambda: search(feats[:1], lc[:1]))
+    launches = sum(_counts()) + sum(_gl_counts())
+
+    enc_err = _rel(enc.cpu(), enc_cpu)
+    stream_err = _rel(torch.cat(enc_stream, 1)[:, :t_red], enc)
+    greedy_equal = torch.equal(grid_stream, grid)
+    emitted = int((grid != model.blank).sum())
+    print(f"Transducer (a) [{card}]: EMFORMER_RNNT_BASE_LIBRISPEECH "
+          f"({n_params} parameters, joiner x{a['joiner_scale']}, blank "
+          f"+{blank_raise:.3f}) serving {B} requests of "
+          f"{a['samples'] / a['sr']:.0f} s: features {tuple(feats.shape)} "
+          f"(vs CPU {feat_err:.2e}; card and CPU vs float64 "
+          f"{feat64_err[0]:.2e}, {feat64_err[1]:.2e}), {len(greedy_ms)} "
+          f"segments of {S} + "
+          f"{R} frames ({S * bundle.hop_length * 1000 // a['sr']} ms of "
+          f"audio each), encodings {tuple(enc.shape)}; ms per segment "
+          f"after one untimed segment: "
+          f"greedy median {np.median(greedy_ms):.2f}, max "
+          f"{max(greedy_ms):.2f}; beam {a['beam']} median "
+          f"{np.median(beam_ms):.2f}, max {max(beam_ms):.2f}; one-shot "
+          f"transcribe {transcribe_ms:.2f}, greedy_decode "
+          f"{greedy_full_ms:.1f}, decode_batched {beam_full_ms:.1f}; one "
+          f"request: batched beam {one_ms:.1f}, host beam {host_ms:.1f}; "
+          f"peak {peak:.0f} MiB above the inputs; {emitted} tokens emitted "
+          f"in {t_red} frames x {B}; encodings vs the CPU copy (TF32 off) "
+          f"{enc_err:.2e}, streamed vs one-shot {stream_err:.2e} of peak; "
+          f"kernel launches {launches}", flush=True)
+    _check(launches == 0, f"Transducer (a): {launches} kernel launches")
+    _check(max(feat_err, *feat64_err) <= SCAN_PARITY
+           and enc_err <= GRAD_PARITY and stream_err <= GRAD_PARITY,
+           f"Transducer (a): features {feat_err} (vs float64 {feat64_err}), "
+           f"encodings vs CPU {enc_err}, streamed vs one-shot {stream_err}")
+    _check(greedy_equal, "Transducer (a): the streamed greedy grid differs "
+           "from greedy_decode's")
+    stream_beam_err = _same_nbest(beam_stream, beam)
+    host_err = _same_nbest(host, one)
+    _check(stream_beam_err <= BEAM_REL and host_err <= BEAM_REL,
+           f"Transducer (a): beam scores: streamed {stream_beam_err}, host "
+           f"{host_err}")
+    print(f"Transducer (a) [{card}]: streamed greedy grid = greedy_decode's; "
+          f"streamed beam = decode_batched (scores {stream_beam_err:.2e}); "
+          f"host beam = batched beam on one request ({len(host[0])} "
+          f"hypotheses, scores {host_err:.2e}); best score "
+          f"{beam[0][0][1]:.3f} over {len(beam[0][0][0])} tokens",
+          flush=True)
+    return {"serve_params": n_params, "segments": len(greedy_ms),
+            "greedy_ms_median": float(np.median(greedy_ms)),
+            "greedy_ms_max": max(greedy_ms),
+            "beam_ms_median": float(np.median(beam_ms)),
+            "beam_ms_max": max(beam_ms), "transcribe_ms": transcribe_ms,
+            "greedy_decode_ms": greedy_full_ms,
+            "decode_batched_ms": beam_full_ms, "one_request_batched_ms":
+            one_ms, "one_request_host_ms": host_ms, "serve_peak_mib": peak,
+            "features_err": feat_err, "features_f64_err": feat64_err,
+            "enc_err": enc_err, "stream_err": stream_err,
+            "beam_stream_rel": stream_beam_err, "beam_host_rel": host_err,
+            "tokens_emitted": emitted}
+
+
+def _rnnt_train(gen: torch.Generator, card: str) -> dict:
+    """Phase 21 (b): ``conformer_rnnt_base`` trained on ``RNNT.loss``
+    (the module docstring)."""
+    from torchaudio_contrib_tpu_torch import models, ops
+    from torchaudio_contrib_tpu_torch.pipelines import \
+        EMFORMER_RNNT_BASE_LIBRISPEECH as bundle
+    b = RNNT_TRAIN
+    n = b["check"]
+    x = _speech_batch(gen, b["clips"], b["samples"], 16000)
+    with torch.no_grad():
+        feats = bundle.get_feature_extractor()(x.cuda())
+    tg, tl = _asr_targets(gen, b["clips"], *b["targets"], b["symbols"])
+    model = models.conformer_rnnt_base(b["symbols"], device="cpu",
+                                       generator=gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    card_model = copy.deepcopy(model).cuda()
+    opt = torch.optim.SGD(card_model.parameters(), lr=b["lr"])
+    tgc, tlc = tg.cuda(), tl.cuda()
+
+    # step 0 on ``check`` clips against the CPU copy
+    _reset_counts()
+    _reset_gl_counts()
+    loss = card_model.loss(feats[:n], tgc[:n], None, tlc[:n])
+    loss.backward()
+    grads = _param_grads(card_model)
+    cpu_loss = model.loss(feats[:n].cpu(), tg[:n], None, tl[:n])
+    cpu_loss.backward()
+    loss_err = abs(loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+    grad_err = _grad_err(grads, _param_grads(model))
+
+    def step():
+        out = card_model.loss(feats, tgc, None, tlc)
+        opt.zero_grad()
+        out.backward()
+        opt.step()
+        return out
+
+    losses, step_ms, step_peak = [], [], 0.0
+    for _ in range(3):
+        out, ms, pk = _on_card(step, reps=0)
+        losses.append(out.item())
+        step_ms.append(ms)
+        step_peak = max(step_peak, pk)
+    launches = sum(_counts()) + sum(_gl_counts())
+
+    enc, _ = card_model.transcribe(feats)
+    pred = card_model.predictor(tgc)
+    g_enc, g_pred = torch.randn_like(enc), torch.randn_like(pred)
+
+    def model_part():
+        e, _ = card_model.transcribe(feats)
+        p = card_model.predictor(tgc)
+        opt.zero_grad()
+        torch.autograd.backward([e, p], [g_enc, g_pred])
+
+    enc_d = enc.detach().requires_grad_()
+    pred_d = pred.detach().requires_grad_()
+    lin = card_model.joiner.linear
+
+    def loss_part():
+        out = ops.rnnt_loss_fused(enc_d, pred_d,
+                                  {"w": lin.weight.t(), "b": lin.bias},
+                                  tgc, act=card_model.act,
+                                  target_lengths=tlc, blank=0)
+        out.backward()
+
+    model_ms = _time_ms(model_part, 1, 3)
+    loss_ms = _time_ms(loss_part, 1, 3)
+    step_med = float(np.median(step_ms))
+    print(f"Transducer (b) [{card}]: conformer_rnnt_base ({n_params} "
+          f"parameters) on features {tuple(feats.shape)} -> encodings "
+          f"{tuple(enc.shape)}, {int(tl.min())}-{int(tl.max())} target "
+          f"tokens, 3 SGD steps on RNNT.loss (fused, time_chunk "
+          f"{max(4, 512 // b['clips'])}): losses "
+          f"{[round(v, 4) for v in losses]}; ms per step {step_ms[0]:.1f} "
+          f"(first), median {step_med:.1f}, peak {step_peak:.0f} MiB; the "
+          f"model's forward + backward {model_ms:.1f} ms "
+          f"({model_ms / step_med:.0%} of a step), the fused loss's "
+          f"(joint + lattice) {loss_ms:.1f} ms ({loss_ms / step_med:.0%}); "
+          f"{n} clips vs the CPU copy (TF32 off): loss rel "
+          f"{loss_err:.2e}, gradients {grad_err:.2e} of peak; kernel "
+          f"launches {launches}", flush=True)
+    _check(launches == 0, f"Transducer (b): {launches} kernel launches")
+    _check(all(math.isfinite(v) for v in losses), f"Transducer (b): {losses}")
+    _check(loss_err <= LOSS_RTOL and grad_err <= GRAD_PARITY,
+           f"Transducer (b) vs CPU: loss {loss_err}, gradients {grad_err}")
+    return {"train_params": n_params, "train_step_ms": step_ms,
+            "train_peak_mib": step_peak, "train_model_ms": model_ms,
+            "train_loss_ms": loss_ms, "train_losses": losses,
+            "train_loss_rel": loss_err, "train_grad_err": grad_err}
+
+
+def phase_transducer(gen: torch.Generator, card: str) -> None:
+    """Phase 21: the streaming transducer family at full width (the
+    module docstring)."""
+    _tf32(False)
+    serve = _rnnt_serve(gen, card)
+    torch.cuda.empty_cache()
+    train = _rnnt_train(gen, card)
+    torch.cuda.empty_cache()
+    print("Transducer path [" + card + "]: " + json.dumps(
+        {**serve, **train}), flush=True)
+
+
 def _mel_bounds(x, mels: int, n_fft: int, hop: int) -> tuple:
     """The bounds of the fused mel forward and backward at ``x (B, 1, T)``.
     The function: one real transform per frame (an FFT's operations) plus
@@ -2765,6 +3128,8 @@ def main() -> None:
     iir_launches = phase_iir(gen, card)
     torch.cuda.empty_cache()
     asr_launches = phase_asr(gen, card)
+    torch.cuda.empty_cache()
+    phase_transducer(gen, card)
     source = "torchaudio_contrib_tpu_torch/csrc/"
     gl_file = "torchaudio_contrib_tpu/ops/fused_griffinlim.py"
     kernels = [

@@ -790,3 +790,91 @@ def test_asr_models_on_card(cuda_device):
     xs = x.transpose(1, 2).contiguous()
     got = copy.deepcopy(ds).to(cuda_device)(xs.to(cuda_device), True)
     assert _rel(got, ds(xs, True)) <= PARITY
+
+
+# toy transducers: the torchaudio-layout Emformer-RNNT at stride 2 and a
+# Conformer-RNNT (2 layers, 16-32 wide, 11-13 symbols)
+_EMF_RNNT = dict(input_dim=6, encoding_dim=20, num_symbols=13,
+                 segment_length=4, right_context_length=2, num_heads=2,
+                 ffn_dim=24, num_layers=2, left_context_length=3,
+                 max_memory_size=0, predictor_embed_dim=10,
+                 predictor_hidden_dim=12, predictor_layers=2,
+                 time_reduction_input_dim=8, time_reduction_stride=2,
+                 lstm_layer_norm=True, lstm_layer_norm_epsilon=1e-3)
+_CONF_RNNT = dict(input_dim=6, encoding_dim=20, time_reduction_stride=2,
+                  conformer_input_dim=16, conformer_ffn_dim=32,
+                  conformer_num_layers=2, conformer_num_heads=2,
+                  conformer_depthwise_conv_kernel_size=5, num_symbols=11,
+                  symbol_embedding_dim=10, num_lstm_layers=2,
+                  lstm_hidden_dim=12)
+
+
+@pytest.mark.cuda
+def test_transducers_on_card(cuda_device):
+    """Joint logits, the fused loss and its gradients, greedy grids and
+    both beams of the toy transducers on the card against their CPU
+    copies; the factories and the bundle put their models on the card."""
+    from torchaudio_contrib_tpu_torch import models as M
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.standard_normal((2, 18, 6)).astype(np.float32))
+    lengths = torch.tensor([16, 10])
+    tg = torch.from_numpy(rng.integers(1, 11, (2, 5)))
+    tl = torch.tensor([5, 3])
+    for build, cfg in ((M.emformer_rnnt_model, _EMF_RNNT),
+                       (M.conformer_rnnt_model, _CONF_RNNT)):
+        cpu = build(**cfg, device="cpu",
+                    generator=torch.Generator().manual_seed(3)).eval()
+        card = copy.deepcopy(cpu).to(cuda_device)
+        xs = x if build is M.emformer_rnnt_model else x[:, :16]
+        args = (xs, tg, lengths, tl)
+        on = [a.to(cuda_device) for a in args]
+        got, _ = card(*on)
+        assert got.device.type == "cuda"
+        assert _rel(got, cpu(*args)[0]) <= PARITY
+        loss = card.loss(*on, time_chunk=3)
+        loss.backward()
+        want = cpu.loss(*args, time_chunk=3)
+        want.backward()
+        assert _rel(loss, want) <= PARITY
+        peak = max(p.grad.abs().max().item() for p in cpu.parameters())
+        err = max((a.grad.cpu() - b.grad).abs().max().item() for a, b in
+                  zip(card.parameters(), cpu.parameters()))
+        assert err / peak <= GRAD_PARITY
+        with torch.no_grad():
+            enc, ol = card.transcribe(on[0], on[2])
+        grid = card._greedy_on_enc(enc, ol, 3, card.greedy_init_state(2))[0]
+        want_grid = cpu._greedy_on_enc(enc.cpu(), ol.cpu(), 3,
+                                       cpu.greedy_init_state(2))[0]
+        assert torch.equal(grid.cpu(), want_grid)
+        search = M.RNNTBeamSearch(card, beam_width=3, max_symbols=2)
+        host, _ = search.infer(enc, ol, search.init_state(2))
+        batched, _ = search.infer_batched(
+            enc, ol, search.init_batched_state(2, 2 * enc.shape[1]))
+        for h, b in zip(host, batched):
+            assert [t for t, _ in h] == [t for t, _ in b]
+            np.testing.assert_allclose([s for _, s in h], [s for _, s in b],
+                                       atol=1e-4)
+    model = M.conformer_rnnt_base(generator=torch.Generator())
+    assert next(model.parameters()).device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_emformer_bundle_streams_on_card(cuda_device):
+    """The bundle's model on the card, fed its extractor's features a
+    segment at a time, equals its one-shot encodings."""
+    from torchaudio_contrib_tpu_torch.pipelines import \
+        EMFORMER_RNNT_BASE_LIBRISPEECH as bundle
+    model = bundle.get_model(torch.Generator().manual_seed(4)).eval()
+    assert next(model.parameters()).device.type == "cuda"
+    wave = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (2, 16000)).astype(np.float32)).to(cuda_device) * 0.1
+    with torch.inference_mode():
+        feats = bundle.get_feature_extractor()(wave)[:, :100]   # T = 96
+        full, _ = model.transcribe(feats)
+        state, outs = model.transcriber.init_state(2), []
+        for i in range(6):
+            chunk = torch.cat([feats[:, 16 * i:16 * i + 16],
+                               feats[:, min(16 * i + 16, 96):][:, :4]], 1)
+            out, _, state = model.stream_transcribe(chunk, state)
+            outs.append(out)
+    assert _rel(torch.cat(outs, 1), full) <= 1e-4

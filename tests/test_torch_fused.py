@@ -157,7 +157,7 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, torchaudio_contrib_tpu_torch\n"
             "from torchaudio_contrib_tpu_torch.benchmarks import "
             "gl_bisect, gl_probe, gl_profile, mel_ab, mel_bisect, "
-            "mel_profile, asr_profile\n"
+            "mel_profile, asr_profile, transducer_profile\n"
             "from torchaudio_contrib_tpu_torch.ops import (griffinlim, "
             "fused_griffinlim, melinv, pitch, resample, phase_vocoder, "
             "mulaw, features, augment, spectral, effects, convolve, "
@@ -173,6 +173,10 @@ def test_import_pulls_in_no_jax():
             "from torchaudio_contrib_tpu_torch.ops import (ctcloss, align, "
             "edit, ctcdecode, lexdecode, rnnt)\n"
             "from torchaudio_contrib_tpu_torch.models import asr, decoder\n"
+            "from torchaudio_contrib_tpu_torch.models import (_common, "
+            "emformer, conformer, rnnt, factories)\n"
+            "from torchaudio_contrib_tpu_torch import pipelines\n"
+            "from torchaudio_contrib_tpu_torch.utils import convert\n"
             "from torchaudio_contrib_tpu_torch import parallel\n"
             "from torchaudio_contrib_tpu_torch.parallel import corpus\n"
             "from torchaudio_contrib_tpu_torch.models import transforms\n"

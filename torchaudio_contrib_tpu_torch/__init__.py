@@ -21,7 +21,9 @@ transforms over them (``models.transforms``), and the ASR training and
 decoding path: the CTC and RNN-T losses (``RNNTLoss``), forced alignment,
 edit distance, greedy, beam and lexicon + n-gram LM CTC decoding (host
 and device searches) and the Wav2Letter and DeepSpeech models, fed by the
-fused front end.
+fused front end; and the streaming transducer family (Emformer and
+Conformer encoders, the RNN-T model with its greedy and beam decoders, their
+factories and the Emformer-RNNT bundles in ``pipelines``).
 Module names follow the JAX package's; the flat names below are those of
 its ``__init__`` that are ported so far.
 
@@ -31,7 +33,8 @@ package.
 
 __version__ = "0.1.0"
 
-from . import ops, models, utils, benchmarks, parallel, compliance
+from . import (ops, models, utils, benchmarks, parallel, compliance,
+               pipelines)
 
 from .ops import (
     stft, istft, frame_signal, num_frames, stft_output_length,
@@ -88,6 +91,7 @@ from .models import (
     BarkScale, InverseBarkScale, BarkSpectrogram, ChromaScale,
     ChromaSpectrogram, ChromaFilterbank, Chromagram, Wav2Letter, DeepSpeech,
     CTCDecoderLM, ZeroLM, ARPALM, CTCDecoder, CTCDecoderOutput, ctc_decoder,
+    Emformer, ConvEmformer, Conformer, RNNT, RNNTPredictor, RNNTBeamSearch,
     MFCC, Loudness, PitchShift, Speed, AddNoise, Fade, Vol,
     FrequencyMasking, TimeMasking, Preemphasis, Deemphasis, ComputeDeltas,
     SlidingWindowCmn, SpectralCentroid, MelScale, InverseMelScale, PSD,
@@ -98,6 +102,7 @@ from .models import (
 
 __all__ = [
     "ops", "models", "utils", "benchmarks", "parallel", "compliance",
+    "pipelines",
     "stft", "istft", "frame_signal", "num_frames", "stft_output_length",
     "complex_norm", "angle", "magphase",
     "hertz_to_mel", "mel_to_hertz", "hertz_to_bark", "bark_to_hertz",
@@ -154,7 +159,8 @@ __all__ = [
     "BarkScale", "InverseBarkScale", "BarkSpectrogram", "ChromaScale",
     "ChromaSpectrogram", "ChromaFilterbank", "Chromagram", "Wav2Letter",
     "DeepSpeech", "CTCDecoderLM", "ZeroLM", "ARPALM", "CTCDecoder",
-    "CTCDecoderOutput", "ctc_decoder", "MFCC", "Loudness", "PitchShift",
+    "CTCDecoderOutput", "ctc_decoder", "Emformer", "ConvEmformer",
+    "Conformer", "RNNT", "RNNTPredictor", "RNNTBeamSearch", "MFCC", "Loudness", "PitchShift",
     "Speed", "AddNoise", "Fade", "Vol", "FrequencyMasking", "TimeMasking",
     "Preemphasis", "Deemphasis", "ComputeDeltas", "SlidingWindowCmn",
     "SpectralCentroid", "MelScale", "InverseMelScale", "PSD", "SoudenMVDR",

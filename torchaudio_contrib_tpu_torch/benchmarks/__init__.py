@@ -13,7 +13,9 @@ routes, the rounds a block takes, the stage switches).  The ``gl_*``
 benchmarks run the route the size takes and print it.  ``corpus_run``
 times BASELINE config 5; ``asr_profile`` traces the ASR path's training
 step, RNN-T loss and beam search at ``chip_smoke.py`` phase 20's shapes and
-holds the step's gradient against a float64 step.
+holds the step's gradient against a float64 step; ``transducer_profile``
+traces a streamed segment of the Emformer-RNNT bundle (greedy, encoder
+alone, beam) and a ``conformer_rnnt_base`` training step at phase 21's.
 """
 from __future__ import annotations
 

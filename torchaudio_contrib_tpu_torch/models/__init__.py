@@ -1,7 +1,9 @@
 """Layer API and models of the PyTorch port (the mel front end's and the
 inverse path's slices, the torchaudio-named transforms over the ported
-ops, the classic ASR models Wav2Letter and DeepSpeech, and the host
-lexicon + LM CTC decoder)."""
+ops, the classic ASR models Wav2Letter and DeepSpeech, the host
+lexicon + LM CTC decoder, and the streaming transducer family: Emformer
+and Conformer encoders, the RNN-T model, its greedy and beam decoders and
+their factories)."""
 from .layers import (
     Transform, Pipeline,
     STFT, ISTFT, InverseSpectrogram, ComplexNorm,
@@ -15,6 +17,11 @@ from .layers import (
 )
 from .frontend import MelFrontendClassifier
 from .asr import Wav2Letter, DeepSpeech
+from .emformer import Emformer, ConvEmformer, EmformerTranscriber
+from .conformer import Conformer, ConformerTranscriber
+from .rnnt import RNNTPredictor, LayerNormLSTMPredictor, RNNT, RNNTBeamSearch
+from .factories import (emformer_rnnt_model, emformer_rnnt_base,
+                        conformer_rnnt_model, conformer_rnnt_base)
 from .decoder import (
     CTCDecoderLM, ZeroLM, ARPALM,
     CTCDecoder, CTCDecoderOutput, ctc_decoder,
@@ -42,6 +49,11 @@ __all__ = [
     "Spectrogram", "Melspectrogram", "Barkspectrogram", "Chromagram",
     "FusedMelspectrogram",
     "MelFrontendClassifier", "Wav2Letter", "DeepSpeech",
+    "Emformer", "ConvEmformer", "EmformerTranscriber",
+    "Conformer", "ConformerTranscriber",
+    "RNNTPredictor", "LayerNormLSTMPredictor", "RNNT", "RNNTBeamSearch",
+    "emformer_rnnt_model", "emformer_rnnt_base",
+    "conformer_rnnt_model", "conformer_rnnt_base",
     "CTCDecoderLM", "ZeroLM", "ARPALM",
     "CTCDecoder", "CTCDecoderOutput", "ctc_decoder",
     "transforms",

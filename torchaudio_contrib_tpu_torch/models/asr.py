@@ -18,20 +18,13 @@ Wav2Letter's convolutions and the RNN in TF32; set it, and
 """
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ._common import _glorot_
+
 __all__ = ["Wav2Letter", "DeepSpeech"]
-
-
-def _glorot_(t: torch.Tensor, fan_in: int, fan_out: int,
-             generator, scale: float = 1.0) -> None:
-    s = math.sqrt(6.0 / (fan_in + fan_out))
-    with torch.no_grad():
-        t.uniform_(-s, s, generator=generator).mul_(scale)
 
 
 class _PadConv1d(nn.Conv1d):

@@ -3,10 +3,14 @@
 Each function turns the parameter pytree of a JAX model (with its leaves
 converted to NumPy arrays) into a ``state_dict`` for this package's model
 of the same name: :func:`from_jax_params` for ``MelFrontendClassifier``,
-:func:`wav2letter_from_jax_params` for ``Wav2Letter`` and
-:func:`deepspeech_from_jax_params` for ``DeepSpeech``.  None imports JAX.
-The other way, the JAX package's ``utils.import_torch`` importers
-(``import_wav2letter``, ``import_deepspeech``) load the port's
+:func:`wav2letter_from_jax_params` for ``Wav2Letter``,
+:func:`deepspeech_from_jax_params` for ``DeepSpeech``,
+:func:`emformer_from_jax_params` and :func:`conformer_from_jax_params` for
+the encoders, :func:`emformer_rnnt_from_jax_params` (the house and the
+torchaudio-layout build) and :func:`conformer_rnnt_from_jax_params` for
+the transducers.  None imports JAX.  The other way, the JAX package's
+``utils.import_torch`` importers (``import_wav2letter``,
+``import_deepspeech``, ``import_emformer_rnnt``) load the port's
 ``state_dict`` s, whose names are torchaudio's.  The inverse path (ISTFT,
 Griffin-Lim, mel inversion, the vocoder ops) has no parameters, so it needs
 no conversion.
@@ -17,7 +21,9 @@ import numpy as np
 import torch
 
 __all__ = ["from_jax_params", "wav2letter_from_jax_params",
-           "deepspeech_from_jax_params"]
+           "deepspeech_from_jax_params", "emformer_from_jax_params",
+           "conformer_from_jax_params", "emformer_rnnt_from_jax_params",
+           "conformer_rnnt_from_jax_params"]
 
 
 def _t(a) -> torch.Tensor:
@@ -88,4 +94,183 @@ def deepspeech_from_jax_params(params_np: dict) -> dict:
         sd[f"bi_rnn.weight_hh_l0{sfx}"] = _t(np.transpose(d["wh"]))
         sd[f"bi_rnn.bias_ih_l0{sfx}"] = _t(d["b"])
         sd[f"bi_rnn.bias_hh_l0{sfx}"] = torch.zeros(np.shape(d["b"]))
+    return sd
+
+
+def _linear(sd: dict, name: str, p: dict, w: str = "w", b: str = "b"):
+    """Dense ``p[w] (cin, cout)`` (and ``p[b]``) → ``name.weight (cout,
+    cin)`` (and ``name.bias``)."""
+    sd[f"{name}.weight"] = _t(np.transpose(p[w]))
+    if b in p:
+        sd[f"{name}.bias"] = _t(p[b])
+
+
+def _norm(sd: dict, name: str, p: dict):
+    sd[f"{name}.weight"] = _t(p["g"])
+    sd[f"{name}.bias"] = _t(p["b"])
+
+
+def _emformer_sd(sd: dict, pre: str, p: dict):
+    for i, lp in enumerate(p["layers"]):
+        n = f"{pre}emformer_layers.{i}."
+        _norm(sd, n + "layer_norm_input", lp["ln1"])
+        _linear(sd, n + "attention.emb_to_query", lp, "wq", "bq")
+        sd[n + "attention.emb_to_key_value.weight"] = _t(
+            np.concatenate([np.transpose(lp["wk"]), np.transpose(lp["wv"])]))
+        sd[n + "attention.emb_to_key_value.bias"] = _t(
+            np.concatenate([lp["bk"], lp["bv"]]))
+        _linear(sd, n + "attention.out_proj", lp, "wo", "bo")
+        _norm(sd, n + "pos_ff.0", lp["ln2"])
+        _linear(sd, n + "pos_ff.1", lp, "w1", "b1")
+        _linear(sd, n + "pos_ff.4", lp, "w2", "b2")
+        if "ln3" in lp:
+            _norm(sd, n + "layer_norm_output", lp["ln3"])
+        if "conv" in lp:
+            c = lp["conv"]
+            _norm(sd, n + "conv_module.layer_norm", c["ln"])
+            _linear(sd, n + "conv_module.pointwise_conv1", c, "pw1", "pb1")
+            sd[n + "conv_module.depthwise_conv.weight"] = _t(
+                np.transpose(c["dw"], (2, 1, 0)))
+            _linear(sd, n + "conv_module.pointwise_conv2", c, "pw2", "pb2")
+    if "ln_out" in p:
+        _norm(sd, pre + "output_layer_norm", p["ln_out"])
+
+
+def _conformer_sd(sd: dict, pre: str, p: dict):
+    _linear(sd, pre + "input_projection", p, "proj", "proj_b")
+    for i, lp in enumerate(p["layers"]):
+        n = f"{pre}conformer_layers.{i}."
+        for ffn in ("ffn1", "ffn2"):
+            _norm(sd, f"{n}{ffn}.sequential.0", lp[ffn]["ln"])
+            _linear(sd, f"{n}{ffn}.sequential.1", lp[ffn], "w1", "b1")
+            _linear(sd, f"{n}{ffn}.sequential.4", lp[ffn], "w2", "b2")
+        a = lp["attn"]
+        _norm(sd, n + "self_attn_layer_norm", a["ln"])
+        sd[n + "self_attn.in_proj_weight"] = _t(np.transpose(a["wqkv"]))
+        sd[n + "self_attn.in_proj_bias"] = _t(a["bqkv"])
+        _linear(sd, n + "self_attn.out_proj", a, "wo", "bo")
+        sd[n + "self_attn.rel_bias"] = _t(a["rel"])
+        c = lp["conv"]
+        m = n + "conv_module."
+        _norm(sd, m + "layer_norm", c["ln"])
+        sd[m + "sequential.0.weight"] = _t(np.transpose(c["pw1"])[..., None])
+        sd[m + "sequential.0.bias"] = _t(c["pb1"])
+        sd[m + "sequential.2.weight"] = _t(np.transpose(c["dw"], (2, 1, 0)))
+        sd[m + "sequential.2.bias"] = _t(c["db"])
+        _norm(sd, m + "sequential.3", c["norm"])
+        sd[m + "sequential.5.weight"] = _t(np.transpose(c["pw2"])[..., None])
+        sd[m + "sequential.5.bias"] = _t(c["pb2"])
+        _norm(sd, n + "final_layer_norm", lp["out_ln"])
+
+
+def emformer_from_jax_params(params_np: dict) -> dict:
+    """Params of the JAX ``Emformer`` or ``ConvEmformer`` (either build)
+    → ``state_dict`` of the port's: ``wq`` → ``attention.emb_to_query``,
+    ``wk``/``wv`` stacked as ``attention.emb_to_key_value`` (keys first),
+    ``wo`` → ``attention.out_proj``, ``ln1``/``ln2``/``ln3`` →
+    ``layer_norm_input``/``pos_ff.0``/``layer_norm_output``,
+    ``w1``/``w2`` → ``pos_ff.1``/``pos_ff.4``, ``ln_out`` →
+    ``output_layer_norm``; a ConvEmformer's ``conv`` → ``conv_module``
+    (depthwise ``(K, 1, D)`` → ``(D, 1, K)``)."""
+    sd = {}
+    _emformer_sd(sd, "", params_np)
+    return sd
+
+
+def conformer_from_jax_params(params_np: dict) -> dict:
+    """Params of the JAX ``Conformer`` → ``state_dict`` of the port's
+    (torchaudio's names): ``proj`` → ``input_projection``; a layer's FFNs
+    → ``ffn{1,2}.sequential.{0,1,4}``, ``attn`` → ``self_attn_layer_norm``
+    and ``self_attn`` (``wqkv`` → ``in_proj_weight``, ``rel`` →
+    ``rel_bias``), ``conv`` → ``conv_module.layer_norm`` and
+    ``conv_module.sequential.{0,2,3,5}`` (pointwise kernels as ``(cout,
+    cin, 1)``, depthwise ``(K, 1, D)`` → ``(D, 1, K)``), ``out_ln`` →
+    ``final_layer_norm``."""
+    sd = {}
+    _conformer_sd(sd, "", params_np)
+    return sd
+
+
+def _predictor_sd(sd: dict, p: dict):
+    sd["predictor.embedding.weight"] = _t(p["emb"])
+    if "in_ln" in p:                             # LayerNormLSTMPredictor
+        _norm(sd, "predictor.input_layer_norm", p["in_ln"])
+        for i, lp in enumerate(p["layers"]):
+            n = f"predictor.lstm_layers.{i}."
+            _linear(sd, n + "x2g", lp, "wx", "bx")
+            _linear(sd, n + "p2g", lp, "wh")
+            if "g_ln" in lp:
+                _norm(sd, n + "g_norm", lp["g_ln"])
+                _norm(sd, n + "c_norm", lp["c_ln"])
+        _linear(sd, "predictor.linear", p["out"])
+        _norm(sd, "predictor.output_layer_norm", p["out_ln"])
+        return
+    for i, lp in enumerate(p["layers"]):         # RNNTPredictor
+        sd[f"predictor.lstm.weight_ih_l{i}"] = _t(np.transpose(lp["wi"]))
+        sd[f"predictor.lstm.weight_hh_l{i}"] = _t(np.transpose(lp["wh"]))
+        sd[f"predictor.lstm.bias_ih_l{i}"] = _t(lp["b"])
+        sd[f"predictor.lstm.bias_hh_l{i}"] = torch.zeros(np.shape(lp["b"]))
+    _norm(sd, "predictor.layer_norm", p["ln"])
+    _linear(sd, "predictor.linear", p["out"])
+
+
+def _rnnt_sd(params_np: dict, transcriber_sd: dict, enc_proj: bool) -> dict:
+    sd = {f"transcriber.{k}": v for k, v in transcriber_sd.items()}
+    _predictor_sd(sd, params_np["predictor"])
+    if enc_proj:
+        _linear(sd, "enc_proj", params_np["enc_proj"])
+    _linear(sd, "joiner.linear", params_np["joiner"])
+    return sd
+
+
+def emformer_rnnt_from_jax_params(params_np: dict) -> dict:
+    """Params of the JAX ``emformer_rnnt_model`` → ``state_dict`` of the
+    port's, in either build (told apart by the transcriber's params).
+
+    The torchaudio-layout build (``time_reduction_stride > 1``) has no
+    ``enc_proj``: its encodings go to the joiner as they are, as in
+    torchaudio and as ``import_emformer_rnnt`` sets the JAX model's
+    ``enc_proj`` (identity).  Such params with any other ``enc_proj``
+    raise ``ValueError``."""
+    p = params_np["transcriber"]
+    if "in_lin" not in p:                        # the house build
+        return _rnnt_sd(params_np, emformer_from_jax_params(p), True)
+    w, b = (np.asarray(params_np["enc_proj"][k]) for k in ("w", "b"))
+    if not (np.array_equal(w, np.eye(*w.shape)) and not b.any()):
+        raise ValueError(
+            "the torchaudio-layout Emformer-RNNT has no enc_proj: its JAX "
+            "params must carry the identity (as import_emformer_rnnt "
+            "gives), not a trained or random projection")
+    return _rnnt_sd(params_np, _emformer_transcriber_sd(p), False)
+
+
+def _emformer_transcriber_sd(p: dict) -> dict:
+    """The JAX ``EmformerTranscriber``'s params → the port's
+    ``state_dict``."""
+    sd = {"input_linear.weight": _t(np.transpose(p["in_lin"]["w"]))}
+    _emformer_sd(sd, "transformer.", p["emformer"])
+    _linear(sd, "output_linear", p["out_lin"])
+    _norm(sd, "layer_norm", p["out_ln"])
+    return sd
+
+
+def conformer_rnnt_from_jax_params(params_np: dict) -> dict:
+    """Params of the JAX ``conformer_rnnt_model`` → ``state_dict`` of the
+    port's: the transcriber's ``conformer`` as
+    :func:`conformer_from_jax_params` under ``transcriber.conformer.``,
+    ``out_lin``/``out_ln`` → ``output_linear``/``layer_norm``, the
+    layer-norm LSTM predictor under torchaudio's names, ``enc_proj`` and
+    ``joiner.linear``."""
+    return _rnnt_sd(params_np,
+                    _conformer_transcriber_sd(params_np["transcriber"]),
+                    True)
+
+
+def _conformer_transcriber_sd(p: dict) -> dict:
+    """The JAX ``ConformerTranscriber``'s params → the port's
+    ``state_dict``."""
+    sd = {}
+    _conformer_sd(sd, "conformer.", p["conformer"])
+    _linear(sd, "output_linear", p["out_lin"])
+    _norm(sd, "layer_norm", p["out_ln"])
     return sd
