@@ -1,6 +1,6 @@
 """GPU smoke run of the PyTorch port's serving, training and inverse paths,
-its corpus path, the IIR family, the ASR path and the streaming transducer
-family.
+its corpus path, the IIR family, the ASR path, the streaming transducer
+family and the wav2vec2 family.
 
     python3 chip_smoke.py
 
@@ -159,7 +159,29 @@ imports no JAX.  Phases, each printing its lines:
     8 x 10 s of the extractor's features with 60-100 target tokens: the
     loss (1e-5 relative) and gradients (1e-4 of the whole gradient's peak)
     of 2 clips against the CPU copy, ms per step and the shares of the
-    model's forward + backward and of the fused loss's.
+    model's forward + backward and of the fused loss's;
+22. the wav2vec2 family at full width (no kernel: the launch counters are
+    read before and after the phase and must not move), weights from the
+    seeded generator, on CUDA tensors against a CPU copy with TF32 off
+    (1e-4 of peak; losses 1e-5 relative, gradients 1e-4 of the whole
+    gradient's peak), times with TF32 off and on: (a)
+    ``pipelines.WAV2VEC2_ASR_BASE_960H`` serving 8 requests of 4-16 s at 16
+    kHz in one padded batch with ``lengths`` under
+    ``torch.inference_mode()``: emissions, ``ctc_greedy_decode`` (frame
+    labels equal to the CPU's wherever its top-2 margin exceeds twice the
+    measured error) and ``bundle.decode``, ``get_decoder`` over a
+    synthetic 40-word lexicon on one request; ms per batch and per
+    request, and the emissions' error with TF32 on (printed, no bar); (b) a CTC fine-tuning step of the same model (``ctc_loss``,
+    SGD) on 8 x 10 s, 4 steps whose loss must fall, checked on 2 x 4 s; (c)
+    ``hubert_pretrain_base(num_classes=100)`` on 8 x 10 s with a
+    ``span_mask`` drawn from the generator and random labels, checked on 2
+    clips with the same mask rows; (d) ``MMS_FA`` (the LARGE-lv60k
+    geometry) on 2 x 15 s: emissions with the star column, then
+    ``forced_align`` + ``merge_tokens`` of 60 tokens a clip, spans equal to
+    the CPU path's; (e) ``WAVLM_BASE`` on 4 x 10 s,
+    ``conformer_wav2vec2_base`` and ``emformer_hubert_base`` on 4 clips of
+    features, and ``emformer_hubert_base`` streamed through ``infer``
+    against its one-shot output.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -271,6 +293,24 @@ RNNT_TRAIN = dict(clips=8, samples=160000, targets=(60, 100), symbols=1024,
 # beams against each other: |diff| / max(1, |score|) (float32 running sums
 # against the host beam's float64 ones over ~1000 tokens)
 BEAM_REL = 1e-4
+# Phase 22, the wav2vec2 family at full width (weights from the seeded
+# generator): (a) WAV2VEC2_ASR_BASE_960H (94.4 M parameters + the 29-way
+# head) serving 8 requests of 4-16 s at 16 kHz in one padded batch; (b) a
+# CTC fine-tuning step of it on 8 x 10 s (60-120 tokens), checked on 2 x 4 s
+# (20-40 tokens); (c) hubert_pretrain_base(num_classes=100) on 8 x 10 s
+# with a span mask from the generator, checked on 2 of the clips with their
+# mask rows; (d) MMS_FA (LARGE-lv60k, ~315 M) on 2 x 15 s, 60 tokens a
+# clip; (e) WAVLM_BASE on 4 x 10 s, conformer_wav2vec2_base on 4 x 1000
+# frames of 64 features, emformer_hubert_base on 4 x 996 frames of 80
+# (62 segments of 4 + 1 lookahead, reduced frames), streamed and one-shot.
+W2V2 = dict(sr=16000, requests=(4.0, 5.7, 7.4, 9.1, 10.9, 12.6, 14.3, 16.0),
+            train=(8, 160000), check=(2, 64000), targets=(60, 120),
+            check_targets=(20, 40), lr=1e-5, steps=4, classes=100,
+            fa=(2, 240000), fa_tokens=60, ssl=(4, 160000), conf_frames=1000,
+            emf_segments=62)
+# card vs CPU copy (TF32 off), max |diff| / max |CPU|: twelve to 24 layers
+# of float32 products summed in other orders (the phase 21 bar)
+W2V2_REL = 1e-4
 # Published peaks of one H100 SXM (data sheet, 700 W): FP32 outside the
 # tensor cores, and HBM3.
 PEAK_FP32 = 67e12
@@ -3067,6 +3107,347 @@ def phase_transducer(gen: torch.Generator, card: str) -> None:
         {**serve, **train}), flush=True)
 
 
+def _kernel_count() -> int:
+    return sum(_counts()) + sum(_fft_counts()) + sum(_gl_counts()) \
+        + _gl_fft_count()
+
+
+def _w2v2_serve(gen: torch.Generator, card: str) -> tuple:
+    """Phase 22 (a): ``WAV2VEC2_ASR_BASE_960H`` serving 8 requests in one
+    padded batch (the module docstring).  Returns (numbers, the CPU
+    model)."""
+    from torchaudio_contrib_tpu_torch import ops
+    from torchaudio_contrib_tpu_torch.pipelines import \
+        WAV2VEC2_ASR_BASE_960H as bundle
+    w = W2V2
+    lengths = torch.tensor([int(s * w["sr"]) for s in w["requests"]])
+    x = _speech_batch(gen, len(lengths), int(lengths.max()), w["sr"])
+    x = x * (torch.arange(x.shape[1])[None] < lengths[:, None])
+    model_cpu = bundle.get_model(gen, device="cpu").eval()
+    n_params = sum(p.numel() for p in model_cpu.parameters())
+    model = copy.deepcopy(model_cpu).cuda()
+    xc, lc = x.cuda(), lengths.cuda()
+    with torch.inference_mode():
+        (emis, out_len), ms, peak = _on_card(lambda: model(xc, lc))
+        _tf32(True)
+        ms_tf32 = _time_ms(lambda: model(xc, lc), 1, 3)
+        emis_tf32 = model(xc, lc)[0]
+        _tf32(False)
+        t0 = time.perf_counter()
+        emis_cpu, out_len_cpu = model_cpu(x, lengths)
+        cpu_s = time.perf_counter() - t0
+        lp = torch.log_softmax(emis, -1)
+        lp_cpu = torch.log_softmax(emis_cpu, -1)
+        ids, n_ids, _ = ops.ctc_greedy_decode(lp, out_len)
+        ids_cpu, n_cpu, _ = ops.ctc_greedy_decode(lp_cpu, out_len_cpu)
+    err = _rel(emis.cpu(), emis_cpu)
+    err_tf32 = _rel(emis_tf32.cpu(), emis_cpu)
+    abs_err = (lp.cpu() - lp_cpu).abs().max().item()
+    # frame labels equal wherever the CPU's top-2 margin exceeds twice the
+    # log-probs' measured error
+    top2 = lp_cpu.topk(2, -1).values
+    valid = torch.arange(lp_cpu.shape[1])[None] < out_len_cpu[:, None]
+    sure = valid & (top2[..., 0] - top2[..., 1] > 2 * abs_err)
+    differ = (lp.argmax(-1).cpu() != lp_cpu.argmax(-1)) & sure
+    texts = [bundle.decode(ids[i, :n_ids[i]].tolist())
+             for i in range(len(lengths))]
+    texts_cpu = [bundle.decode(ids_cpu[i, :n_cpu[i]].tolist())
+                 for i in range(len(lengths))]
+    labels = bundle.get_labels()
+    words = {"".join(labels[j] for j in torch.randint(
+        2, 29, (int(torch.randint(2, 7, (1,), generator=gen)),),
+        generator=gen).tolist()) for _ in range(40)}
+    decoder = bundle.get_decoder({wd: list(wd) + ["|"] for wd in words},
+                                 beam_size=16)
+    t0 = time.perf_counter()
+    hyp = decoder(lp[:1].float().cpu(), out_len[:1].cpu())[0][0]
+    lex_ms = (time.perf_counter() - t0) * 1e3
+    print(f"wav2vec2 (a) [{card}]: WAV2VEC2_ASR_BASE_960H ({n_params} "
+          f"parameters) on 8 requests of {w['requests'][0]}-"
+          f"{w['requests'][-1]} s, padded to {tuple(x.shape)} -> emissions "
+          f"{tuple(emis.shape)}, frames {out_len.tolist()}; ms per batch "
+          f"{ms:.1f} (TF32 off), {ms_tf32:.1f} (TF32 on), per request "
+          f"{ms / len(lengths):.2f} / {ms_tf32 / len(lengths):.2f}; peak "
+          f"{peak:.0f} MiB; the CPU copy {cpu_s:.1f} s; emissions vs CPU "
+          f"{err:.2e} of peak ({err_tf32:.2e} with TF32, no bar), log-probs "
+          f"{abs_err:.2e} abs; greedy frames "
+          f"unequal where sure {int(differ.sum())} of {int(sure.sum())} "
+          f"(of {int(valid.sum())}); texts equal to the CPU's "
+          f"{sum(a == b for a, b in zip(texts, texts_cpu))} of 8; request "
+          f"0 greedy {texts[0][:40]!r}; lexicon + beam 16 over "
+          f"{len(words)} words: {hyp.words[:6]} in {lex_ms:.0f} ms",
+          flush=True)
+    _check(emis.shape == (8, int(out_len.max()), 29)
+           and bool(torch.isfinite(emis).all()), "wav2vec2 (a): emissions")
+    _check(out_len.tolist() == out_len_cpu.tolist()
+           == model_cpu.output_length(lengths).tolist(),
+           f"wav2vec2 (a): lengths {out_len.tolist()}")
+    _check(err <= W2V2_REL, f"wav2vec2 (a) vs CPU: {err}")
+    _check(not differ.any(), f"wav2vec2 (a): {int(differ.sum())} frames")
+    _check(all(wd in words for wd in hyp.words)
+           and math.isfinite(hyp.score), f"wav2vec2 (a): lexicon {hyp}")
+    return {"serve_params": n_params, "serve_ms": ms,
+            "serve_ms_tf32": ms_tf32, "serve_ms_per_request": ms / 8,
+            "serve_peak_mib": peak, "serve_rel": err,
+            "serve_rel_tf32": err_tf32,
+            "serve_cpu_s": cpu_s, "lexicon_ms": lex_ms}, model_cpu
+
+
+def _w2v2_ctc(gen: torch.Generator, card: str, model_cpu) -> dict:
+    """Phase 22 (b): SGD on ``ctc_loss`` of the bundle's model (the module
+    docstring)."""
+    from torchaudio_contrib_tpu_torch import ops
+    w = W2V2
+    model_cpu.train()
+    card_model = copy.deepcopy(model_cpu).cuda()
+
+    def loss_of(m, x, tg, tl):
+        logits, out_len = m(x)
+        return ops.ctc_loss(torch.log_softmax(logits, -1), tg, out_len, tl)
+
+    n, samples = w["check"]
+    xs = _speech_batch(gen, n, samples, w["sr"])
+    tg, tl = _asr_targets(gen, n, *w["check_targets"], 29)
+    loss = loss_of(card_model, xs.cuda(), tg.cuda(), tl.cuda())
+    loss.backward()
+    grads = _param_grads(card_model)
+    cpu_loss = loss_of(model_cpu, xs, tg, tl)
+    cpu_loss.backward()
+    loss_err = abs(loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+    grad_err = _grad_err(grads, _param_grads(model_cpu))
+
+    n, samples = w["train"]
+    xb = _speech_batch(gen, n, samples, w["sr"]).cuda()
+    tgb, tlb = (t.cuda() for t in _asr_targets(gen, n, *w["targets"], 29))
+    opt = torch.optim.SGD(card_model.parameters(), lr=w["lr"])
+
+    def step():
+        out = loss_of(card_model, xb, tgb, tlb)
+        opt.zero_grad()
+        out.backward()
+        opt.step()
+        return out
+
+    losses, step_ms, step_peak = [], [], 0.0
+    for _ in range(w["steps"]):
+        out, ms, pk = _on_card(step, reps=0)
+        losses.append(out.item())
+        step_ms.append(ms)
+        step_peak = max(step_peak, pk)
+    _tf32(True)
+    ms_tf32 = _time_ms(step, 1, 2)
+    _tf32(False)
+    med = float(np.median(step_ms[1:]))
+    print(f"wav2vec2 (b) [{card}]: CTC fine-tuning of the same model, SGD lr "
+          f"{w['lr']} on {tuple(xb.shape)}, {int(tlb.min())}-{int(tlb.max())} "
+          f"tokens: losses {[round(v, 4) for v in losses]}; ms per step "
+          f"{step_ms[0]:.1f} (first), median {med:.1f} (TF32 off), "
+          f"{ms_tf32:.1f} (TF32 on); peak {step_peak:.0f} MiB; "
+          f"{w['check'][0]} x {w['check'][1] / w['sr']:.0f} s vs the CPU copy: "
+          f"loss rel {loss_err:.2e}, gradients {grad_err:.2e} of peak",
+          flush=True)
+    _check(all(math.isfinite(v) for v in losses), f"wav2vec2 (b): {losses}")
+    _check(losses[-1] < losses[0], f"wav2vec2 (b): loss did not fall {losses}")
+    _check(loss_err <= LOSS_RTOL and grad_err <= GRAD_PARITY,
+           f"wav2vec2 (b) vs CPU: loss {loss_err}, gradients {grad_err}")
+    return {"ctc_step_ms": step_ms, "ctc_step_ms_tf32": ms_tf32,
+            "ctc_peak_mib": step_peak, "ctc_losses": losses,
+            "ctc_loss_rel": loss_err, "ctc_grad_err": grad_err}
+
+
+def _w2v2_hubert(gen: torch.Generator, card: str) -> dict:
+    """Phase 22 (c): a HuBERT pretraining step (the module docstring)."""
+    from torchaudio_contrib_tpu_torch import models
+    w = W2V2
+    model_cpu = models.hubert_pretrain_base(w["classes"], device="cpu",
+                                            generator=gen)
+    card_model = copy.deepcopy(model_cpu).cuda()
+    n, samples = w["train"]
+    x = _speech_batch(gen, n, samples, w["sr"])
+    t_out = int(model_cpu.encoder.output_length(samples))
+    mask = models.span_mask(gen, n, t_out, None, device="cuda")
+    labels = torch.randint(0, w["classes"], (n, t_out), generator=gen)
+    k = w["check"][0]
+    loss = card_model.loss(x[:k].cuda(), labels[:k].cuda(), None, mask[:k])
+    loss.backward()
+    grads = _param_grads(card_model)
+    cpu_loss = model_cpu.loss(x[:k], labels[:k], None, mask[:k].cpu())
+    cpu_loss.backward()
+    loss_err = abs(loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+    grad_err = _grad_err(grads, _param_grads(model_cpu))
+
+    xc, lc = x.cuda(), labels.cuda()
+    opt = torch.optim.SGD(card_model.parameters(), lr=w["lr"])
+
+    def step():
+        out = card_model.loss(xc, lc, None, mask)
+        opt.zero_grad()
+        out.backward()
+        opt.step()
+        return out
+
+    losses, step_ms, step_peak = [], [], 0.0
+    for _ in range(3):
+        out, ms, pk = _on_card(step, reps=0)
+        losses.append(out.item())
+        step_ms.append(ms)
+        step_peak = max(step_peak, pk)
+    _tf32(True)
+    ms_tf32 = _time_ms(step, 1, 2)
+    _tf32(False)
+    print(f"wav2vec2 (c) [{card}]: hubert_pretrain_base({w['classes']}) on "
+          f"{tuple(xc.shape)}, span mask covering "
+          f"{mask.float().mean().item():.1%} of {t_out} frames: losses "
+          f"{[round(v, 4) for v in losses]}; ms per step {step_ms[0]:.1f} "
+          f"(first), median {float(np.median(step_ms[1:])):.1f} (TF32 off), "
+          f"{ms_tf32:.1f} (TF32 on); peak {step_peak:.0f} MiB; {k} clips vs "
+          f"the CPU copy with the same mask: loss rel {loss_err:.2e}, "
+          f"gradients {grad_err:.2e} of peak", flush=True)
+    _check(all(math.isfinite(v) for v in losses), f"wav2vec2 (c): {losses}")
+    _check(0.3 < mask.float().mean().item() < 0.7,
+           "wav2vec2 (c): span-mask coverage")
+    _check(loss_err <= LOSS_RTOL and grad_err <= GRAD_PARITY,
+           f"wav2vec2 (c) vs CPU: loss {loss_err}, gradients {grad_err}")
+    return {"hubert_step_ms": step_ms, "hubert_step_ms_tf32": ms_tf32,
+            "hubert_peak_mib": step_peak, "hubert_losses": losses,
+            "hubert_loss_rel": loss_err, "hubert_grad_err": grad_err}
+
+
+def _w2v2_fa(gen: torch.Generator, card: str) -> dict:
+    """Phase 22 (d): ``MMS_FA`` emissions and forced alignment (the module
+    docstring)."""
+    from torchaudio_contrib_tpu_torch.pipelines import MMS_FA as bundle
+    w = W2V2
+    fa_cpu = bundle.get_model(generator=gen, device="cpu").eval()
+    n_params = sum(p.numel() for p in fa_cpu.parameters())
+    fa = copy.deepcopy(fa_cpu).cuda()
+    n, samples = w["fa"]
+    x = _speech_batch(gen, n, samples, w["sr"])
+    xc = x.cuda()
+    with torch.inference_mode():
+        (em, out_len), ms, peak = _on_card(lambda: fa(xc), reps=2)
+        _tf32(True)
+        ms_tf32 = _time_ms(lambda: fa(xc), 1, 2)
+        _tf32(False)
+        em_cpu, _ = fa_cpu(x)
+    err = _rel(em.cpu(), em_cpu)
+    tokens = torch.randint(1, 28, (n, w["fa_tokens"]), generator=gen)
+    aligner = bundle.get_aligner()
+    t0 = time.perf_counter()
+    spans = [aligner(em[i], tokens[i]) for i in range(n)]
+    align_ms = (time.perf_counter() - t0) * 1e3
+    spans_cpu = [aligner(em_cpu[i], tokens[i]) for i in range(n)]
+    spans_same = [aligner(em_cpu[i].cuda(), tokens[i]) for i in range(n)]
+
+    def key(rows):
+        return [[(s.token, s.start, s.end) for s in r] for r in rows]
+
+    print(f"wav2vec2 (d) [{card}]: MMS_FA ({n_params} parameters) on "
+          f"{tuple(x.shape)} -> emissions {tuple(em.shape)} (star column "
+          f"included); ms {ms:.1f} (TF32 off), {ms_tf32:.1f} (TF32 on), peak "
+          f"{peak:.0f} MiB; vs CPU {err:.2e} of peak; {w['fa_tokens']} tokens "
+          f"a clip aligned in {align_ms:.0f} ms; spans equal to the CPU "
+          f"path's: {key(spans) == key(spans_cpu)}; first spans "
+          f"{spans[0][:3]}", flush=True)
+    _check(bool(torch.isfinite(em).all()) and not em[..., -1].any(),
+           "wav2vec2 (d): emissions or star column")
+    _check(err <= W2V2_REL, f"wav2vec2 (d) vs CPU: {err}")
+    _check(key(spans_same) == key(spans_cpu),
+           "wav2vec2 (d): the card's Viterbi on the CPU's emissions")
+    _check(key(spans) == key(spans_cpu), "wav2vec2 (d): spans vs the CPU's")
+    _check(all([s.token for s in r] == t.tolist()
+               for r, t in zip(spans, tokens)), "wav2vec2 (d): tokens")
+    return {"fa_params": n_params, "fa_ms": ms, "fa_ms_tf32": ms_tf32,
+            "fa_rel": err, "fa_align_ms": align_ms}
+
+
+def _w2v2_ssl(gen: torch.Generator, card: str) -> dict:
+    """Phase 22 (e): WavLM, the Conformer and the streaming Emformer
+    variants against CPU copies (the module docstring)."""
+    from torchaudio_contrib_tpu_torch import models
+    from torchaudio_contrib_tpu_torch.pipelines import WAVLM_BASE
+    w = W2V2
+    n, samples = w["ssl"]
+    x = _speech_batch(gen, n, samples, w["sr"])
+    nums = {}
+
+    def pair(name, model_cpu, inp):
+        model = copy.deepcopy(model_cpu).cuda()
+        xc = inp.cuda()
+        with torch.inference_mode():
+            (out, _), ms, _ = _on_card(lambda: model(xc), reps=2)
+            _tf32(True)
+            ms_tf32 = _time_ms(lambda: model(xc), 1, 2)
+            _tf32(False)
+            want, _ = model_cpu(inp)
+        err = _rel(out.cpu(), want)
+        nums[name + "_ms"], nums[name + "_ms_tf32"] = ms, ms_tf32
+        nums[name + "_rel"] = err
+        print(f"wav2vec2 (e) [{card}]: {name} on {tuple(inp.shape)} -> "
+              f"{tuple(out.shape)} in {ms:.1f} ms ({ms_tf32:.1f} with TF32); "
+              f"vs CPU {err:.2e} of peak", flush=True)
+        _check(bool(torch.isfinite(out).all()) and err <= W2V2_REL,
+               f"wav2vec2 (e) {name} vs CPU: {err}")
+        return model, out
+
+    pair("wavlm_base", WAVLM_BASE.get_model(gen, device="cpu").eval(), x)
+    feats = torch.randn((n, w["conf_frames"], 64), generator=gen)
+    pair("conformer_wav2vec2_base", models.conformer_wav2vec2_base(
+        device="cpu", generator=gen).eval(), feats)
+    emf_cpu = models.emformer_hubert_base(device="cpu", generator=gen).eval()
+    S, R = emf_cpu.encoder.S, emf_cpu.encoder.R
+    st, nseg = emf_cpu.stride, w["emf_segments"]
+    feats = torch.randn((n, (nseg * S + R) * st, 80), generator=gen)
+    emf, full = pair("emformer_hubert_base", emf_cpu, feats)
+    fc = feats.cuda()
+
+    def stream():
+        state, outs = emf.init_state(n), []
+        for i in range(nseg):
+            o, _, state = emf.infer(fc[:, i * S * st:(i * S + S + R) * st],
+                                    state)
+            outs.append(o)
+        return torch.cat(outs, 1)
+
+    with torch.inference_mode():
+        streamed, ms, _ = _on_card(stream, reps=0)
+        _tf32(True)
+        _, ms_tf32, _ = _on_card(stream, reps=0)
+        _tf32(False)
+    err = _rel(streamed, full)
+    nums["emformer_stream_ms"], nums["emformer_stream_rel"] = ms, err
+    nums["emformer_stream_ms_tf32"] = ms_tf32
+    print(f"wav2vec2 (e) [{card}]: emformer_hubert_base streamed, {nseg} "
+          f"segments of {S} + {R} reduced frames: {ms:.1f} ms "
+          f"({ms / nseg:.2f} a segment; {ms_tf32:.1f} with TF32); vs "
+          f"one-shot {err:.2e} of peak", flush=True)
+    _check(err <= W2V2_REL, f"wav2vec2 (e): streamed vs one-shot {err}")
+    return nums
+
+
+def phase_wav2vec2(gen: torch.Generator, card: str) -> None:
+    """Phase 22: the wav2vec2 family at full width (the module docstring);
+    no kernel, so the launch counters must not move."""
+    _tf32(False)
+    before = _kernel_count()
+    serve, model_cpu = _w2v2_serve(gen, card)
+    torch.cuda.empty_cache()
+    ctc = _w2v2_ctc(gen, card, model_cpu)
+    del model_cpu
+    torch.cuda.empty_cache()
+    hubert = _w2v2_hubert(gen, card)
+    torch.cuda.empty_cache()
+    fa = _w2v2_fa(gen, card)
+    torch.cuda.empty_cache()
+    ssl = _w2v2_ssl(gen, card)
+    torch.cuda.empty_cache()
+    moved = _kernel_count() - before
+    print("wav2vec2 family [" + card + "]: " + json.dumps(
+        {**serve, **ctc, **hubert, **fa, **ssl, "kernel_launches": moved}),
+        flush=True)
+    _check(moved == 0, f"phase 22 moved the kernel counters by {moved}")
+
+
 def _mel_bounds(x, mels: int, n_fft: int, hop: int) -> tuple:
     """The bounds of the fused mel forward and backward at ``x (B, 1, T)``.
     The function: one real transform per frame (an FFT's operations) plus
@@ -3130,6 +3511,8 @@ def main() -> None:
     asr_launches = phase_asr(gen, card)
     torch.cuda.empty_cache()
     phase_transducer(gen, card)
+    torch.cuda.empty_cache()
+    phase_wav2vec2(gen, card)
     source = "torchaudio_contrib_tpu_torch/csrc/"
     gl_file = "torchaudio_contrib_tpu/ops/fused_griffinlim.py"
     kernels = [

@@ -878,3 +878,122 @@ def test_emformer_bundle_streams_on_card(cuda_device):
             out, _, state = model.stream_transcribe(chunk, state)
             outs.append(out)
     assert _rel(torch.cat(outs, 1), full) <= 1e-4
+
+
+_W2V2 = dict(extractor_conv_layers=((8, 10, 5), (8, 3, 2), (8, 2, 2)),
+             d_model=16, num_layers=2, num_heads=2, ff_dim=32,
+             pos_conv_kernel=8, pos_conv_groups=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["group_norm", "layer_norm", "wavlm"])
+def test_wav2vec2_family_on_card(cuda_device, kind):
+    """Toy Wav2Vec2 (both extractor modes) and WavLM on the card against
+    their CPU copies: a padded batch with a clip of ``output_length`` 0,
+    the SSL hooks and every parameter's gradient."""
+    from torchaudio_contrib_tpu_torch import models as M
+    cls = M.WavLM if kind == "wavlm" else M.Wav2Vec2
+    kw = dict(num_buckets=8, max_distance=20) if kind == "wavlm" else {}
+    mode = "layer_norm" if kind == "layer_norm" else "group_norm"
+    cpu = cls(**_W2V2, **kw, extractor_mode=mode,
+              layer_norm_first=mode == "layer_norm", aux_out=5,
+              device="cpu", generator=torch.Generator().manual_seed(6))
+    card = copy.deepcopy(cpu).to(cuda_device)
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((3, 400)).astype(np.float32))
+    lengths = torch.tensor([400, 250, 15])
+    mask = torch.from_numpy(rng.random((3, 19)) < 0.3)
+    emb = torch.from_numpy(rng.standard_normal(16).astype(np.float32))
+    got, gl = card(x.to(cuda_device), lengths.to(cuda_device),
+                   frame_mask=mask.to(cuda_device),
+                   mask_embedding=emb.to(cuda_device))
+    want, wl = cpu(x, lengths, frame_mask=mask, mask_embedding=emb)
+    assert gl.tolist() == wl.tolist() == [19, 12, 0]
+    assert torch.isfinite(got).all() and _rel(got, want) <= PARITY
+    got.square().sum().backward()
+    want.square().sum().backward()
+    peak = max(p.grad.abs().max().item() for p in cpu.parameters())
+    err = max((a.grad.cpu() - b.grad).abs().max().item()
+              for a, b in zip(card.parameters(), cpu.parameters()))
+    assert err / peak <= GRAD_PARITY
+
+
+@pytest.mark.cuda
+def test_ssl_models_on_card(cuda_device):
+    """HuBERT's loss with a span mask drawn for the card, the Conformer and
+    Emformer SSL variants on the card against CPU copies, and the Emformer
+    variant streamed on the card against its one-shot output."""
+    from torchaudio_contrib_tpu_torch import models as M
+    gen = torch.Generator().manual_seed(7)
+    cpu = M.HuBERTPretrainModel(M.Wav2Vec2(**_W2V2, device="cpu",
+                                           generator=gen),
+                                num_classes=5, final_dim=8, device="cpu",
+                                generator=gen)
+    card = copy.deepcopy(cpu).to(cuda_device)
+    x = torch.randn((2, 400), generator=gen)
+    labels = torch.randint(0, 5, (2, 19), generator=gen)
+    mask = M.span_mask(torch.Generator().manual_seed(1), 2, 19, None, 0.2, 4,
+                       device=cuda_device)
+    assert mask.device.type == "cuda"
+    loss = card.loss(x.to(cuda_device), labels.to(cuda_device), None, mask)
+    want = cpu.loss(x, labels, None, mask.cpu())
+    assert abs(loss.item() - want.item()) <= PARITY * abs(want.item())
+    feats = torch.randn((2, 28, 6), generator=gen)
+    for model in (M.ConformerWav2Vec2(feature_dim=6, stride=2, d_model=16,
+                                      num_layers=2, num_heads=2, ff_ratio=2,
+                                      conv_kernel=3, device="cpu",
+                                      generator=gen),
+                  M.EmformerHuBERT(feature_dim=6, stride=2, d_model=16,
+                                   num_heads=2, ffn_dim=32, num_layers=2,
+                                   segment_length=4, left_context_length=3,
+                                   right_context_length=2,
+                                   max_memory_size=2, device="cpu",
+                                   generator=gen)):
+        model = model.eval()
+        on = copy.deepcopy(model).to(cuda_device)
+        with torch.no_grad():
+            got, _ = on(feats.to(cuda_device), torch.tensor([28, 20]))
+            assert _rel(got, model(feats, torch.tensor([28, 20]))[0]) \
+                <= PARITY
+    with torch.no_grad():
+        full, _ = on(feats.to(cuda_device))
+        state, outs = on.init_state(2), []
+        for i in range(3):
+            o, _, state = on.infer(feats[:, 8 * i:8 * i + 12]
+                                   .to(cuda_device), state)
+            outs.append(o)
+    assert _rel(torch.cat(outs, 1), full) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_w2v2_bundles_on_card(cuda_device):
+    """The bundles' models default to the card; the forced-alignment
+    emissions (star column) and spans of a toy base on the card equal the
+    CPU path's."""
+    from torchaudio_contrib_tpu_torch import models as M
+    from torchaudio_contrib_tpu_torch import pipelines as P
+
+    class Tiny(P.Wav2Vec2FABundle):
+        def _build(self, device, generator):
+            return M.Wav2Vec2(**_W2V2, aux_out=28, device=device,
+                              generator=generator)
+
+    fa = Tiny().get_model(generator=torch.Generator().manual_seed(8))
+    assert next(fa.parameters()).device.type == "cuda"
+    cpu = copy.deepcopy(fa).cpu()
+    x = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (1, 800)).astype(np.float32))
+    with torch.no_grad():
+        em, _ = fa(x.to(cuda_device))
+        want, _ = cpu(x)
+    assert em.shape == (1, 39, 29) and not em[..., -1].any()
+    assert _rel(em, want) <= PARITY
+    tokens = [3, 5, 5, 9]
+    aligner = P.MMS_FA.get_aligner()
+    got = aligner(want[0].to(cuda_device), tokens)
+    assert [(s.token, s.start, s.end) for s in got] == \
+        [(s.token, s.start, s.end) for s in aligner(want[0], tokens)]
+    asr = P.Wav2Vec2ASRBundle(lambda aux_out, device, generator: M.Wav2Vec2(
+        **_W2V2, aux_out=aux_out, device=device, generator=generator))
+    model = asr.get_model(torch.Generator().manual_seed(9))
+    assert next(model.parameters()).device.type == "cuda"

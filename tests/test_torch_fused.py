@@ -174,9 +174,15 @@ def test_import_pulls_in_no_jax():
             "edit, ctcdecode, lexdecode, rnnt)\n"
             "from torchaudio_contrib_tpu_torch.models import asr, decoder\n"
             "from torchaudio_contrib_tpu_torch.models import (_common, "
-            "emformer, conformer, rnnt, factories)\n"
+            "emformer, conformer, rnnt, factories, wav2vec2, hubert, "
+            "conformer_w2v2, emformer_hubert)\n"
             "from torchaudio_contrib_tpu_torch import pipelines\n"
-            "from torchaudio_contrib_tpu_torch.utils import convert\n"
+            "from torchaudio_contrib_tpu_torch.utils import convert, "
+            "checkpoint\n"
+            "from torchaudio_contrib_tpu_torch.benchmarks import "
+            "w2v2_profile\n"
+            "from torchaudio_contrib_tpu_torch.pipelines import (MMS_FA, "
+            "WAV2VEC2_ASR_BASE_960H, WAVLM_BASE)\n"
             "from torchaudio_contrib_tpu_torch import parallel\n"
             "from torchaudio_contrib_tpu_torch.parallel import corpus\n"
             "from torchaudio_contrib_tpu_torch.models import transforms\n"

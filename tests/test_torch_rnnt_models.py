@@ -370,8 +370,11 @@ def test_bundle_weights_and_features(rng, tmp_path):
     bundle = tpipe.EMFORMER_RNNT_BASE_LIBRISPEECH
     with pytest.raises(ValueError, match="generator"):
         bundle.get_model(device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        bundle.get_model(checkpoint="params.npz", device="cpu")
+    # checkpoint= reads a JAX parameter file (tests/test_torch_w2v2_bundles.py
+    # loads one into this bundle's class); a missing file raises
+    with pytest.raises(FileNotFoundError):
+        bundle.get_model(checkpoint=str(tmp_path / "none.npz"),
+                         device="cpu")
     model = bundle.get_model(torch.Generator().manual_seed(1), device="cpu")
     enc_proj = 1024 * 1024 + 1024
     assert _n(model) == _n_jax(JM.emformer_rnnt_base(

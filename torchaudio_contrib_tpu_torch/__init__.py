@@ -21,9 +21,13 @@ transforms over them (``models.transforms``), and the ASR training and
 decoding path: the CTC and RNN-T losses (``RNNTLoss``), forced alignment,
 edit distance, greedy, beam and lexicon + n-gram LM CTC decoding (host
 and device searches) and the Wav2Letter and DeepSpeech models, fed by the
-fused front end; and the streaming transducer family (Emformer and
+fused front end; the streaming transducer family (Emformer and
 Conformer encoders, the RNN-T model with its greedy and beam decoders, their
-factories and the Emformer-RNNT bundles in ``pipelines``).
+factories and the Emformer-RNNT bundles in ``pipelines``); and the wav2vec2
+family (Wav2Vec2 and WavLM encoders with their factories, HuBERT
+pretraining, the Conformer and Emformer SSL variants, the wav2vec2 ASR and
+forced-alignment bundles, and ``utils.save_params``/``load_params`` in the
+JAX package's file format).
 Module names follow the JAX package's; the flat names below are those of
 its ``__init__`` that are ported so far.
 
@@ -92,6 +96,15 @@ from .models import (
     ChromaSpectrogram, ChromaFilterbank, Chromagram, Wav2Letter, DeepSpeech,
     CTCDecoderLM, ZeroLM, ARPALM, CTCDecoder, CTCDecoderOutput, ctc_decoder,
     Emformer, ConvEmformer, Conformer, RNNT, RNNTPredictor, RNNTBeamSearch,
+    Wav2Vec2, Wav2Vec2Model, WavLM, wav2vec2_model, wav2vec2_base,
+    wav2vec2_large, wav2vec2_large_lv60k, hubert_base, hubert_large,
+    hubert_xlarge, wavlm_base, wavlm_large, wav2vec2_xlsr_300m,
+    wav2vec2_xlsr_1b, wav2vec2_xlsr_2b, HuBERTPretrainModel, span_mask,
+    hubert_pretrain_base, hubert_pretrain_large, hubert_pretrain_xlarge,
+    ConformerWav2Vec2, conformer_wav2vec2_model, conformer_wav2vec2_base,
+    ConformerWav2Vec2PretrainModel, conformer_wav2vec2_pretrain_model,
+    conformer_wav2vec2_pretrain_base, conformer_wav2vec2_pretrain_large,
+    EmformerHuBERT, emformer_hubert_model, emformer_hubert_base,
     MFCC, Loudness, PitchShift, Speed, AddNoise, Fade, Vol,
     FrequencyMasking, TimeMasking, Preemphasis, Deemphasis, ComputeDeltas,
     SlidingWindowCmn, SpectralCentroid, MelScale, InverseMelScale, PSD,
@@ -160,7 +173,18 @@ __all__ = [
     "ChromaSpectrogram", "ChromaFilterbank", "Chromagram", "Wav2Letter",
     "DeepSpeech", "CTCDecoderLM", "ZeroLM", "ARPALM", "CTCDecoder",
     "CTCDecoderOutput", "ctc_decoder", "Emformer", "ConvEmformer",
-    "Conformer", "RNNT", "RNNTPredictor", "RNNTBeamSearch", "MFCC", "Loudness", "PitchShift",
+    "Conformer", "RNNT", "RNNTPredictor", "RNNTBeamSearch",
+    "Wav2Vec2", "Wav2Vec2Model", "WavLM", "wav2vec2_model", "wav2vec2_base",
+    "wav2vec2_large", "wav2vec2_large_lv60k", "hubert_base", "hubert_large",
+    "hubert_xlarge", "wavlm_base", "wavlm_large", "wav2vec2_xlsr_300m",
+    "wav2vec2_xlsr_1b", "wav2vec2_xlsr_2b", "HuBERTPretrainModel",
+    "span_mask", "hubert_pretrain_base", "hubert_pretrain_large",
+    "hubert_pretrain_xlarge", "ConformerWav2Vec2",
+    "conformer_wav2vec2_model", "conformer_wav2vec2_base",
+    "ConformerWav2Vec2PretrainModel", "conformer_wav2vec2_pretrain_model",
+    "conformer_wav2vec2_pretrain_base", "conformer_wav2vec2_pretrain_large",
+    "EmformerHuBERT", "emformer_hubert_model", "emformer_hubert_base",
+    "MFCC", "Loudness", "PitchShift",
     "Speed", "AddNoise", "Fade", "Vol", "FrequencyMasking", "TimeMasking",
     "Preemphasis", "Deemphasis", "ComputeDeltas", "SlidingWindowCmn",
     "SpectralCentroid", "MelScale", "InverseMelScale", "PSD", "SoudenMVDR",

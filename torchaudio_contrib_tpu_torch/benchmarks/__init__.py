@@ -15,7 +15,10 @@ times BASELINE config 5; ``asr_profile`` traces the ASR path's training
 step, RNN-T loss and beam search at ``chip_smoke.py`` phase 20's shapes and
 holds the step's gradient against a float64 step; ``transducer_profile``
 traces a streamed segment of the Emformer-RNNT bundle (greedy, encoder
-alone, beam) and a ``conformer_rnnt_base`` training step at phase 21's.
+alone, beam) and a ``conformer_rnnt_base`` training step at phase 21's;
+``w2v2_profile`` traces the ``WAV2VEC2_ASR_BASE_960H`` batch of 8 requests
+and a CTC fine-tuning step at phase 22's, with the feature extractor's and
+the positional conv's shares of the forward.
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """Layer API and models of the PyTorch port (the mel front end's and the
 inverse path's slices, the torchaudio-named transforms over the ported
 ops, the classic ASR models Wav2Letter and DeepSpeech, the host
-lexicon + LM CTC decoder, and the streaming transducer family: Emformer
+lexicon + LM CTC decoder, the streaming transducer family: Emformer
 and Conformer encoders, the RNN-T model, its greedy and beam decoders and
-their factories)."""
+their factories; and the wav2vec2 family: Wav2Vec2/WavLM and their
+factories, HuBERT pretraining, the Conformer and Emformer SSL variants)."""
 from .layers import (
     Transform, Pipeline,
     STFT, ISTFT, InverseSpectrogram, ComplexNorm,
@@ -21,7 +22,23 @@ from .emformer import Emformer, ConvEmformer, EmformerTranscriber
 from .conformer import Conformer, ConformerTranscriber
 from .rnnt import RNNTPredictor, LayerNormLSTMPredictor, RNNT, RNNTBeamSearch
 from .factories import (emformer_rnnt_model, emformer_rnnt_base,
-                        conformer_rnnt_model, conformer_rnnt_base)
+                        conformer_rnnt_model, conformer_rnnt_base,
+                        wav2vec2_model, hubert_pretrain_base,
+                        hubert_pretrain_large, hubert_pretrain_xlarge)
+from .wav2vec2 import (
+    Wav2Vec2, Wav2Vec2Model, WavLM, wavlm_buckets,
+    wav2vec2_base, wav2vec2_large, wav2vec2_large_lv60k,
+    hubert_base, hubert_large, hubert_xlarge, wavlm_base, wavlm_large,
+    wav2vec2_xlsr_300m, wav2vec2_xlsr_1b, wav2vec2_xlsr_2b,
+)
+from .hubert import HuBERTPretrainModel, span_mask
+from .conformer_w2v2 import (
+    ConformerWav2Vec2, conformer_wav2vec2_model, conformer_wav2vec2_base,
+    ConformerWav2Vec2PretrainModel, conformer_wav2vec2_pretrain_model,
+    conformer_wav2vec2_pretrain_base, conformer_wav2vec2_pretrain_large,
+)
+from .emformer_hubert import (EmformerHuBERT, emformer_hubert_model,
+                              emformer_hubert_base)
 from .decoder import (
     CTCDecoderLM, ZeroLM, ARPALM,
     CTCDecoder, CTCDecoderOutput, ctc_decoder,
@@ -54,6 +71,18 @@ __all__ = [
     "RNNTPredictor", "LayerNormLSTMPredictor", "RNNT", "RNNTBeamSearch",
     "emformer_rnnt_model", "emformer_rnnt_base",
     "conformer_rnnt_model", "conformer_rnnt_base",
+    "Wav2Vec2", "Wav2Vec2Model", "WavLM", "wavlm_buckets",
+    "wav2vec2_base", "wav2vec2_large", "wav2vec2_large_lv60k",
+    "hubert_base", "hubert_large", "hubert_xlarge", "wavlm_base",
+    "wavlm_large", "wav2vec2_xlsr_300m", "wav2vec2_xlsr_1b",
+    "wav2vec2_xlsr_2b", "wav2vec2_model", "HuBERTPretrainModel",
+    "span_mask", "hubert_pretrain_base", "hubert_pretrain_large",
+    "hubert_pretrain_xlarge",
+    "ConformerWav2Vec2", "conformer_wav2vec2_model",
+    "conformer_wav2vec2_base", "ConformerWav2Vec2PretrainModel",
+    "conformer_wav2vec2_pretrain_model", "conformer_wav2vec2_pretrain_base",
+    "conformer_wav2vec2_pretrain_large",
+    "EmformerHuBERT", "emformer_hubert_model", "emformer_hubert_base",
     "CTCDecoderLM", "ZeroLM", "ARPALM",
     "CTCDecoder", "CTCDecoderOutput", "ctc_decoder",
     "transforms",

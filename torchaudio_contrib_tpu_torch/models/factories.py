@@ -1,10 +1,11 @@
-"""Named factories of the transducer family.
+"""Named factories of the transducer and wav2vec2 families.
 
 Port of the four transducer factories of
 ``torchaudio_contrib_tpu/models/factories.py`` (``emformer_rnnt_model``,
 ``emformer_rnnt_base``, ``conformer_rnnt_model``,
-``conformer_rnnt_base``); the JAX package's other factories wait for
-their models.  Each takes ``device=`` (the card unless the caller asks
+``conformer_rnnt_base``), ``wav2vec2_model`` and the three HuBERT
+pretraining factories (``hubert_pretrain_base|large|xlarge``); the JAX
+package's other factories wait for their models.  Each takes ``device=`` (the card unless the caller asks
 for the CPU) and ``generator=`` for the initial weights, and builds on
 the CPU before it moves the model.
 """
@@ -16,10 +17,14 @@ import torch
 
 from .conformer import ConformerTranscriber
 from .emformer import Emformer, EmformerTranscriber
+from .hubert import HuBERTPretrainModel
 from .rnnt import RNNT, LayerNormLSTMPredictor
+from .wav2vec2 import Wav2Vec2, hubert_base, hubert_large, hubert_xlarge
 
 __all__ = ["emformer_rnnt_model", "emformer_rnnt_base",
-           "conformer_rnnt_model", "conformer_rnnt_base"]
+           "conformer_rnnt_model", "conformer_rnnt_base",
+           "wav2vec2_model", "hubert_pretrain_base", "hubert_pretrain_large",
+           "hubert_pretrain_xlarge"]
 
 
 def emformer_rnnt_model(*, input_dim: int, encoding_dim: int = 0,
@@ -183,3 +188,37 @@ def conformer_rnnt_base(num_symbols: int = 1024, *, device="cuda",
         num_lstm_layers=2, lstm_hidden_dim=512,
         lstm_layer_norm=True, lstm_layer_norm_epsilon=1e-5,
         joiner_activation="tanh", device=device, generator=generator)
+
+
+def wav2vec2_model(**kwargs) -> Wav2Vec2:
+    """Generic constructor (torchaudio's ``wav2vec2_model``): all
+    :class:`Wav2Vec2` keywords pass through."""
+    return Wav2Vec2(**kwargs)
+
+
+def _pretrain(encoder_factory, num_classes: int, device, generator
+              ) -> HuBERTPretrainModel:
+    return HuBERTPretrainModel(encoder_factory(device="cpu",
+                                               generator=generator),
+                               num_classes=num_classes, device=device,
+                               generator=generator)
+
+
+def hubert_pretrain_base(num_classes: int = 100, *, device="cuda",
+                         generator: Optional[torch.Generator] = None
+                         ) -> HuBERTPretrainModel:
+    """HuBERT pretraining over the BASE encoder (the first iteration's
+    MFCC k-means classes by default)."""
+    return _pretrain(hubert_base, num_classes, device, generator)
+
+
+def hubert_pretrain_large(num_classes: int = 500, *, device="cuda",
+                          generator: Optional[torch.Generator] = None
+                          ) -> HuBERTPretrainModel:
+    return _pretrain(hubert_large, num_classes, device, generator)
+
+
+def hubert_pretrain_xlarge(num_classes: int = 500, *, device="cuda",
+                           generator: Optional[torch.Generator] = None
+                           ) -> HuBERTPretrainModel:
+    return _pretrain(hubert_xlarge, num_classes, device, generator)

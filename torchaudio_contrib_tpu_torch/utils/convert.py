@@ -8,10 +8,17 @@ of the same name: :func:`from_jax_params` for ``MelFrontendClassifier``,
 :func:`emformer_from_jax_params` and :func:`conformer_from_jax_params` for
 the encoders, :func:`emformer_rnnt_from_jax_params` (the house and the
 torchaudio-layout build) and :func:`conformer_rnnt_from_jax_params` for
-the transducers.  None imports JAX.  The other way, the JAX package's
-``utils.import_torch`` importers (``import_wav2letter``,
-``import_deepspeech``, ``import_emformer_rnnt``) load the port's
-``state_dict`` s, whose names are torchaudio's.  The inverse path (ISTFT,
+the transducers; :func:`wav2vec2_from_jax_params` (``Wav2Vec2`` and
+``WavLM``), :func:`hubert_pretrain_from_jax_params`,
+:func:`conformer_wav2vec2_from_jax_params` and
+:func:`emformer_hubert_from_jax_params` for the wav2vec2 family.  None
+imports JAX.  The other way, the JAX package's ``utils.import_torch``
+importers (``import_wav2letter``, ``import_deepspeech``,
+``import_emformer_rnnt``, ``import_wav2vec2``) load the port's
+``state_dict`` s, whose names are torchaudio's (HF's for the wav2vec2
+family).  :func:`wav2vec2_from_torch_state_dict` reads an HF-layout
+checkpoint (a task prefix, ``lm_head``, a weight-normed positional conv,
+pretraining leftovers) into the port's names.  The inverse path (ISTFT,
 Griffin-Lim, mel inversion, the vocoder ops) has no parameters, so it needs
 no conversion.
 """
@@ -23,7 +30,11 @@ import torch
 __all__ = ["from_jax_params", "wav2letter_from_jax_params",
            "deepspeech_from_jax_params", "emformer_from_jax_params",
            "conformer_from_jax_params", "emformer_rnnt_from_jax_params",
-           "conformer_rnnt_from_jax_params"]
+           "conformer_rnnt_from_jax_params", "wav2vec2_from_jax_params",
+           "hubert_pretrain_from_jax_params",
+           "conformer_wav2vec2_from_jax_params",
+           "emformer_hubert_from_jax_params",
+           "wav2vec2_from_torch_state_dict"]
 
 
 def _t(a) -> torch.Tensor:
@@ -274,3 +285,182 @@ def _conformer_transcriber_sd(p: dict) -> dict:
     _linear(sd, "output_linear", p["out_lin"])
     _norm(sd, "layer_norm", p["out_ln"])
     return sd
+
+
+# -- the wav2vec2 family ---------------------------------------------------
+
+def _conv1d(p) -> torch.Tensor:
+    """A JAX conv kernel ``(k, cin, cout)`` (TIO) → ``(cout, cin, k)``."""
+    return _t(np.transpose(p, (2, 1, 0)))
+
+
+def _w2v2_sd(sd: dict, pre: str, p: dict):
+    for i, lp in enumerate(p["extractor"]):
+        n = f"{pre}feature_extractor.conv_layers.{i}."
+        sd[n + "conv.weight"] = _conv1d(lp["w"])
+        if "b" in lp:
+            sd[n + "conv.bias"] = _t(lp["b"])
+        for key in ("n", "gn"):
+            if key in lp:
+                _norm(sd, n + "layer_norm", lp[key])
+    _norm(sd, pre + "feature_projection.layer_norm", p["proj_ln"])
+    _linear(sd, pre + "feature_projection.projection", p["proj"])
+    sd[pre + "encoder.pos_conv_embed.conv.weight"] = _conv1d(p["pos_conv"])
+    sd[pre + "encoder.pos_conv_embed.conv.bias"] = _t(p["pos_b"])
+    _norm(sd, pre + "encoder.layer_norm", p["enc_ln"])
+    for i, lp in enumerate(p["layers"]):
+        n = f"{pre}encoder.layers.{i}."
+        w = np.asarray(lp["wqkv"])
+        b = np.asarray(lp["bqkv"])
+        d = w.shape[0]
+        for j, name in enumerate(("q_proj", "k_proj", "v_proj")):
+            sd[f"{n}attention.{name}.weight"] = _t(
+                np.transpose(w[:, j * d:(j + 1) * d]))
+            sd[f"{n}attention.{name}.bias"] = _t(b[j * d:(j + 1) * d])
+        _linear(sd, n + "attention.out_proj", lp, "wo", "bo")
+        _norm(sd, n + "layer_norm", lp["ln1"])
+        _linear(sd, n + "feed_forward.intermediate_dense", lp, "w1", "b1")
+        _linear(sd, n + "feed_forward.output_dense", lp, "w2", "b2")
+        _norm(sd, n + "final_layer_norm", lp["ln2"])
+        if "gru_w" in lp:
+            _linear(sd, n + "attention.gru_rel_pos_linear", lp, "gru_w",
+                    "gru_b")
+            sd[n + "attention.gru_rel_pos_const"] = _t(
+                np.reshape(lp["gru_const"], (1, -1, 1, 1)))
+    if "rel_embed" in p:
+        sd[pre + "encoder.layers.0.attention.rel_attn_embed.weight"] = _t(
+            p["rel_embed"])
+    if "aux" in p:
+        _linear(sd, pre + "aux", p["aux"])
+
+
+def wav2vec2_from_jax_params(params_np: dict) -> dict:
+    """Params of the JAX ``Wav2Vec2`` or ``WavLM`` → ``state_dict`` of the
+    port's (HF names): the extractor's convs ``(k, cin, cout)`` →
+    ``feature_extractor.conv_layers.{i}.conv (cout, cin, k)``, its norms
+    (``n`` or ``gn``) → ``.layer_norm``; ``proj_ln``/``proj`` →
+    ``feature_projection.*``; ``pos_conv``/``pos_b`` →
+    ``encoder.pos_conv_embed.conv``; ``enc_ln`` → ``encoder.layer_norm``;
+    a layer's ``wqkv`` split in ``(q, k, v)`` blocks → ``attention.{q,k,v}
+    _proj``, ``wo`` → ``attention.out_proj``, ``ln1``/``ln2`` →
+    ``layer_norm``/``final_layer_norm``, ``w1``/``w2`` →
+    ``feed_forward.intermediate_dense``/``output_dense``; WavLM's
+    ``gru_*`` → ``attention.gru_rel_pos_linear``/``gru_rel_pos_const (1,
+    H, 1, 1)`` and ``rel_embed`` → ``encoder.layers.0.attention
+    .rel_attn_embed``; ``aux`` → ``aux``."""
+    sd = {}
+    _w2v2_sd(sd, "", params_np)
+    return sd
+
+
+def _ssl_encoder_sd(sd: dict, pre: str, p: dict):
+    """An SSL encoder's params under ``pre``, told apart by their keys."""
+    if "extractor" in p:
+        _w2v2_sd(sd, pre, p)
+        return
+    _norm(sd, pre + "proj_ln", p["proj_ln"])
+    _linear(sd, pre + "proj", p["proj"])
+    if "ffn1" in p["encoder"]["layers"][0]:
+        _conformer_sd(sd, pre + "encoder.", p["encoder"])
+    else:
+        _emformer_sd(sd, pre + "encoder.", p["encoder"])
+    if "aux" in p:
+        _linear(sd, pre + "aux", p["aux"])
+
+
+def hubert_pretrain_from_jax_params(params_np: dict) -> dict:
+    """Params of the JAX ``HuBERTPretrainModel`` → ``state_dict`` of the
+    port's: the encoder (a ``Wav2Vec2``/``WavLM``, a ``ConformerWav2Vec2``
+    or an ``EmformerHuBERT``) under ``encoder.``, ``mask_emb`` →
+    ``mask_embedding``, ``final_proj`` → ``final_proj``, ``label_emb`` →
+    ``label_embeddings``."""
+    sd = {}
+    _ssl_encoder_sd(sd, "encoder.", params_np["encoder"])
+    sd["mask_embedding"] = _t(params_np["mask_emb"])
+    _linear(sd, "final_proj", params_np["final_proj"])
+    sd["label_embeddings"] = _t(params_np["label_emb"])
+    return sd
+
+
+def conformer_wav2vec2_from_jax_params(params_np: dict) -> dict:
+    """Params of the JAX ``ConformerWav2Vec2`` → ``state_dict`` of the
+    port's: ``proj_ln``, ``proj``, the Conformer under ``encoder.`` as
+    :func:`conformer_from_jax_params` names it, ``aux``.  Params of the
+    JAX ``ConformerWav2Vec2PretrainModel`` (``{"encoder", "mask_emb"}``)
+    give the wrapper's: the same under ``encoder.`` and
+    ``mask_embedding``."""
+    sd = {}
+    if "mask_emb" in params_np:
+        _ssl_encoder_sd(sd, "encoder.", params_np["encoder"])
+        sd["mask_embedding"] = _t(params_np["mask_emb"])
+    else:
+        _ssl_encoder_sd(sd, "", params_np)
+    return sd
+
+
+def emformer_hubert_from_jax_params(params_np: dict) -> dict:
+    """Params of the JAX ``EmformerHuBERT`` → ``state_dict`` of the port's:
+    ``proj_ln``, ``proj``, the house Emformer under ``encoder.`` as
+    :func:`emformer_from_jax_params` names it, ``aux``."""
+    sd = {}
+    _ssl_encoder_sd(sd, "", params_np)
+    return sd
+
+
+def _fold_weight_norm(g: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """``w = g · v / ||v||``, the norm over every axis where ``g`` is
+    broadcast (size 1): torch's ``dim=`` recovered from the shapes."""
+    axes = tuple(i for i, n in enumerate(g.shape) if n == 1)
+    norm = np.sqrt((v.astype(np.float64) ** 2).sum(axis=axes, keepdims=True))
+    return (g * (v / norm)).astype(np.float32)
+
+
+def wav2vec2_from_torch_state_dict(state_dict, model) -> dict:
+    """An HF-layout ``state_dict`` (``Wav2Vec2Model``/``HubertModel``/
+    ``WavLMModel``, or a task model around one) → a ``state_dict`` for the
+    port's ``model`` (a ``Wav2Vec2`` or ``WavLM``), as the JAX package's
+    ``import_wav2vec2`` reads one:
+
+    * a uniform prefix before ``feature_extractor.conv_layers`` (``wav2vec2
+      .``, ``hubert.``, ``wavlm.``, ``model.``) is stripped;
+    * a weight-normed weight (``weight_g``/``weight_v`` or
+      ``parametrizations.weight.original0/1``, the positional conv's) is
+      folded into the plain weight;
+    * ``lm_head`` (or ``aux``) is the CTC head, required iff
+      ``model.aux_out`` is set;
+    * keys the model has no use for (``masked_spec_embed``, quantizer and
+      projection heads of pretraining) are ignored.
+
+    Raises ``KeyError`` naming the first weight the checkpoint lacks."""
+    sd = {k: (v.detach().cpu() if isinstance(v, torch.Tensor)
+              else torch.as_tensor(np.asarray(v)))
+          for k, v in state_dict.items()}
+    marker = "feature_extractor.conv_layers"
+    prefix = next((k[:k.find(marker)] for k in sd if marker in k), "")
+    if prefix:
+        sd = {k[len(prefix):] if k.startswith(prefix) else k: v
+              for k, v in sd.items()}
+
+    def get(name: str) -> torch.Tensor:
+        if name in sd:
+            return sd[name]
+        if name.endswith(".weight"):
+            base = name[:-len(".weight")]
+            for g, v in ((base + ".parametrizations.weight.original0",
+                          base + ".parametrizations.weight.original1"),
+                         (base + ".weight_g", base + ".weight_v")):
+                if g in sd:
+                    return torch.from_numpy(_fold_weight_norm(
+                        sd[g].float().numpy(), sd[v].float().numpy()))
+        raise KeyError(f"the state_dict has no {name!r} (nor a weight-norm "
+                       "parametrization of it)")
+
+    out = {}
+    for name, want in model.state_dict().items():
+        if name.startswith("aux."):
+            head = "lm_head" if "lm_head" + name[3:] in sd else "aux"
+            got = get(head + name[3:])
+        else:
+            got = get(name)
+        out[name] = got.reshape(want.shape).to(want.dtype)
+    return out
