@@ -14,6 +14,8 @@ tokens and distances equal.  Wav2Letter runs at a toy width (its body's
 channel table patched on both classes alike) except in one full-width
 forward.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -209,3 +211,100 @@ def test_asr_slice_trains_and_decodes_as_jax(rng, toy):
     td = tops.edit_distance_batched(torch.from_numpy(targets), tt,
                                     torch.from_numpy(tgt_len), tn)
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+# -- the models' cuDNN precision (every model the port has) ------------------
+
+@functools.lru_cache(maxsize=1)
+def _c1_cases():
+    """(name, model, the conv or RNN to hook, a call through the model's
+    outermost entry point), every model at a toy width on the CPU."""
+    from torchaudio_contrib_tpu_torch import models as M
+    g = torch.Generator().manual_seed(0)
+    w2l = Wav2Letter(num_classes=5, input_type="mfcc", num_features=4,
+                     device="cpu", generator=g)
+    ds = DeepSpeech(4, n_hidden=8, n_class=5, device="cpu", generator=g)
+    conf = M.Conformer(6, d_model=8, num_layers=1, num_heads=2,
+                       conv_kernel=3, device="cpu", generator=g)
+    emf = M.ConvEmformer(8, 2, 16, 1, 4, kernel_size=3, device="cpu",
+                         generator=g)
+    w2v = M.Wav2Vec2(extractor_conv_layers=((8, 10, 5), (8, 3, 2)),
+                     d_model=8, num_layers=1, num_heads=2, ff_dim=16,
+                     pos_conv_kernel=4, pos_conv_groups=2, device="cpu",
+                     generator=g)
+    clf = M.MelFrontendClassifier(num_classes=3, num_mels=16,
+                                  channels=(4,), generator=g)
+    pred = M.RNNTPredictor(9, 6, 8, 10, device="cpu", generator=g)
+    taco = M.Tacotron2(n_symbols=10, n_mels=8, embed_dim=8, encoder_dim=8,
+                       attention_dim=4, attention_filters=2,
+                       attention_kernel=3, decoder_dim=8, prenet_dim=4,
+                       postnet_dim=8, device="cpu", generator=g).eval()
+    wrnn = M.WaveRNN(upsample_scales=(2, 3), hop_length=6, n_res_block=1,
+                     n_rnn=8, n_fc=8, n_freq=4, n_hidden=4, n_output=4,
+                     n_classes=8, device="cpu", generator=g).eval()
+    hifi = M.HiFiGANVocoder(in_channels=4, upsample_initial_channel=32,
+                            device="cpu", generator=g)
+    tok, tl = torch.tensor([[1, 2, 3]]), torch.tensor([3])
+    spec = torch.randn(1, 4, 6, generator=g)
+    return [
+        ("Wav2Letter", w2l, w2l.acoustic_model[0],
+         lambda: w2l(torch.randn(1, 4, 20))),
+        ("DeepSpeech", ds, ds.bi_rnn, lambda: ds(torch.randn(1, 5, 4))),
+        ("Conformer", conf, conf.conformer_layers[0].conv_module
+         .sequential[2], lambda: conf(torch.randn(1, 7, 6))),
+        ("ConvEmformer.forward", emf,
+         emf.emformer_layers[0].conv_module.pointwise_conv1,
+         lambda: emf(torch.randn(1, 8, 8), torch.tensor([8]))),
+        ("ConvEmformer.infer", emf,
+         emf.emformer_layers[0].conv_module.pointwise_conv1,
+         lambda: emf.infer(torch.randn(1, 4, 8), emf.init_state(1))),
+        ("Wav2Vec2 extractor", w2v,
+         w2v.feature_extractor.conv_layers[0].conv,
+         lambda: w2v(torch.randn(1, 400))),
+        ("Wav2Vec2 positional conv", w2v, w2v.encoder.pos_conv_embed.conv,
+         lambda: w2v(torch.randn(1, 400))),
+        ("MelFrontendClassifier", clf, clf.convs[0],
+         lambda: clf(torch.randn(2, 1, 2000))),
+        ("MelFrontendClassifier.train_step", clf, clf.convs[0],
+         lambda: clf.train_step(torch.randn(2, 1, 2000),
+                                torch.tensor([0, 1]))),
+        ("RNNTPredictor", pred, pred.lstm,
+         lambda: pred(torch.tensor([[1, 2, 3]]))),
+        ("Tacotron2.forward", taco, taco.encoder.lstm,
+         lambda: taco(tok, tl, torch.randn(1, 8, 3))),
+        ("Tacotron2.infer", taco, taco.postnet.convolutions[0][0],
+         lambda: taco.infer(tok, tl, max_steps=2)),
+        ("WaveRNN.forward", wrnn, wrnn.rnn1,
+         lambda: wrnn(torch.zeros(1, 12), spec)),
+        ("WaveRNN.infer", wrnn, wrnn.upsample.resnet.melresnet_model[0],
+         lambda: wrnn.infer(spec)),
+        ("HiFiGANVocoder", hifi, hifi.conv_pre,
+         lambda: hifi(torch.randn(1, 4, 3))),
+    ]
+
+
+@pytest.mark.parametrize("case", range(15))
+def test_models_pin_cudnn_to_fp32(case):
+    """Inside every model's forward (and ``infer``/``train_step``) cuDNN
+    runs without TF32 while the global flag allows it, and the flags the
+    pin does not concern keep their values; after the call the global
+    flags are as they were."""
+    name, _, module, call = _c1_cases()[case]
+    c = torch.backends.cudnn
+    saved = (c.allow_tf32, c.benchmark, c.deterministic)
+    seen = []
+
+    def hook(mod, args):
+        seen.append((c.allow_tf32, c.benchmark, c.deterministic, c.enabled))
+
+    handle = module.register_forward_pre_hook(hook)
+    try:
+        c.allow_tf32, c.benchmark, c.deterministic = True, True, True
+        call()
+        after = (c.allow_tf32, c.benchmark, c.deterministic)
+    finally:
+        handle.remove()
+        c.allow_tf32, c.benchmark, c.deterministic = saved
+    assert seen, f"{name}: the hooked module did not run"
+    assert all(s == (False, True, True, True) for s in seen), (name, seen)
+    assert after == (True, True, True), name

@@ -997,3 +997,62 @@ def test_w2v2_bundles_on_card(cuda_device):
         **_W2V2, aux_out=aux_out, device=device, generator=generator))
     model = asr.get_model(torch.Generator().manual_seed(9))
     assert next(model.parameters()).device.type == "cuda"
+
+
+@pytest.fixture()
+def default_flags(cuda_device):
+    """The card with PyTorch's default precision flags (cuDNN TF32 on,
+    cuBLAS TF32 off), restored after the test."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda_device
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = saved
+
+
+def _default_flag_case(name, g):
+    """(model on the CPU, its inputs) at widths where TF32 convolutions
+    land well past 1e-4 of peak."""
+    from torchaudio_contrib_tpu_torch import models as M
+    x = lambda *s: torch.randn(*s, generator=g)
+    if name == "wav2letter":
+        return (tat.Wav2Letter(num_classes=29, input_type="mfcc",
+                               num_features=13, device="cpu", generator=g),
+                (x(2, 13, 400),))
+    if name == "wav2vec2":
+        return M.wav2vec2_base(device="cpu", generator=g), (x(2, 32000),)
+    if name == "conformer":
+        return (M.Conformer(80, d_model=144, num_layers=4, num_heads=4,
+                            device="cpu", generator=g), (x(2, 300, 80),))
+    if name == "hifigan":
+        return M.hifigan_vocoder_v3(device="cpu", generator=g), \
+            (x(2, 80, 40),)
+    return (M.Tacotron2(n_symbols=38, device="cpu", generator=g).eval(),
+            (torch.randint(1, 38, (2, 30), generator=g),
+             torch.tensor([30, 17]), x(2, 80, 12)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["wav2letter", "wav2vec2", "conformer",
+                                  "hifigan", "tacotron2"])
+def test_models_hold_the_bar_at_default_flags(default_flags, name):
+    """C1: with ``cudnn.allow_tf32`` True (PyTorch's default) the models
+    still run their convolutions and RNNs in FP32: 1e-4 of peak against
+    the CPU copy."""
+    model, args = _default_flag_case(name, torch.Generator().manual_seed(0))
+    card = copy.deepcopy(model).to(default_flags)
+    with torch.no_grad():
+        want = model(*args)
+        got = card(*(a.to(default_flags) for a in args))
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None, name
+        elif w.is_floating_point():
+            assert _rel(g, w) <= GRAD_PARITY, name
+        else:
+            assert torch.equal(g.cpu(), w), name
+    assert torch.backends.cudnn.allow_tf32

@@ -175,8 +175,12 @@ def test_import_pulls_in_no_jax():
             "from torchaudio_contrib_tpu_torch.models import asr, decoder\n"
             "from torchaudio_contrib_tpu_torch.models import (_common, "
             "emformer, conformer, rnnt, factories, wav2vec2, hubert, "
-            "conformer_w2v2, emformer_hubert)\n"
-            "from torchaudio_contrib_tpu_torch import pipelines\n"
+            "conformer_w2v2, emformer_hubert, tacotron2, wavernn, "
+            "hifigan)\n"
+            "from torchaudio_contrib_tpu_torch import pipelines, datasets\n"
+            "from torchaudio_contrib_tpu_torch.pipelines import ("
+            "TACOTRON2_WAVERNN_CHAR_LJSPEECH, HIFIGAN_VOCODER_V3_LJSPEECH, "
+            "TACOTRON2_GRIFFINLIM_PHONE_LJSPEECH)\n"
             "from torchaudio_contrib_tpu_torch.utils import convert, "
             "checkpoint\n"
             "from torchaudio_contrib_tpu_torch.benchmarks import "

@@ -27,7 +27,9 @@ factories and the Emformer-RNNT bundles in ``pipelines``); and the wav2vec2
 family (Wav2Vec2 and WavLM encoders with their factories, HuBERT
 pretraining, the Conformer and Emformer SSL variants, the wav2vec2 ASR and
 forced-alignment bundles, and ``utils.save_params``/``load_params`` in the
-JAX package's file format).
+JAX package's file format); and the TTS family (Tacotron2, the WaveRNN and
+HiFi-GAN vocoders, the Tacotron2 + WaveRNN / Griffin-Lim and HiFi-GAN
+bundles in ``pipelines``, and ``datasets.CMUDict`` for the phone bundles).
 Module names follow the JAX package's; the flat names below are those of
 its ``__init__`` that are ported so far.
 
@@ -38,7 +40,7 @@ package.
 __version__ = "0.1.0"
 
 from . import (ops, models, utils, benchmarks, parallel, compliance,
-               pipelines)
+               datasets, pipelines)
 
 from .ops import (
     stft, istft, frame_signal, num_frames, stft_output_length,
@@ -105,6 +107,8 @@ from .models import (
     ConformerWav2Vec2PretrainModel, conformer_wav2vec2_pretrain_model,
     conformer_wav2vec2_pretrain_base, conformer_wav2vec2_pretrain_large,
     EmformerHuBERT, emformer_hubert_model, emformer_hubert_base,
+    Tacotron2, WaveRNN, HiFiGANVocoder, hifigan_vocoder_v1,
+    hifigan_vocoder_v2, hifigan_vocoder_v3,
     MFCC, Loudness, PitchShift, Speed, AddNoise, Fade, Vol,
     FrequencyMasking, TimeMasking, Preemphasis, Deemphasis, ComputeDeltas,
     SlidingWindowCmn, SpectralCentroid, MelScale, InverseMelScale, PSD,
@@ -115,7 +119,7 @@ from .models import (
 
 __all__ = [
     "ops", "models", "utils", "benchmarks", "parallel", "compliance",
-    "pipelines",
+    "datasets", "pipelines",
     "stft", "istft", "frame_signal", "num_frames", "stft_output_length",
     "complex_norm", "angle", "magphase",
     "hertz_to_mel", "mel_to_hertz", "hertz_to_bark", "bark_to_hertz",
@@ -184,6 +188,8 @@ __all__ = [
     "ConformerWav2Vec2PretrainModel", "conformer_wav2vec2_pretrain_model",
     "conformer_wav2vec2_pretrain_base", "conformer_wav2vec2_pretrain_large",
     "EmformerHuBERT", "emformer_hubert_model", "emformer_hubert_base",
+    "Tacotron2", "WaveRNN", "HiFiGANVocoder", "hifigan_vocoder_v1",
+    "hifigan_vocoder_v2", "hifigan_vocoder_v3",
     "MFCC", "Loudness", "PitchShift",
     "Speed", "AddNoise", "Fade", "Vol", "FrequencyMasking", "TimeMasking",
     "Preemphasis", "Deemphasis", "ComputeDeltas", "SlidingWindowCmn",

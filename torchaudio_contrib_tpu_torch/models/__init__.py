@@ -4,7 +4,8 @@ ops, the classic ASR models Wav2Letter and DeepSpeech, the host
 lexicon + LM CTC decoder, the streaming transducer family: Emformer
 and Conformer encoders, the RNN-T model, its greedy and beam decoders and
 their factories; and the wav2vec2 family: Wav2Vec2/WavLM and their
-factories, HuBERT pretraining, the Conformer and Emformer SSL variants)."""
+factories, HuBERT pretraining, the Conformer and Emformer SSL variants;
+and the TTS family: Tacotron2, the WaveRNN and HiFi-GAN vocoders)."""
 from .layers import (
     Transform, Pipeline,
     STFT, ISTFT, InverseSpectrogram, ComplexNorm,
@@ -24,7 +25,12 @@ from .rnnt import RNNTPredictor, LayerNormLSTMPredictor, RNNT, RNNTBeamSearch
 from .factories import (emformer_rnnt_model, emformer_rnnt_base,
                         conformer_rnnt_model, conformer_rnnt_base,
                         wav2vec2_model, hubert_pretrain_base,
-                        hubert_pretrain_large, hubert_pretrain_xlarge)
+                        hubert_pretrain_large, hubert_pretrain_xlarge,
+                        hifigan_vocoder)
+from .tacotron2 import Tacotron2
+from .wavernn import WaveRNN
+from .hifigan import (HiFiGANVocoder, hifigan_vocoder_v1, hifigan_vocoder_v2,
+                      hifigan_vocoder_v3)
 from .wav2vec2 import (
     Wav2Vec2, Wav2Vec2Model, WavLM, wavlm_buckets,
     wav2vec2_base, wav2vec2_large, wav2vec2_large_lv60k,
@@ -83,6 +89,8 @@ __all__ = [
     "conformer_wav2vec2_pretrain_model", "conformer_wav2vec2_pretrain_base",
     "conformer_wav2vec2_pretrain_large",
     "EmformerHuBERT", "emformer_hubert_model", "emformer_hubert_base",
+    "Tacotron2", "WaveRNN", "HiFiGANVocoder", "hifigan_vocoder",
+    "hifigan_vocoder_v1", "hifigan_vocoder_v2", "hifigan_vocoder_v3",
     "CTCDecoderLM", "ZeroLM", "ARPALM",
     "CTCDecoder", "CTCDecoderOutput", "ctc_decoder",
     "transforms",

@@ -11,10 +11,10 @@ batch-first, ``(B, T', classes)`` out, ready for ``ops.ctc_loss``.
 Both take ``device=`` (the card unless the caller asks for the CPU) and
 initialise their weights as the JAX models do (Glorot-uniform, zero
 biases; the recurrent kernel at half scale) from ``generator``.  Their
-convolutions and products follow PyTorch's global precision flags: on
-the card ``torch.backends.cudnn.allow_tf32`` (True by default) runs
-Wav2Letter's convolutions and the RNN in TF32; set it, and
-``torch.backends.cuda.matmul.allow_tf32``, to False for float32 products.
+forwards run Wav2Letter's convolutions and DeepSpeech's RNN in FP32 on
+the card whatever ``torch.backends.cudnn.allow_tf32`` says
+(``_common._fp32_cudnn``); the linear layers follow
+``torch.backends.cuda.matmul.allow_tf32`` (False by default).
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ._common import _glorot_
+from ._common import _fp32_cudnn, _glorot_
 
 __all__ = ["Wav2Letter", "DeepSpeech"]
 
@@ -99,6 +99,7 @@ class Wav2Letter(nn.Module):
             self.acoustic_model = acoustic
         self.to(device)
 
+    @_fp32_cudnn
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.input_type == "waveform":
             if x.ndim != 2:
@@ -167,6 +168,7 @@ class DeepSpeech(nn.Module):
         nn.init.zeros_(self.out.bias)
         self.to(device)
 
+    @_fp32_cudnn
     def forward(self, x: torch.Tensor, log_probs: bool = False):
         if x.ndim != 3 or x.shape[-1] != self.n_feature:
             raise ValueError(f"x must be (batch, time, {self.n_feature})")

@@ -23,8 +23,9 @@ is the same model.
 
 Modules take ``device=`` (the card unless the caller asks for the CPU)
 and ``generator=`` for their initial weights.  The depthwise convolution
-is a grouped ``nn.Conv1d`` (cuDNN on the card, which
-``torch.backends.cudnn.allow_tf32`` governs).
+is a grouped ``nn.Conv1d`` (cuDNN on the card, in FP32 whatever
+``torch.backends.cudnn.allow_tf32`` says: ``forward`` runs under
+``_common._fp32_cudnn``).
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ._common import _dense, _glorot_, _pointwise
+from ._common import _dense, _fp32_cudnn, _glorot_, _pointwise
 
 __all__ = ["Conformer", "ConformerTranscriber"]
 
@@ -183,6 +184,7 @@ class Conformer(nn.Module):
             for _ in range(num_layers))
         self.to(device)
 
+    @_fp32_cudnn
     def forward(self, x: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         if x.ndim != 3 or x.shape[-1] != self.input_dim:

@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ._common import _dense, _glorot_
+from ._common import _dense, _fp32_cudnn, _glorot_
 
 __all__ = ["Emformer", "ConvEmformer", "EmformerTranscriber"]
 
@@ -196,6 +196,7 @@ class Emformer(nn.Module):
         return utt if self.compat else self.output_layer_norm(utt)
 
     # -- full-utterance forward ------------------------------------------
+    @_fp32_cudnn
     def forward(self, x: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None):
         B, TR, D = x.shape
@@ -273,6 +274,7 @@ class Emformer(nn.Module):
                 "seen": torch.zeros((batch_size,), dtype=torch.long,
                                     device=dev)}
 
+    @_fp32_cudnn
     def infer(self, chunk: torch.Tensor, state: dict,
               utt_lengths: Optional[torch.Tensor] = None,
               rc_lengths: Optional[torch.Tensor] = None):
@@ -340,8 +342,9 @@ class ConvEmformer(Emformer):
     convolution as the segment's continuation, so chunkwise ``infer``
     still equals ``forward``; the state gains a ``(B, kernel_size − 1,
     D)`` cache a layer.  The depthwise convolution is one grouped
-    ``F.conv1d`` (cuDNN on the card: ``torch.backends.cudnn.allow_tf32``
-    governs it)."""
+    ``F.conv1d`` (cuDNN on the card, in FP32 whatever
+    ``torch.backends.cudnn.allow_tf32`` says: ``forward`` and ``infer`` run
+    under ``_common._fp32_cudnn``)."""
 
     def __init__(self, input_dim: int, num_heads: int, ffn_dim: int,
                  num_layers: int, segment_length: int,

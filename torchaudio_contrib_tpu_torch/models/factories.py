@@ -3,8 +3,9 @@
 Port of the four transducer factories of
 ``torchaudio_contrib_tpu/models/factories.py`` (``emformer_rnnt_model``,
 ``emformer_rnnt_base``, ``conformer_rnnt_model``,
-``conformer_rnnt_base``), ``wav2vec2_model`` and the three HuBERT
-pretraining factories (``hubert_pretrain_base|large|xlarge``); the JAX
+``conformer_rnnt_base``), ``wav2vec2_model``, the three HuBERT
+pretraining factories (``hubert_pretrain_base|large|xlarge``) and
+``hifigan_vocoder``; the JAX
 package's other factories wait for their models.  Each takes ``device=`` (the card unless the caller asks
 for the CPU) and ``generator=`` for the initial weights, and builds on
 the CPU before it moves the model.
@@ -16,6 +17,7 @@ from typing import Optional
 import torch
 
 from .conformer import ConformerTranscriber
+from .hifigan import HiFiGANVocoder
 from .emformer import Emformer, EmformerTranscriber
 from .hubert import HuBERTPretrainModel
 from .rnnt import RNNT, LayerNormLSTMPredictor
@@ -24,7 +26,7 @@ from .wav2vec2 import Wav2Vec2, hubert_base, hubert_large, hubert_xlarge
 __all__ = ["emformer_rnnt_model", "emformer_rnnt_base",
            "conformer_rnnt_model", "conformer_rnnt_base",
            "wav2vec2_model", "hubert_pretrain_base", "hubert_pretrain_large",
-           "hubert_pretrain_xlarge"]
+           "hubert_pretrain_xlarge", "hifigan_vocoder"]
 
 
 def emformer_rnnt_model(*, input_dim: int, encoding_dim: int = 0,
@@ -194,6 +196,12 @@ def wav2vec2_model(**kwargs) -> Wav2Vec2:
     """Generic constructor (torchaudio's ``wav2vec2_model``): all
     :class:`Wav2Vec2` keywords pass through."""
     return Wav2Vec2(**kwargs)
+
+
+def hifigan_vocoder(**kwargs) -> HiFiGANVocoder:
+    """Generic constructor (torchaudio's ``hifigan_vocoder``): all
+    :class:`HiFiGANVocoder` keywords pass through."""
+    return HiFiGANVocoder(**kwargs)
 
 
 def _pretrain(encoder_factory, num_classes: int, device, generator

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ._common import _fp32_cudnn
 from .layers import (AmplitudeToDb, FusedMelspectrogram, Melspectrogram,
                      Pipeline)
 
@@ -92,6 +93,7 @@ class MelFrontendClassifier(nn.Module):
         """``(B, C, T)`` → log-mel ``(B, C, mels, frames)``."""
         return self.frontend(waveform)
 
+    @_fp32_cudnn
     def forward(self, waveform: torch.Tensor) -> torch.Tensor:
         x = self.features(waveform).mean(dim=1, keepdim=True)  # (B,1,M,F)
         for conv in self.convs:
@@ -106,6 +108,7 @@ class MelFrontendClassifier(nn.Module):
         ``labels (B,)``."""
         return F.cross_entropy(self(waveform), labels.long())
 
+    @_fp32_cudnn
     def train_step(self, waveform: torch.Tensor, labels: torch.Tensor,
                    lr: float = 1e-3) -> torch.Tensor:
         """One plain SGD step, ``p ← p − lr·∂loss/∂p``, on every parameter

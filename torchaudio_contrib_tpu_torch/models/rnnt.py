@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ._common import _dense, _glorot_
+from ._common import _dense, _fp32_cudnn, _glorot_
 from ..ops.rnnt import rnnt_loss_fused
 
 __all__ = ["RNNTPredictor", "LayerNormLSTMPredictor", "RNNT",
@@ -123,6 +123,7 @@ class RNNTPredictor(_Predictor):
             x = h
         return self.linear(self.layer_norm(x)), new_state
 
+    @_fp32_cudnn
     def forward(self, targets: torch.Tensor, target_lengths=None):
         y, _ = self.lstm(self.embedding(self._sos(targets)))
         return self.linear(self.layer_norm(y))

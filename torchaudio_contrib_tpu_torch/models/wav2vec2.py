@@ -24,8 +24,10 @@ module's weights into the JAX model.  Attention is written out as products,
 a ``masked_fill`` with the JAX constant ``-1e30`` and a softmax: a row with
 no valid key (a clip whose ``output_length`` is 0) is uniform, where
 ``F.scaled_dot_product_attention`` with a boolean mask gives NaN.  The
-positional conv is a grouped ``nn.Conv1d`` (cuDNN on the card, which
-``torch.backends.cudnn.allow_tf32`` governs), padded ``(k//2, (k-1)//2)``:
+positional conv is a grouped ``nn.Conv1d`` (cuDNN on the card, in FP32
+whatever ``torch.backends.cudnn.allow_tf32`` says: ``forward`` runs under
+``_common._fp32_cudnn``, the extractor's convs too), padded
+``(k//2, (k-1)//2)``:
 the same function as the JAX package's ``lax`` conv, summed in another
 order.
 
@@ -44,7 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ._common import _dense, _glorot_
+from ._common import _dense, _fp32_cudnn, _glorot_
 
 __all__ = ["Wav2Vec2", "Wav2Vec2Model", "WavLM", "wavlm_buckets",
            "wav2vec2_base", "wav2vec2_large", "wav2vec2_large_lv60k",
@@ -296,6 +298,7 @@ class Wav2Vec2(nn.Module):
                 x = torch.where(pad_mask[..., None], x, 0.0)
         return x
 
+    @_fp32_cudnn
     def forward(self, waveforms: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None, *,
                 frame_mask: Optional[torch.Tensor] = None,

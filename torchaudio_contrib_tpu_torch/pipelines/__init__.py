@@ -4,8 +4,10 @@ Port of the transducer and wav2vec2 parts of
 ``torchaudio_contrib_tpu/pipelines``: :class:`RNNTBundle` and the three
 ``EMFORMER_RNNT_BASE_*``; :class:`Wav2Vec2Bundle`,
 :class:`Wav2Vec2ASRBundle` and their 24 constants (``WAV2VEC2_*``,
-``HUBERT_*``, ``WAVLM_*``); :class:`Wav2Vec2FABundle` and ``MMS_FA``.  The
-JAX package's other bundles wait for their models.
+``HUBERT_*``, ``WAVLM_*``); :class:`Wav2Vec2FABundle` and ``MMS_FA``; the
+TTS bundles (:class:`Tacotron2TTSBundle`, :class:`HiFiGANVocoderBundle`,
+:class:`Tacotron2GriffinLimBundle` and their five constants).  The JAX
+package's other bundles wait for their models.
 
 No pretrained weights can be fetched.  ``get_model`` builds the
 architecture on ``device`` (the card unless the caller asks for the CPU)
@@ -14,7 +16,8 @@ with weights from a ``torch.Generator``, or loads ``torch_checkpoint`` (a
 for the wav2vec2 family) or ``checkpoint`` (a file of the JAX package's
 ``utils.checkpoint.save_params``, read by the port's ``load_params`` and
 carried over by ``utils.convert``), and raises with none of them.  It
-returns the module (the JAX package's returns ``(model, params)``).
+returns the module (the JAX package's returns ``(model, params)``); the TTS
+bundles' ``get_tacotron2``/``get_vocoder`` take the same arguments.
 """
 from __future__ import annotations
 
@@ -23,17 +26,27 @@ from collections.abc import Mapping
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .. import models as M
+from ..datasets import CMUDict
 from ..models import RNNTBeamSearch, emformer_rnnt_model
 from ..models.layers import Melspectrogram
 from ..ops.align import forced_align, merge_tokens
+from ..ops.filters import create_mel_filter
+from ..ops.melinv import mel_to_audio
+from ..ops.stft import stft
 from ..utils.checkpoint import load_params
 from ..utils.convert import (emformer_rnnt_from_jax_params,
+                             hifigan_from_jax_params,
+                             hifigan_from_torch_state_dict,
+                             tacotron2_from_jax_params,
                              wav2vec2_from_jax_params,
-                             wav2vec2_from_torch_state_dict)
+                             wav2vec2_from_torch_state_dict,
+                             wavernn_from_jax_params)
 
 __all__ = [
     "RNNTBundle", "EMFORMER_RNNT_BASE_LIBRISPEECH",
@@ -49,6 +62,10 @@ __all__ = [
     "WAV2VEC2_ASR_LARGE_960H", "WAV2VEC2_ASR_LARGE_LV60K_10M",
     "WAV2VEC2_ASR_LARGE_LV60K_100H", "WAV2VEC2_ASR_LARGE_LV60K_960H",
     "HUBERT_ASR_XLARGE",
+    "Tacotron2TTSBundle", "TACOTRON2_WAVERNN_CHAR_LJSPEECH",
+    "HiFiGANVocoderBundle", "HIFIGAN_VOCODER_V3_LJSPEECH",
+    "Tacotron2GriffinLimBundle", "TACOTRON2_GRIFFINLIM_CHAR_LJSPEECH",
+    "TACOTRON2_GRIFFINLIM_PHONE_LJSPEECH", "TACOTRON2_WAVERNN_PHONE_LJSPEECH",
 ]
 
 # torchaudio's wav2vec2 CTC character vocabulary
@@ -347,3 +364,279 @@ class Wav2Vec2FABundle:
 
 
 MMS_FA = Wav2Vec2FABundle()
+
+
+# -- text to speech ----------------------------------------------------------
+
+def _pad_ids(ids: list) -> tuple:
+    """Id lists → ``(ids (B, T) int32, lengths (B,) int32)`` NumPy arrays,
+    zero-padded (T at least 1)."""
+    lengths = np.asarray([len(i) for i in ids], np.int32)
+    T = max(1, int(lengths.max()) if len(lengths) else 1)
+    out = np.zeros((len(ids), T), np.int32)
+    for r, seq in enumerate(ids):
+        out[r, :len(seq)] = seq
+    return out, lengths
+
+
+class _CharTextProcessor:
+    """Character-level text → ``(ids (B, T), lengths (B,))`` int32 NumPy
+    arrays (torchaudio's ``_get_chars`` convention: pad first); characters
+    outside the table are dropped."""
+
+    symbols = "_-!'(),.:;? abcdefghijklmnopqrstuvwxyz"
+
+    def __call__(self, texts):
+        if isinstance(texts, str):
+            # a bare string would iterate as the batch
+            texts = [texts]
+        return _pad_ids([[self.symbols.index(c) for c in t.lower()
+                          if c in self.symbols] for t in texts])
+
+
+@dataclass(frozen=True)
+class Tacotron2TTSBundle:
+    """Character Tacotron2 + WaveRNN vocoder (torchaudio's
+    ``TACOTRON2_WAVERNN_CHAR_LJSPEECH`` geometry: 80 mels at 22.05 kHz, the
+    vocoder's hop 275 as upsample scales (5, 5, 11)).  ``get_tacotron2`` and
+    ``get_vocoder`` return their module in eval mode."""
+    n_mels: int = 80
+    sample_rate: int = 22050
+    hop_length: int = 275
+
+    def get_text_processor(self):
+        return _CharTextProcessor()
+
+    def _tacotron2(self, device, generator):
+        return M.Tacotron2(n_symbols=len(_CharTextProcessor.symbols),
+                           n_mels=self.n_mels, device=device,
+                           generator=generator)
+
+    def get_tacotron2(self, generator: Optional[torch.Generator] = None,
+                      checkpoint=None, torch_checkpoint=None, *,
+                      device="cuda") -> nn.Module:
+        """``Tacotron2`` with weights from ``generator``, a torchaudio-layout
+        ``state_dict`` (or a path to one) or the JAX model's params saved by
+        ``save_params``."""
+        return _resolve(self._tacotron2, generator, checkpoint,
+                              torch_checkpoint, device,
+                              tacotron2_from_jax_params, lambda sd, _: sd).eval()
+
+    def _wavernn(self, device, generator):
+        return M.WaveRNN(upsample_scales=(5, 5, 11),
+                         hop_length=self.hop_length, n_freq=self.n_mels,
+                         device=device, generator=generator)
+
+    def get_vocoder(self, generator: Optional[torch.Generator] = None,
+                    checkpoint=None, torch_checkpoint=None, *,
+                    device="cuda") -> nn.Module:
+        """``WaveRNN`` with weights as :meth:`get_tacotron2` (a
+        torchaudio-layout ``WaveRNN`` ``state_dict``)."""
+        return _resolve(self._wavernn, generator, checkpoint,
+                              torch_checkpoint, device,
+                              wavernn_from_jax_params, lambda sd, _: sd).eval()
+
+
+class _HiFiGANMelTransform(nn.Module):
+    """``waveform (..., T)`` → ``(..., n_mels, T // hop)`` log-mel: reflect
+    padding by ``(fft − hop)//2``, an uncentered ``stft``, the magnitude
+    ``sqrt(re² + im² + 1e-9)``, a Slaney mel product in FP32,
+    ``log(clamp(mel, 1e-5))``."""
+
+    def __init__(self, b: "HiFiGANVocoderBundle"):
+        super().__init__()
+        self.fft, self.hop = b.fft_length, b.hop_length
+        self.register_buffer("fb", create_mel_filter(
+            b.n_mels, b.sample_rate, b.f_min, b.f_max, b.fft_length // 2 + 1,
+            mel_scale="slaney", norm="slaney"))
+
+    def forward(self, waveform: torch.Tensor) -> torch.Tensor:
+        pad = (self.fft - self.hop) // 2
+        x = waveform.to(torch.float32)
+        lead = x.shape[:-1]
+        x = F.pad(x.reshape(-1, 1, x.shape[-1]), (pad, pad),
+                  mode="reflect").reshape(lead + (-1,))
+        spec = stft(x, self.fft, self.hop, center=False)
+        mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9)
+        mel = torch.einsum("...ft,fm->...mt", mag, self.fb)
+        return torch.log(mel.clamp(min=1e-5))
+
+
+@dataclass(frozen=True)
+class HiFiGANVocoderBundle:
+    """HiFi-GAN mel → waveform bundle (torchaudio's
+    ``HIFIGAN_VOCODER_V3_LJSPEECH`` surface): ``get_vocoder`` and the
+    training recipe's log-mel, ``get_mel_transform`` (fft 1024, hop 256,
+    Slaney mels up to 8 kHz)."""
+    _factory: Callable = M.hifigan_vocoder_v3
+    sample_rate: int = 22050
+    n_mels: int = 80
+    fft_length: int = 1024
+    hop_length: int = 256
+    f_min: float = 0.0
+    f_max: float = 8000.0
+
+    def _build(self, device, generator):
+        return self._factory(in_channels=self.n_mels, device=device,
+                             generator=generator)
+
+    def get_vocoder(self, generator: Optional[torch.Generator] = None,
+                    checkpoint=None, torch_checkpoint=None, *,
+                    device="cuda") -> nn.Module:
+        """``HiFiGANVocoder`` in eval mode: weights from ``generator``, a
+        generator ``state_dict`` or a path to one (HF ``SpeechT5HifiGan``
+        or the original repo's names, weight norm folded:
+        ``utils.convert.hifigan_from_torch_state_dict``) or the JAX
+        model's params saved by ``save_params``."""
+        return _resolve(self._build, generator, checkpoint,
+                              torch_checkpoint, device,
+                              hifigan_from_jax_params,
+                              hifigan_from_torch_state_dict).eval()
+
+    def get_mel_transform(self, *, device="cuda") -> nn.Module:
+        return _HiFiGANMelTransform(self).to(device)
+
+
+TACOTRON2_WAVERNN_CHAR_LJSPEECH = Tacotron2TTSBundle()
+HIFIGAN_VOCODER_V3_LJSPEECH = HiFiGANVocoderBundle()
+
+
+# -- Griffin-Lim and phone bundles -------------------------------------------
+
+def _arpabet_symbols() -> Tuple[str, ...]:
+    """The 96-symbol phone table of the JAX package: 12 specials, then the
+    sorted ARPAbet (15 vowels bare and with stress 0/1/2, 24
+    consonants)."""
+    vowels = "AA AE AH AO AW AY EH ER EY IH IY OW OY UH UW".split()
+    consonants = ("B CH D DH F G HH JH K L M N NG P R S SH T TH V W "
+                  "Y Z ZH").split()
+    phones = sorted(consonants + [v + s for v in vowels
+                                  for s in ("", "0", "1", "2")])
+    return tuple("_-!'(),.:;? ") + tuple(phones)
+
+
+class _PhoneTextProcessor:
+    """Phone text frontend over a local CMU Pronouncing Dictionary
+    (``root`` holds ``cmudict-0.7b``, read by ``datasets.CMUDict``; the
+    first pronunciation of a word wins).  Words are looked up upper-case,
+    with their apostrophes and then without; punctuation keeps its own
+    symbol; a space separates words.  An unknown word raises ``KeyError``
+    (``oov="skip"`` drops it)."""
+
+    symbols = _arpabet_symbols()
+
+    def __init__(self, root: str, oov: str = "raise"):
+        if oov not in ("raise", "skip"):
+            raise ValueError("oov must be 'raise' or 'skip'")
+        self._oov = oov
+        self._dict = {}
+        for word, phones in CMUDict(root):
+            self._dict.setdefault(word, phones)
+        self._index = {s: i for i, s in enumerate(self.symbols)}
+
+    def __call__(self, texts):
+        if isinstance(texts, str):
+            texts = [texts]
+        ids = []
+        for text in texts:
+            seq = []
+            for word in text.upper().split():
+                core = word.strip("!(),.:;?")
+                phones = self._dict.get(core)
+                if phones is None and core.strip("'") != core:
+                    phones = self._dict.get(core.strip("'"))
+                if phones is None and core.strip("'"):
+                    if self._oov == "raise":
+                        raise KeyError(
+                            f"word {core!r} not in CMUDict: add a "
+                            "pronunciation or use oov='skip'")
+                    phones = []
+                wseq = [self._index[p] for p in phones or []
+                        if p in self._index]
+                wseq += [self._index[ch] for ch in word
+                         if ch in "!'(),.:;?" and ch in self._index]
+                if not wseq:
+                    continue
+                if seq:
+                    seq.append(self._index[" "])
+                seq.extend(wseq)
+            ids.append(seq or [0])
+        return _pad_ids(ids)
+
+
+class _GriffinLimVocoder:
+    """Tacotron2's natural-log mel ``(B, n_mels, T)`` → ``(waveform (B,
+    samples), lengths)``: ``exp``, then ``ops.mel_to_audio`` (ridge mel
+    inversion + Griffin-Lim, the default ``method="matmul"``) on the mel's
+    device.  ``lengths`` (frames) become ``frames · hop`` samples, clamped
+    to the waveform."""
+
+    def __init__(self, sample_rate=22050, n_fft=1024, hop_length=256,
+                 n_mels=80, f_min=0.0, f_max=8000.0, n_iter=60,
+                 momentum=0.99, power=1.0):
+        self.sample_rate = sample_rate
+        self.kw = dict(num_mels=n_mels, sample_rate=sample_rate,
+                       f_min=f_min, f_max=f_max, fft_length=n_fft,
+                       hop_length=hop_length, n_iter=n_iter,
+                       momentum=momentum, power=power)
+        self.hop_length = hop_length
+
+    def __call__(self, mel: torch.Tensor, lengths=None,
+                 generator: Optional[torch.Generator] = None):
+        wave = mel_to_audio(torch.exp(torch.as_tensor(mel)),
+                            generator=generator, **self.kw)
+        if lengths is not None:
+            # the center=True ISTFT yields (frames - 1) * hop samples
+            lengths = np.minimum(np.asarray(torch.as_tensor(lengths).cpu())
+                                 * self.hop_length, wave.shape[-1])
+        return wave, lengths
+
+
+@dataclass(frozen=True)
+class Tacotron2GriffinLimBundle(Tacotron2TTSBundle):
+    """Tacotron2 + the Griffin-Lim vocoder (no vocoder weights; fft 1024,
+    hop 256, 80 mels up to 8 kHz, 60 iterations)."""
+    hop_length: int = 256
+
+    def get_vocoder(self, generator=None, checkpoint=None,
+                    torch_checkpoint=None):
+        if generator is not None or checkpoint is not None \
+                or torch_checkpoint is not None:
+            raise ValueError("the Griffin-Lim vocoder has no weights: call "
+                             "get_vocoder() bare")
+        return _GriffinLimVocoder(sample_rate=self.sample_rate,
+                                  hop_length=self.hop_length,
+                                  n_mels=self.n_mels)
+
+
+@dataclass(frozen=True)
+class Tacotron2PhoneMixin:
+    """``get_text_processor(root=...)`` gives the CMUDict phone frontend;
+    Tacotron2 is sized for the 96-phone table."""
+
+    def get_text_processor(self, root=None, oov="raise"):
+        if root is None:
+            raise ValueError("phone bundles need root= naming a directory "
+                             "that holds cmudict-0.7b (nothing is "
+                             "downloaded)")
+        return _PhoneTextProcessor(root, oov=oov)
+
+    def _tacotron2(self, device, generator):
+        return M.Tacotron2(n_symbols=len(_arpabet_symbols()),
+                           n_mels=self.n_mels, device=device,
+                           generator=generator)
+
+
+@dataclass(frozen=True)
+class _Tacotron2WaveRNNPhone(Tacotron2PhoneMixin, Tacotron2TTSBundle):
+    pass
+
+
+@dataclass(frozen=True)
+class _Tacotron2GLPhone(Tacotron2PhoneMixin, Tacotron2GriffinLimBundle):
+    pass
+
+
+TACOTRON2_GRIFFINLIM_CHAR_LJSPEECH = Tacotron2GriffinLimBundle()
+TACOTRON2_GRIFFINLIM_PHONE_LJSPEECH = _Tacotron2GLPhone()
+TACOTRON2_WAVERNN_PHONE_LJSPEECH = _Tacotron2WaveRNNPhone()

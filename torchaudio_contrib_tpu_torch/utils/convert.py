@@ -11,18 +11,23 @@ torchaudio-layout build) and :func:`conformer_rnnt_from_jax_params` for
 the transducers; :func:`wav2vec2_from_jax_params` (``Wav2Vec2`` and
 ``WavLM``), :func:`hubert_pretrain_from_jax_params`,
 :func:`conformer_wav2vec2_from_jax_params` and
-:func:`emformer_hubert_from_jax_params` for the wav2vec2 family.  None
-imports JAX.  The other way, the JAX package's ``utils.import_torch``
+:func:`emformer_hubert_from_jax_params` for the wav2vec2 family;
+:func:`tacotron2_from_jax_params`, :func:`wavernn_from_jax_params` and
+:func:`hifigan_from_jax_params` for the TTS family.  None imports JAX.  The other way, the JAX package's ``utils.import_torch``
 importers (``import_wav2letter``, ``import_deepspeech``,
-``import_emformer_rnnt``, ``import_wav2vec2``) load the port's
+``import_emformer_rnnt``, ``import_wav2vec2``, ``import_tacotron2``,
+``import_wavernn``, ``import_hifigan``) load the port's
 ``state_dict`` s, whose names are torchaudio's (HF's for the wav2vec2
 family).  :func:`wav2vec2_from_torch_state_dict` reads an HF-layout
 checkpoint (a task prefix, ``lm_head``, a weight-normed positional conv,
-pretraining leftovers) into the port's names.  The inverse path (ISTFT,
+pretraining leftovers) into the port's names, and
+:func:`hifigan_from_torch_state_dict` a HiFi-GAN generator's.  The inverse path (ISTFT,
 Griffin-Lim, mel inversion, the vocoder ops) has no parameters, so it needs
 no conversion.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -34,7 +39,9 @@ __all__ = ["from_jax_params", "wav2letter_from_jax_params",
            "hubert_pretrain_from_jax_params",
            "conformer_wav2vec2_from_jax_params",
            "emformer_hubert_from_jax_params",
-           "wav2vec2_from_torch_state_dict"]
+           "wav2vec2_from_torch_state_dict", "tacotron2_from_jax_params",
+           "wavernn_from_jax_params", "hifigan_from_jax_params",
+           "hifigan_from_torch_state_dict"]
 
 
 def _t(a) -> torch.Tensor:
@@ -415,6 +422,29 @@ def _fold_weight_norm(g: np.ndarray, v: np.ndarray) -> np.ndarray:
     return (g * (v / norm)).astype(np.float32)
 
 
+def _tensors(state_dict) -> dict:
+    return {k: (v.detach().cpu() if isinstance(v, torch.Tensor)
+                else torch.as_tensor(np.asarray(v)))
+            for k, v in state_dict.items()}
+
+
+def _folded(sd: dict, name: str) -> torch.Tensor:
+    """``sd[name]``, or a weight-normed weight (``weight_g``/``weight_v`` or
+    ``parametrizations.weight.original0/1``) folded into the plain one."""
+    if name in sd:
+        return sd[name]
+    if name.endswith(".weight"):
+        base = name[:-len(".weight")]
+        for g, v in ((base + ".parametrizations.weight.original0",
+                      base + ".parametrizations.weight.original1"),
+                     (base + ".weight_g", base + ".weight_v")):
+            if g in sd:
+                return torch.from_numpy(_fold_weight_norm(
+                    sd[g].float().numpy(), sd[v].float().numpy()))
+    raise KeyError(f"the state_dict has no {name!r} (nor a weight-norm "
+                   "parametrization of it)")
+
+
 def wav2vec2_from_torch_state_dict(state_dict, model) -> dict:
     """An HF-layout ``state_dict`` (``Wav2Vec2Model``/``HubertModel``/
     ``WavLMModel``, or a task model around one) → a ``state_dict`` for the
@@ -432,29 +462,14 @@ def wav2vec2_from_torch_state_dict(state_dict, model) -> dict:
       projection heads of pretraining) are ignored.
 
     Raises ``KeyError`` naming the first weight the checkpoint lacks."""
-    sd = {k: (v.detach().cpu() if isinstance(v, torch.Tensor)
-              else torch.as_tensor(np.asarray(v)))
-          for k, v in state_dict.items()}
+    sd = _tensors(state_dict)
     marker = "feature_extractor.conv_layers"
     prefix = next((k[:k.find(marker)] for k in sd if marker in k), "")
     if prefix:
         sd = {k[len(prefix):] if k.startswith(prefix) else k: v
               for k, v in sd.items()}
 
-    def get(name: str) -> torch.Tensor:
-        if name in sd:
-            return sd[name]
-        if name.endswith(".weight"):
-            base = name[:-len(".weight")]
-            for g, v in ((base + ".parametrizations.weight.original0",
-                          base + ".parametrizations.weight.original1"),
-                         (base + ".weight_g", base + ".weight_v")):
-                if g in sd:
-                    return torch.from_numpy(_fold_weight_norm(
-                        sd[g].float().numpy(), sd[v].float().numpy()))
-        raise KeyError(f"the state_dict has no {name!r} (nor a weight-norm "
-                       "parametrization of it)")
-
+    get = functools.partial(_folded, sd)
     out = {}
     for name, want in model.state_dict().items():
         if name.startswith("aux."):
@@ -462,5 +477,152 @@ def wav2vec2_from_torch_state_dict(state_dict, model) -> dict:
             got = get(head + name[3:])
         else:
             got = get(name)
+        out[name] = got.reshape(want.shape).to(want.dtype)
+    return out
+
+
+# -- the TTS family ----------------------------------------------------------
+
+_BN_EPS = 1e-5
+
+
+def _bn(sd: dict, name: str, p: dict):
+    """A frozen BatchNorm affine ``{g, b}`` → ``nn.BatchNorm1d`` whose eval
+    form is exactly ``y·g + b``: running mean 0, running variance
+    ``1 − eps`` (``(1 − eps) + eps`` is 1.0 in float32)."""
+    _norm(sd, name, p)
+    n = np.shape(p["g"])
+    sd[f"{name}.running_mean"] = torch.zeros(n)
+    sd[f"{name}.running_var"] = torch.full(n, 1.0 - _BN_EPS)
+    sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _lstm(sd: dict, name: str, p: dict, suffix: str = ""):
+    """The JAX LSTM ``{wx, wh, b}`` (one summed bias) → ``weight_ih``,
+    ``weight_hh``, ``bias_ih`` = b and ``bias_hh`` = 0."""
+    sd[f"{name}.weight_ih{suffix}"] = _t(np.transpose(p["wx"]))
+    sd[f"{name}.weight_hh{suffix}"] = _t(np.transpose(p["wh"]))
+    sd[f"{name}.bias_ih{suffix}"] = _t(p["b"])
+    sd[f"{name}.bias_hh{suffix}"] = torch.zeros(np.shape(p["b"]))
+
+
+def _conv_bn_stack(sd: dict, name: str, convs: list):
+    for i, c in enumerate(convs):
+        sd[f"{name}.{i}.0.weight"] = _conv1d(c["w"])
+        sd[f"{name}.{i}.0.bias"] = _t(c["b"])
+        _bn(sd, f"{name}.{i}.1", c["n"])
+
+
+def tacotron2_from_jax_params(params_np: dict) -> dict:
+    """The JAX ``Tacotron2`` params → the port's ``state_dict`` (the names
+    ``import_tacotron2`` reads): conv kernels ``(k, in, out)`` →
+    ``(out, in, k)``, dense kernels transposed, the frozen BatchNorm
+    affines as ``nn.BatchNorm1d`` (:func:`_bn`), each LSTM's summed bias
+    into ``bias_ih``; ``enc_bwd`` is ``encoder.lstm``'s ``_reverse``
+    direction."""
+    p = params_np
+    sd = {"embedding.weight": _t(p["embedding"])}
+    _conv_bn_stack(sd, "encoder.convolutions", p["enc_convs"])
+    _lstm(sd, "encoder.lstm", p["enc_fwd"], "_l0")
+    _lstm(sd, "encoder.lstm", p["enc_bwd"], "_l0_reverse")
+    _linear(sd, "decoder.prenet.layers.0", p["prenet1"])
+    _linear(sd, "decoder.prenet.layers.1", p["prenet2"])
+    _lstm(sd, "decoder.attention_rnn", p["att_rnn"])
+    att = "decoder.attention_layer."
+    sd[att + "query_layer.weight"] = _t(np.transpose(p["att_query"]))
+    sd[att + "memory_layer.weight"] = _t(np.transpose(p["att_memory"]))
+    sd[att + "v.weight"] = _t(np.transpose(p["att_v"]))
+    sd[att + "location_layer.location_conv.weight"] = _conv1d(
+        p["att_loc_conv"])
+    sd[att + "location_layer.location_dense.weight"] = _t(
+        np.transpose(p["att_loc_fc"]))
+    _lstm(sd, "decoder.decoder_rnn", p["dec_rnn"])
+    _linear(sd, "decoder.linear_projection", p["mel_out"])
+    _linear(sd, "decoder.gate_layer", p["stop"])
+    _conv_bn_stack(sd, "postnet.convolutions", p["postnet"])
+    return sd
+
+
+def wavernn_from_jax_params(params_np: dict) -> dict:
+    """The JAX ``WaveRNN`` params → the port's ``state_dict`` (the names
+    ``import_wavernn`` reads): the MelResNet's convs and frozen BatchNorm
+    affines into ``upsample.resnet.melresnet_model.{0,1,3…}``, each
+    smoothing kernel ``(K, 1, 1)`` into ``upsample.upsample_layers.{2i+1}``
+    as ``(1, 1, 1, K)``, the GRUs' ``{wx, wh, bx, bh}`` into ``rnn1``/
+    ``rnn2``."""
+    p = params_np
+    r = p["resnet"]
+    mm = "upsample.resnet.melresnet_model"
+    sd = {f"{mm}.0.weight": _conv1d(r["conv_in"])}
+    _bn(sd, f"{mm}.1", r["ln_in"])
+    for i, blk in enumerate(r["blocks"]):
+        rb = f"{mm}.{3 + i}.resblock_model"
+        sd[f"{rb}.0.weight"] = _conv1d(blk["c1"])
+        _bn(sd, f"{rb}.1", blk["n1"])
+        sd[f"{rb}.3.weight"] = _conv1d(blk["c2"])
+        _bn(sd, f"{rb}.4", blk["n2"])
+    last = f"{mm}.{3 + len(r['blocks'])}"
+    sd[f"{last}.weight"] = _conv1d(r["conv_out"])
+    sd[f"{last}.bias"] = _t(r["out_b"])
+    for i, w in enumerate(p["upsample"]):
+        sd[f"upsample.upsample_layers.{2 * i + 1}.weight"] = _t(
+            np.reshape(w, (1, 1, 1, -1)))
+    _linear(sd, "fc", p["fc_in"])
+    for name in ("rnn1", "rnn2"):
+        g = p["gru1" if name == "rnn1" else "gru2"]
+        sd[f"{name}.weight_ih_l0"] = _t(np.transpose(g["wx"]))
+        sd[f"{name}.weight_hh_l0"] = _t(np.transpose(g["wh"]))
+        sd[f"{name}.bias_ih_l0"] = _t(g["bx"])
+        sd[f"{name}.bias_hh_l0"] = _t(g["bh"])
+    for name in ("fc1", "fc2", "fc3"):
+        _linear(sd, name, p[name])
+    return sd
+
+
+def hifigan_from_jax_params(params_np: dict) -> dict:
+    """The JAX ``HiFiGANVocoder`` params → the port's ``state_dict`` (HF
+    ``SpeechT5HifiGan`` names, which ``import_hifigan`` reads): conv
+    kernels ``(k, in, out)`` → ``(out, in, k)``; a transposed conv's
+    ``(k, out, in)`` (``transpose_kernel=True`` TIO) → ``(in, out, k)``;
+    resblock ``r = stage · n_kernels + kernel``, type 1 (``w2`` present)
+    as ``convs1``/``convs2``, type 2 as ``convs``."""
+    p = params_np
+    sd = {"conv_pre.weight": _conv1d(p["pre"]["w"]),
+          "conv_pre.bias": _t(p["pre"]["b"])}
+    r = 0
+    for i, (up, layer) in enumerate(zip(p["ups"], p["mrf"])):
+        sd[f"upsampler.{i}.weight"] = _t(np.transpose(up["w"], (2, 1, 0)))
+        sd[f"upsampler.{i}.bias"] = _t(up["b"])
+        for convs in layer:
+            for j, blk in enumerate(convs):
+                if "w2" in blk:
+                    pairs = (("convs1", "w1", "b1"), ("convs2", "w2", "b2"))
+                else:
+                    pairs = (("convs", "w1", "b1"),)
+                for name, w, b in pairs:
+                    sd[f"resblocks.{r}.{name}.{j}.weight"] = _conv1d(blk[w])
+                    sd[f"resblocks.{r}.{name}.{j}.bias"] = _t(blk[b])
+            r += 1
+    sd["conv_post.weight"] = _conv1d(p["post"]["w"])
+    sd["conv_post.bias"] = _t(p["post"]["b"])
+    return sd
+
+
+def hifigan_from_torch_state_dict(state_dict, model) -> dict:
+    """A HiFi-GAN generator ``state_dict`` in HF ``SpeechT5HifiGan`` or the
+    original repo's naming (``ups.{i}`` for ``upsampler.{i}``) → a
+    ``state_dict`` for the port's ``model``, as ``import_hifigan`` reads
+    one: weight-norm parametrizations folded, the input-normalisation
+    buffers ``mean``/``scale`` ignored (feed unnormalised log-mels).  Raises
+    ``KeyError`` naming the first weight the checkpoint lacks."""
+    sd = _tensors(state_dict)
+    out = {}
+    for name, want in model.state_dict().items():
+        try:
+            got = _folded(sd, name)
+        except KeyError:
+            if not name.startswith("upsampler."):
+                raise
+            got = _folded(sd, "ups." + name[len("upsampler."):])
         out[name] = got.reshape(want.shape).to(want.dtype)
     return out
