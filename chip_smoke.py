@@ -1,6 +1,7 @@
 """GPU smoke run of the PyTorch port's serving, training and inverse paths,
 its corpus path, the IIR family, the ASR path, the streaming transducer
-family, the wav2vec2 family and the TTS family.
+family, the wav2vec2 family, the TTS family and the separation, assessment
+and embedding family.
 
     python3 chip_smoke.py
 
@@ -128,10 +129,10 @@ imports no JAX.  Phases, each printing its lines:
     (~23 M parameters, 501 frames) trained by 4 SGD steps on ``ctc_loss``
     against 60-120 tokens a clip between a reset and a read of the
     counters; step 0's loss, emissions and gradients against the CPU copy;
-    ms per step with TF32 off and with both TF32 flags on (the forward's
-    convolutions stay FP32: only the backward's follow the flag); step 0's
-    emissions also with PyTorch's default flags (cuDNN TF32 allowed),
-    held to the same bar; (b) ``DeepSpeech`` (2048 hidden) on
+    ms per step with TF32 off and with both TF32 flags on (the model's
+    convolutions stay FP32 in both passes: only cuBLAS follows the flag);
+    step 0's emissions and gradients also with PyTorch's default flags
+    (cuDNN TF32 allowed), held to the same bars; (b) ``DeepSpeech`` (2048 hidden) on
     ``FusedMelspectrogram``'s 40-mel log-mel of the clips (the fused
     forward once), forward and backward through ``ctc_loss``, 2 clips
     against the CPU copy; (c) ``rnnt_loss`` on logits (8, 250, 101, 1024)
@@ -169,8 +170,8 @@ imports no JAX.  Phases, each printing its lines:
     seeded generator, on CUDA tensors against a CPU copy with TF32 off
     (1e-4 of peak; losses 1e-5 relative, gradients 1e-4 of the whole
     gradient's peak), times with TF32 off and with both TF32 flags on (the
-    models pin their forwards' cuDNN calls to FP32: the flag reaches the
-    cuBLAS products, and a step's backward): (a)
+    models pin their cuDNN calls to FP32 in the forward and the backward:
+    the flag reaches the cuBLAS products only): (a)
     ``pipelines.WAV2VEC2_ASR_BASE_960H`` serving 8 requests of 4-16 s at 16
     kHz in one padded batch with ``lengths`` under
     ``torch.inference_mode()``: emissions, ``ctc_greedy_decode`` (frame
@@ -180,7 +181,8 @@ imports no JAX.  Phases, each printing its lines:
     request, the emissions with PyTorch's default flags (the same bar) and
     with both TF32 flags on (printed, no bar); (b) a CTC fine-tuning step
     of the same model (``ctc_loss``,
-    SGD) on 8 x 10 s, 4 steps whose loss must fall, checked on 2 x 4 s; (c)
+    SGD) on 8 x 10 s, 4 steps whose loss must fall, checked on 2 x 4 s
+    (the gradients also with PyTorch's default flags, the same bar); (c)
     ``hubert_pretrain_base(num_classes=100)`` on 8 x 10 s with a
     ``span_mask`` drawn from the generator and random labels, checked on 2
     clips with the same mask rows; (d) ``MMS_FA`` (the LARGE-lv60k
@@ -224,7 +226,33 @@ imports no JAX.  Phases, each printing its lines:
     ``cmudict-0.7b`` written to a temporary directory: ids equal to a
     hand count, Tacotron2 (100 steps) and the vocoder on the card.  Every
     counter is set to 0 before the phase; the mel counters must stay there,
-    B3's move only by (d)'s launch and the calls that time it.
+    B3's move only by (d)'s launch and the calls that time it;
+24. the separation, assessment and embedding family at full width (no
+    kernel: the counters are read before and after the phase and must not
+    move), weights from the seeded generator, with the global precision
+    flags at PyTorch's defaults, each part on CUDA tensors against a CPU
+    copy (1e-4 of peak; losses 1e-5 relative, gradients 1e-4 of the whole
+    gradient's peak) with its ms (CUDA events) and peak MiB: (a)
+    ``HDEMUCS_HIGH_MUSDB`` (``HDemucsTA``: nfft 4096, depth 6, 48
+    channels, 4 sources) under ``torch.inference_mode()`` on 2 stereo 10 s
+    segments at 44.1 kHz (one segment on the CPU), ms per segment, the
+    FLOP counted from the convolutions it runs beside their FP32 bound,
+    the busy share of one profiler window; then ``HDEMUCS_HIGH_MUSDB_PLUS``
+    and ``hdemucs_high()`` (the JAX package's ``HDemucs``) on the same mix;
+    (b) ``CONVTASNET_BASE_LIBRI2MIX`` (N 512, L 16, B 128, H 512, P 3, X 8,
+    R 3) on 8 x 10 s mixtures at 8 kHz, then SGD steps on -SI-SNR
+    (``ops.metrics.si_snr``) against the two planted sources, loss and
+    gradients on 2 mixtures against the CPU copy (C2's full-width check:
+    taken at PyTorch's default flags); (c) ``SQUIM_OBJECTIVE`` (the
+    torchaudio layout) and ``squim_objective_base()`` on 8 x 10 s at 16 kHz
+    (STOI, PESQ, SI-SDR), ``SQUIM_SUBJECTIVE`` on the same clips with 8
+    non-matching 10 s references (MOS), 2 clips on the CPU; (d) ``VGGISH``:
+    ``get_input_processor()`` on 8 clips of 10 s (10 patches each), the
+    model on the 80 patches, ms per clip; (e) phase 22 (c)'s
+    ``hubert_pretrain_base(100)`` step on 8 x 10 s in float32 and under
+    ``utils.mixed_precision`` (bfloat16 compute, float32 master weights):
+    ms for both, the losses within 2e-2 (the JAX package's test's bar),
+    the gradients in float32.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -356,11 +384,10 @@ W2V2 = dict(sr=16000, requests=(4.0, 5.7, 7.4, 9.1, 10.9, 12.6, 14.3, 16.0),
 # of float32 products summed in other orders (the phase 21 bar)
 W2V2_REL = 1e-4
 # What the "TF32 on" timings of phases 20 and 22 (both global flags on)
-# reach: the models pin their forwards' cuDNN convolutions and RNNs to FP32,
-# so only the cuBLAS products, and in a training step the backward's cuDNN
-# calls (run under the flags in force then), go to TF32.
-TF32_FWD = "both TF32 flags on: cuBLAS only, cuDNN pinned to FP32"
-TF32_STEP = "both TF32 flags on: cuBLAS and the backward's cuDNN"
+# reach: the models pin their cuDNN convolutions and RNNs to FP32 in the
+# forward and in a backward pass through their outputs, so only the cuBLAS
+# products go to TF32.
+TF32_ON = "both TF32 flags on: cuBLAS only, cuDNN pinned to FP32"
 # Phase 23, the TTS family at full width (the global precision flags at
 # PyTorch's defaults): (a) 4 texts of 60-150 characters through
 # Tacotron2 infer (``steps``), WaveRNN infer on each clip's first
@@ -410,6 +437,26 @@ TTS_PHONE_TEXT = "the cat sat on the mat."
 # ' ' M AE1 T '.'
 TTS_PHONE_IDS = [39, 21, 11, 64, 18, 81, 11, 79, 18, 81, 11, 14, 67, 11, 39,
                  21, 11, 66, 18, 81, 7]
+# Phase 24, the separation, assessment and embedding family at full width
+# (the global precision flags at PyTorch's defaults, weights from the shared
+# generator): (a) HDEMUCS_HIGH_MUSDB(_PLUS) (HDemucsTA, nfft 4096, depth 6,
+# 48 channels, 4 sources) and hdemucs_high() (the JAX package's HDemucs) on
+# ``music`` = (segments, channels, samples at ``music_sr``), one segment on
+# the CPU; (b) CONVTASNET_BASE_LIBRI2MIX on ``speech`` = (mixtures, samples
+# at 8 kHz), then one SGD step (``lr``) on −SI-SNR against the two planted
+# sources, checked on ``speech_check`` mixtures; (c) SQUIM_OBJECTIVE,
+# squim_objective_base() and SQUIM_SUBJECTIVE on ``squim`` = (clips,
+# samples at 16 kHz), ``squim_check`` clips on the CPU; (d) VGGISH's
+# processor on ``vggish`` = (clips, samples at 16 kHz), its model on all
+# their patches, ``vggish_check`` patches on the CPU; (e)
+# hubert_pretrain_base(100) steps on phase 22 (c)'s batch in float32 and
+# under ``utils.mixed_precision`` (bfloat16), the losses within
+# ``MIXED_REL`` (the JAX package's test's bar).
+SEP = dict(music=(2, 2, 441000), music_sr=44100, speech=(8, 80000),
+           speech_check=2, lr=1e-3, squim=(8, 160000), squim_check=2,
+           vggish=(8, 160000), vggish_check=8)
+SEP_REL = 1e-4         # card vs CPU copy, max |diff| / max |CPU|
+MIXED_REL = 2e-2
 # Published peaks of one H100 SXM (data sheet, 700 W): FP32 outside the
 # tensor cores, and HBM3.
 PEAK_FP32 = 67e12
@@ -2460,9 +2507,13 @@ def _asr_train(gen: torch.Generator, card: str, x: torch.Tensor) -> tuple:
         return feats, lp, loss
 
     # C1: the first forward once more with PyTorch's default flags (cuDNN
-    # TF32 allowed), before the counted run
-    with _default_flags(), torch.no_grad():
-        lp_default = torch.log_softmax(card_model(features()), -1).cpu()
+    # TF32 allowed), before the counted run; C2: its gradients too
+    with _default_flags():
+        lp_d = torch.log_softmax(card_model(features()), -1)
+        ops.ctc_loss(lp_d, tgc, None, tlc).backward()
+        lp_default = lp_d.detach().cpu()
+    grads_default = _param_grads(card_model)
+    opt.zero_grad()
     _reset_counts()
     losses = []
     for i in range(a["steps"]):
@@ -2482,6 +2533,7 @@ def _asr_train(gen: torch.Generator, card: str, x: torch.Tensor) -> tuple:
     lp_err = _rel(lp0.cpu(), lp_cpu.detach())
     default_err = _rel(lp_default, lp_cpu.detach())
     grad_err = _grad_err(grads0, _param_grads(model))
+    default_grad_err = _grad_err(grads_default, _param_grads(model))
     feat_err = _rel(feats_cpu[:2], ops.mfcc(x[:2], **a["mfcc"]))
 
     ms = {"off": _time_ms(step, 1, 3)}
@@ -2507,7 +2559,8 @@ def _asr_train(gen: torch.Generator, card: str, x: torch.Tensor) -> tuple:
             "ctc_fwd_bwd_ms": ctc_bwd_ms, "w2l_losses": losses,
             "w2l_loss_rel": loss_err, "w2l_emissions_err": lp_err,
             "w2l_grad_err": grad_err, "w2l_tf32_emissions_err": tf32_err,
-            "w2l_default_flags_emissions_err": default_err}
+            "w2l_default_flags_emissions_err": default_err,
+            "w2l_default_flags_grad_err": default_grad_err}
     print(f"ASR (a) [{card}]: Wav2Letter ({n_params} parameters) on the "
           f"fused MFCC {tuple(feats.shape)} of {tuple(x.shape)} at "
           f"{a['sr']} Hz -> emissions {tuple(emissions.shape)}, CTC on "
@@ -2516,8 +2569,9 @@ def _asr_train(gen: torch.Generator, card: str, x: torch.Tensor) -> tuple:
           f"route) {launches}, {fft_launches}; step 0 vs the CPU copy (TF32 "
           f"off): loss rel {loss_err:.2e}, emissions {lp_err:.2e} (with "
           f"PyTorch's default flags {default_err:.2e}), gradients "
-          f"{grad_err:.2e} of peak; MFCC vs the plain chain {feat_err:.2e}; "
-          f"ms per step: TF32 off {ms['off']:.2f}, {TF32_STEP} "
+          f"{grad_err:.2e} of peak (with PyTorch's default flags "
+          f"{default_grad_err:.2e}); MFCC vs the plain chain {feat_err:.2e}; "
+          f"ms per step: TF32 off {ms['off']:.2f}, {TF32_ON} "
           f"{ms['on']:.2f} (emissions {tf32_err:.2e} from TF32 off); MFCC "
           f"{feat_ms:.3f}, "
           f"ctc_loss forward {ctc_ms:.2f}, forward + backward "
@@ -2528,10 +2582,12 @@ def _asr_train(gen: torch.Generator, card: str, x: torch.Tensor) -> tuple:
     _check(all(math.isfinite(v) for v in losses), f"ASR (a): {losses}")
     _check(loss_err <= LOSS_RTOL and lp_err <= F32_PARITY
            and default_err <= F32_PARITY
-           and grad_err <= GRAD_PARITY and feat_err <= SCAN_PARITY,
+           and grad_err <= GRAD_PARITY and default_grad_err <= GRAD_PARITY
+           and feat_err <= SCAN_PARITY,
            f"ASR (a) vs CPU: loss {loss_err}, emissions {lp_err} (default "
            f"flags {default_err}), "
-           f"gradients {grad_err}, MFCC {feat_err}")
+           f"gradients {grad_err} (default flags {default_grad_err}), MFCC "
+           f"{feat_err}")
     return launches, emissions, nums
 
 
@@ -3285,11 +3341,11 @@ def _w2v2_serve(gen: torch.Generator, card: str) -> tuple:
           f"parameters) on 8 requests of {w['requests'][0]}-"
           f"{w['requests'][-1]} s, padded to {tuple(x.shape)} -> emissions "
           f"{tuple(emis.shape)}, frames {out_len.tolist()}; ms per batch "
-          f"{ms:.1f} (TF32 off), {ms_tf32:.1f} ({TF32_FWD}), per request "
+          f"{ms:.1f} (TF32 off), {ms_tf32:.1f} ({TF32_ON}), per request "
           f"{ms / len(lengths):.2f} / {ms_tf32 / len(lengths):.2f}; peak "
           f"{peak:.0f} MiB; the CPU copy {cpu_s:.1f} s; emissions vs CPU "
           f"{err:.2e} of peak (with PyTorch's default flags {err_default:.2e};"
-          f" {TF32_FWD} {err_tf32:.2e}, no bar), log-probs "
+          f" {TF32_ON} {err_tf32:.2e}, no bar), log-probs "
           f"{abs_err:.2e} abs; greedy frames "
           f"unequal where sure {int(differ.sum())} of {int(sure.sum())} "
           f"(of {int(valid.sum())}); texts equal to the CPU's "
@@ -3333,10 +3389,17 @@ def _w2v2_ctc(gen: torch.Generator, card: str, model_cpu) -> dict:
     loss = loss_of(card_model, xs.cuda(), tg.cuda(), tl.cuda())
     loss.backward()
     grads = _param_grads(card_model)
+    # C2: the same gradients with PyTorch's default flags
+    card_model.zero_grad()
+    with _default_flags():
+        loss_of(card_model, xs.cuda(), tg.cuda(), tl.cuda()).backward()
+    grads_default = _param_grads(card_model)
+    card_model.zero_grad()
     cpu_loss = loss_of(model_cpu, xs, tg, tl)
     cpu_loss.backward()
     loss_err = abs(loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
     grad_err = _grad_err(grads, _param_grads(model_cpu))
+    default_grad_err = _grad_err(grads_default, _param_grads(model_cpu))
 
     n, samples = w["train"]
     xb = _speech_batch(gen, n, samples, w["sr"]).cuda()
@@ -3364,17 +3427,20 @@ def _w2v2_ctc(gen: torch.Generator, card: str, model_cpu) -> dict:
           f"{w['lr']} on {tuple(xb.shape)}, {int(tlb.min())}-{int(tlb.max())} "
           f"tokens: losses {[round(v, 4) for v in losses]}; ms per step "
           f"{step_ms[0]:.1f} (first), median {med:.1f} (TF32 off), "
-          f"{ms_tf32:.1f} ({TF32_STEP}); peak {step_peak:.0f} MiB; "
+          f"{ms_tf32:.1f} ({TF32_ON}); peak {step_peak:.0f} MiB; "
           f"{w['check'][0]} x {w['check'][1] / w['sr']:.0f} s vs the CPU copy: "
-          f"loss rel {loss_err:.2e}, gradients {grad_err:.2e} of peak",
-          flush=True)
+          f"loss rel {loss_err:.2e}, gradients {grad_err:.2e} of peak (with "
+          f"PyTorch's default flags {default_grad_err:.2e})", flush=True)
     _check(all(math.isfinite(v) for v in losses), f"wav2vec2 (b): {losses}")
     _check(losses[-1] < losses[0], f"wav2vec2 (b): loss did not fall {losses}")
-    _check(loss_err <= LOSS_RTOL and grad_err <= GRAD_PARITY,
-           f"wav2vec2 (b) vs CPU: loss {loss_err}, gradients {grad_err}")
+    _check(loss_err <= LOSS_RTOL and grad_err <= GRAD_PARITY
+           and default_grad_err <= GRAD_PARITY,
+           f"wav2vec2 (b) vs CPU: loss {loss_err}, gradients {grad_err} "
+           f"(default flags {default_grad_err})")
     return {"ctc_step_ms": step_ms, "ctc_step_ms_tf32": ms_tf32,
             "ctc_peak_mib": step_peak, "ctc_losses": losses,
-            "ctc_loss_rel": loss_err, "ctc_grad_err": grad_err}
+            "ctc_loss_rel": loss_err, "ctc_grad_err": grad_err,
+            "ctc_default_flags_grad_err": default_grad_err}
 
 
 def _w2v2_hubert(gen: torch.Generator, card: str) -> dict:
@@ -3422,7 +3488,7 @@ def _w2v2_hubert(gen: torch.Generator, card: str) -> dict:
           f"{mask.float().mean().item():.1%} of {t_out} frames: losses "
           f"{[round(v, 4) for v in losses]}; ms per step {step_ms[0]:.1f} "
           f"(first), median {float(np.median(step_ms[1:])):.1f} (TF32 off), "
-          f"{ms_tf32:.1f} ({TF32_STEP}); peak {step_peak:.0f} MiB; {k} "
+          f"{ms_tf32:.1f} ({TF32_ON}); peak {step_peak:.0f} MiB; {k} "
           f"clips vs the CPU copy with the same mask: loss rel "
           f"{loss_err:.2e}, gradients {grad_err:.2e} of peak", flush=True)
     _check(all(math.isfinite(v) for v in losses), f"wav2vec2 (c): {losses}")
@@ -3466,7 +3532,7 @@ def _w2v2_fa(gen: torch.Generator, card: str) -> dict:
 
     print(f"wav2vec2 (d) [{card}]: MMS_FA ({n_params} parameters) on "
           f"{tuple(x.shape)} -> emissions {tuple(em.shape)} (star column "
-          f"included); ms {ms:.1f} (TF32 off), {ms_tf32:.1f} ({TF32_FWD}), "
+          f"included); ms {ms:.1f} (TF32 off), {ms_tf32:.1f} ({TF32_ON}), "
           f"peak {peak:.0f} MiB; vs CPU {err:.2e} of peak; "
           f"{w['fa_tokens']} tokens a clip aligned in {align_ms:.0f} ms; "
           f"spans equal to the CPU "
@@ -3508,7 +3574,7 @@ def _w2v2_ssl(gen: torch.Generator, card: str) -> dict:
         nums[name + "_rel"] = err
         print(f"wav2vec2 (e) [{card}]: {name} on {tuple(inp.shape)} -> "
               f"{tuple(out.shape)} in {ms:.1f} ms ({ms_tf32:.1f}, "
-              f"{TF32_FWD}); vs CPU {err:.2e} of peak", flush=True)
+              f"{TF32_ON}); vs CPU {err:.2e} of peak", flush=True)
         _check(bool(torch.isfinite(out).all()) and err <= W2V2_REL,
                f"wav2vec2 (e) {name} vs CPU: {err}")
         return model, out
@@ -3542,7 +3608,7 @@ def _w2v2_ssl(gen: torch.Generator, card: str) -> dict:
     nums["emformer_stream_ms_tf32"] = ms_tf32
     print(f"wav2vec2 (e) [{card}]: emformer_hubert_base streamed, {nseg} "
           f"segments of {S} + {R} reduced frames: {ms:.1f} ms "
-          f"({ms / nseg:.2f} a segment; {ms_tf32:.1f}, {TF32_FWD}); vs "
+          f"({ms / nseg:.2f} a segment; {ms_tf32:.1f}, {TF32_ON}); vs "
           f"one-shot {err:.2e} of peak", flush=True)
     _check(err <= W2V2_REL, f"wav2vec2 (e): streamed vs one-shot {err}")
     return nums
@@ -3762,23 +3828,30 @@ def _tts_teacher_forced(gen: torch.Generator, card: str, models) -> dict:
     return nums
 
 
-def _conv_flops(model, x) -> float:
-    """Multiply-adds × 2 of every ``Conv1d``/``ConvTranspose1d`` in one
-    forward of ``model`` on ``x``, from the shapes each one sees."""
+_CONVS = (torch.nn.Conv1d, torch.nn.Conv2d, torch.nn.ConvTranspose1d,
+          torch.nn.ConvTranspose2d)
+
+
+def _conv_flops(model, *x) -> float:
+    """Multiply-adds × 2 of every 1-D and 2-D convolution and transposed
+    convolution in one forward of ``model`` on ``x``, from the shapes each
+    one sees: per output position (a transposed conv's per input
+    position), ``in_channels · out_channels / groups · prod(kernel)``."""
     total = [0.0]
 
     def hook(mod, args, out):
-        cin, k = mod.in_channels, mod.kernel_size[0]
+        cin, k = mod.in_channels, math.prod(mod.kernel_size)
         cout = mod.out_channels // mod.groups
-        steps = args[0].shape[-1] if isinstance(
-            mod, torch.nn.ConvTranspose1d) else out.shape[-1]
+        at = args[0] if isinstance(mod, (torch.nn.ConvTranspose1d,
+                                         torch.nn.ConvTranspose2d)) else out
+        steps = math.prod(at.shape[2:])
         total[0] += 2.0 * out.shape[0] * cin * cout * k * steps
 
     handles = [m.register_forward_hook(hook) for m in model.modules()
-               if isinstance(m, (torch.nn.Conv1d, torch.nn.ConvTranspose1d))]
+               if isinstance(m, _CONVS)]
     try:
         with torch.inference_mode():
-            model(x)
+            model(*x)
     finally:
         for h in handles:
             h.remove()
@@ -4028,6 +4101,286 @@ def phase_tts(gen: torch.Generator, card: str) -> int:
     return b3
 
 
+def _sep_music(gen: torch.Generator, card: str) -> dict:
+    """Phase 24 (a): the two HDemucs bundles and ``hdemucs_high()`` on the
+    same mix, each against a CPU copy on one segment; the first with its
+    convolutions' FLOP and one profiler window."""
+    from torchaudio_contrib_tpu_torch import models as M
+    from torchaudio_contrib_tpu_torch import pipelines as P
+    from torchaudio_contrib_tpu_torch.benchmarks import trace_kernels
+    B, C, T = SEP["music"]
+    sr = SEP["music_sr"]
+    mix = _speech_batch(gen, B * C, T, sr).reshape(B, C, T)
+    mixc = mix.cuda()
+    builds = [("HDEMUCS_HIGH_MUSDB", lambda d: P.HDEMUCS_HIGH_MUSDB
+               .get_model(gen, device=d)),
+              ("HDEMUCS_HIGH_MUSDB_PLUS", lambda d: P.HDEMUCS_HIGH_MUSDB_PLUS
+               .get_model(gen, device=d)),
+              ("hdemucs_high", lambda d: M.hdemucs_high(device=d,
+                                                        generator=gen))]
+    nums = {}
+    for i, (name, build) in enumerate(builds):
+        model_cpu = build("cpu")
+        model = copy.deepcopy(model_cpu).cuda()
+        with torch.inference_mode():
+            out, ms, peak = _on_card(lambda: model(mixc), reps=2)
+            t0 = time.perf_counter()
+            want = model_cpu(mix[:1])
+            cpu_s = time.perf_counter() - t0
+        err = _rel(out[:1].cpu(), want)
+        key = name.lower()
+        nums.update({f"{key}_ms": ms, f"{key}_ms_per_segment": ms / B,
+                     f"{key}_peak_mib": peak, f"{key}_err": err,
+                     f"{key}_cpu_s": cpu_s})
+        line = (f"separation (a) [{card}]: {name} ({type(model).__name__}, "
+                f"{sum(p.numel() for p in model.parameters())} parameters) "
+                f"on {tuple(mix.shape)} at {sr} Hz -> {tuple(out.shape)}: "
+                f"{ms:.1f} ms ({ms / B:.1f} a {T / sr:.0f} s segment), peak "
+                f"{peak:.0f} MiB; one segment vs the CPU copy ({cpu_s:.1f} "
+                f"s there) {err:.2e} of peak")
+        if i == 0:
+            flops = _conv_flops(model, mixc)
+            bound = flops / PEAK_FP32 * 1e3
+            with torch.inference_mode():
+                trace = trace_kernels(lambda: model(mixc), calls=1,
+                                      warmup=0, top=6, part=name)
+            nums.update({f"{key}_conv_gflop": flops / 1e9,
+                         f"{key}_conv_fp32_bound_ms": bound,
+                         f"{key}_busy_ms": trace["busy_ms"],
+                         f"{key}_window_ms": trace["window_ms"],
+                         f"{key}_idle_share": trace["idle_share"]})
+            line += (f"; convolutions {flops / 1e9:.0f} GFLOP "
+                     f"({flops / ms / 1e9:.1f} TFLOP/s; FP32 bound "
+                     f"{bound:.2f} ms), busy {trace['busy_ms']:.1f} ms of a "
+                     f"{trace['window_ms']:.0f} ms window (idle "
+                     f"{trace['idle_share']:.1%})")
+            _check(bound <= ms, f"separation (a): bound {bound} over {ms}")
+        print(line, flush=True)
+        _check(out.shape == (B, 4, C, T) and bool(torch.isfinite(out).all()),
+               f"separation (a): {name} output {tuple(out.shape)}")
+        _check(err <= SEP_REL, f"separation (a) vs CPU: {name} {err}")
+        del model, model_cpu, out
+        torch.cuda.empty_cache()
+    return nums
+
+
+def _sep_speech(gen: torch.Generator, card: str) -> dict:
+    """Phase 24 (b): CONVTASNET_BASE_LIBRI2MIX serving 8 mixtures, then an
+    SGD step on −SI-SNR against the planted sources (C2's full-width
+    check: the gradients taken with PyTorch's default flags)."""
+    from torchaudio_contrib_tpu_torch import ops
+    from torchaudio_contrib_tpu_torch.pipelines import \
+        CONVTASNET_BASE_LIBRI2MIX as bundle
+    B, T = SEP["speech"]
+    sr = bundle.sample_rate
+    s1 = _speech_batch(gen, B, T, sr)
+    s2 = torch.roll(_speech_batch(gen, B, T, sr), sr // 4, -1)
+    src = torch.stack([s1, s2], 1)
+    mix = src.sum(1)
+    model_cpu = bundle.get_model(gen, device="cpu")
+    model = copy.deepcopy(model_cpu).cuda()
+    mixc, srcc = mix.cuda(), src.cuda()
+    with torch.inference_mode():
+        out, ms, peak = _on_card(lambda: model(mixc), reps=2)
+    k = SEP["speech_check"]
+
+    def loss_of(m, x, y):
+        return -ops.si_snr(m(x), y).mean()
+
+    loss = loss_of(model, mixc[:k], srcc[:k])
+    loss.backward()
+    grads = _param_grads(model)
+    model.zero_grad()
+    cpu_loss = loss_of(model_cpu, mix[:k], src[:k])
+    cpu_loss.backward()
+    loss_err = abs(loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+    grad_err = _grad_err(grads, _param_grads(model_cpu))
+    with torch.no_grad():
+        out_err = _rel(out[:k].cpu(), model_cpu(mix[:k]))
+    opt = torch.optim.SGD(model.parameters(), lr=SEP["lr"])
+
+    def step():
+        value = loss_of(model, mixc, srcc)
+        opt.zero_grad()
+        value.backward()
+        opt.step()
+        return value
+
+    losses, step_ms, step_peak = [], [], 0.0
+    for _ in range(3):
+        value, sms, pk = _on_card(step, reps=0)
+        losses.append(value.item())
+        step_ms.append(sms)
+        step_peak = max(step_peak, pk)
+    print(f"separation (b) [{card}]: CONVTASNET_BASE_LIBRI2MIX "
+          f"({sum(p.numel() for p in model.parameters())} parameters) on "
+          f"{tuple(mix.shape)} at {sr} Hz -> {tuple(out.shape)}: {ms:.1f} ms, "
+          f"peak {peak:.0f} MiB, {k} mixtures vs the CPU copy {out_err:.2e} "
+          f"of peak; SGD lr {SEP['lr']} on -SI-SNR against the planted "
+          f"sources: losses {[round(v, 4) for v in losses]}, ms per step "
+          f"{step_ms[0]:.1f} (first), {float(np.median(step_ms[1:])):.1f} "
+          f"(median of the rest), peak {step_peak:.0f} MiB; {k} mixtures vs "
+          f"the CPU copy with PyTorch's default flags: loss rel "
+          f"{loss_err:.2e}, gradients {grad_err:.2e} of peak", flush=True)
+    _check(out.shape == (B, 2, T) and bool(torch.isfinite(out).all()),
+           f"separation (b): output {tuple(out.shape)}")
+    _check(all(math.isfinite(v) for v in losses), f"separation (b): {losses}")
+    _check(out_err <= SEP_REL and loss_err <= LOSS_RTOL
+           and grad_err <= GRAD_PARITY,
+           f"separation (b) vs CPU: output {out_err}, loss {loss_err}, "
+           f"gradients {grad_err}")
+    return {"tasnet_ms": ms, "tasnet_peak_mib": peak, "tasnet_err": out_err,
+            "tasnet_step_ms": step_ms, "tasnet_step_peak_mib": step_peak,
+            "tasnet_losses": losses, "tasnet_loss_rel": loss_err,
+            "tasnet_default_flags_grad_err": grad_err}
+
+
+def _sep_squim(gen: torch.Generator, card: str) -> dict:
+    """Phase 24 (c): SQUIM_OBJECTIVE, squim_objective_base() and
+    SQUIM_SUBJECTIVE (with non-matching references) on 8 × 10 s."""
+    from torchaudio_contrib_tpu_torch import models as M
+    from torchaudio_contrib_tpu_torch import pipelines as P
+    B, T = SEP["squim"]
+    x = _speech_batch(gen, B, T, 16000)
+    ref = torch.roll(_speech_batch(gen, B, T, 16000), 3, 0)
+    xc, refc = x.cuda(), ref.cuda()
+    k = SEP["squim_check"]
+    builds = [("SQUIM_OBJECTIVE", lambda d: P.SQUIM_OBJECTIVE.get_model(
+                  gen, device=d), (x,)),
+              ("squim_objective_base", lambda d: M.squim_objective_base(
+                  device=d, generator=gen), (x,)),
+              ("SQUIM_SUBJECTIVE", lambda d: P.SQUIM_SUBJECTIVE.get_model(
+                  gen, device=d), (x, ref))]
+    nums = {}
+    for name, build, args in builds:
+        model_cpu = build("cpu")
+        model = copy.deepcopy(model_cpu).cuda()
+        argc = tuple(a.cuda() for a in args)
+        with torch.inference_mode():
+            out, ms, peak = _on_card(lambda: model(*argc))
+            want = model_cpu(*(a[:k] for a in args))
+        outs = out if isinstance(out, tuple) else (out,)
+        wants = want if isinstance(want, tuple) else (want,)
+        err = max(_rel(o[:k].cpu(), w) for o, w in zip(outs, wants))
+        key = name.lower()
+        nums.update({f"{key}_ms": ms, f"{key}_peak_mib": peak,
+                     f"{key}_err": err})
+        print(f"assessment (c) [{card}]: {name} ({type(model).__name__}, "
+              f"{sum(p.numel() for p in model.parameters())} parameters) on "
+              f"{tuple(xc.shape)} at 16000 Hz: {ms:.1f} ms a batch, peak "
+              f"{peak:.0f} MiB; means "
+              f"{[round(o.mean().item(), 3) for o in outs]}; {k} clips vs "
+              f"the CPU copy {err:.2e} of peak", flush=True)
+        _check(all(o.shape == (B,) and bool(torch.isfinite(o).all())
+                   for o in outs), f"assessment (c): {name} outputs")
+        _check(err <= SEP_REL, f"assessment (c) vs CPU: {name} {err}")
+    return nums
+
+
+def _sep_vggish(gen: torch.Generator, card: str) -> dict:
+    """Phase 24 (d): VGGISH's processor on 8 × 10 s, its model on the 80
+    patches."""
+    from torchaudio_contrib_tpu_torch.pipelines import VGGISH
+    B, T = SEP["vggish"]
+    x = _speech_batch(gen, B, T, VGGISH.sample_rate)
+    xc = x.cuda()
+    proc = VGGISH.get_input_processor()
+    model_cpu = VGGISH.get_model(gen, device="cpu")
+    model = copy.deepcopy(model_cpu).cuda()
+    with torch.inference_mode():
+        patches, pms, _ = _on_card(
+            lambda: torch.cat([proc(xc[i]) for i in range(B)]))
+        emb, ms, peak = _on_card(lambda: model(patches))
+        k = SEP["vggish_check"]
+        per_clip = (1 + (T - 400) // 160) // 96
+        p_err = _rel(patches[:per_clip].cpu(), proc(x[0]))
+        e_err = _rel(emb[:k].cpu(), model_cpu(patches[:k].cpu()))
+    print(f"embedding (d) [{card}]: VGGISH processor on {tuple(x.shape)} at "
+          f"{VGGISH.sample_rate} Hz -> {tuple(patches.shape)} in {pms:.2f} ms "
+          f"({pms / B:.2f} a clip), vs the CPU {p_err:.2e} of peak; the model "
+          f"({sum(p.numel() for p in model.parameters())} parameters) -> "
+          f"{tuple(emb.shape)} in {ms:.2f} ms ({ms / B:.2f} a clip), peak "
+          f"{peak:.0f} MiB, {k} patches vs the CPU copy {e_err:.2e} of peak",
+          flush=True)
+    _check(patches.shape == (B * per_clip, 96, 64)
+           and emb.shape == (B * per_clip, 128)
+           and bool(torch.isfinite(emb).all()), "embedding (d): shapes")
+    _check(p_err <= SEP_REL and e_err <= SEP_REL,
+           f"embedding (d) vs CPU: patches {p_err}, embeddings {e_err}")
+    return {"vggish_processor_ms": pms, "vggish_processor_ms_per_clip":
+            pms / B, "vggish_ms": ms, "vggish_ms_per_clip": ms / B,
+            "vggish_peak_mib": peak, "vggish_patch_err": p_err,
+            "vggish_err": e_err}
+
+
+def _sep_mixed(gen: torch.Generator, card: str) -> dict:
+    """Phase 24 (e): phase 22 (c)'s HuBERT pretraining step in float32 and
+    under ``utils.mixed_precision`` (bfloat16 compute, float32 master
+    weights)."""
+    from torchaudio_contrib_tpu_torch import models
+    from torchaudio_contrib_tpu_torch.benchmarks.sep_profile import LossOf
+    from torchaudio_contrib_tpu_torch.utils import mixed_precision
+    w = W2V2
+    model = LossOf(models.hubert_pretrain_base(w["classes"], generator=gen))
+    n, samples = w["train"]
+    x = _speech_batch(gen, n, samples, w["sr"]).cuda()
+    t_out = int(model.model.encoder.output_length(samples))
+    mask = models.span_mask(gen, n, t_out, None, device="cuda")
+    labels = torch.randint(0, w["classes"], (n, t_out), generator=gen).cuda()
+    params = dict(model.named_parameters())
+    f32 = (lambda p, *a: torch.func.functional_call(model, p, a))
+    bf16 = mixed_precision(f32)
+    l32 = f32(params, x, labels, None, mask)
+    l16 = bf16(params, x, labels, None, mask)
+    rel = abs(l16.item() - l32.item()) / abs(l32.item())
+    l16.backward()
+    dtypes = {p.grad.dtype for p in params.values() if p.grad is not None}
+    opt = torch.optim.SGD(params.values(), lr=w["lr"])
+
+    def step(loss_fn):
+        value = loss_fn(params, x, labels, None, mask)
+        opt.zero_grad()
+        value.backward()
+        opt.step()
+        return value
+
+    ms32 = _time_ms(lambda: step(f32), 1, 3)
+    ms16 = _time_ms(lambda: step(bf16), 1, 3)
+    print(f"mixed precision (e) [{card}]: hubert_pretrain_base("
+          f"{w['classes']}) step on {tuple(x.shape)}: float32 {ms32:.1f} ms, "
+          f"mixed_precision (bfloat16) {ms16:.1f} ms; loss {l32.item():.5f} "
+          f"vs {l16.item():.5f} (rel {rel:.2e}, bar {MIXED_REL}); gradient "
+          f"dtypes {sorted(str(d) for d in dtypes)}", flush=True)
+    _check(rel <= MIXED_REL, f"mixed precision (e): loss rel {rel}")
+    _check(dtypes == {torch.float32} and l16.dtype == torch.float32,
+           f"mixed precision (e): gradient dtypes {dtypes}")
+    return {"hubert_f32_step_ms": ms32, "hubert_bf16_step_ms": ms16,
+            "hubert_bf16_loss_rel": rel}
+
+
+def phase_separation(gen: torch.Generator, card: str) -> None:
+    """Phase 24: the separation, assessment and embedding family at full
+    width with the global precision flags at PyTorch's defaults (the
+    module docstring); no kernel, so the launch counters must not move."""
+    before = _kernel_count()
+    with _default_flags():
+        music = _sep_music(gen, card)
+        torch.cuda.empty_cache()
+        speech = _sep_speech(gen, card)
+        torch.cuda.empty_cache()
+        squim = _sep_squim(gen, card)
+        torch.cuda.empty_cache()
+        vggish = _sep_vggish(gen, card)
+        torch.cuda.empty_cache()
+        mixed = _sep_mixed(gen, card)
+        torch.cuda.empty_cache()
+    moved = _kernel_count() - before
+    print("separation family [" + card + "]: " + json.dumps(
+        {**music, **speech, **squim, **vggish, **mixed,
+         "kernel_launches": moved}), flush=True)
+    _check(moved == 0, f"phase 24 moved the kernel counters by {moved}")
+
+
 def _mel_bounds(x, mels: int, n_fft: int, hop: int) -> tuple:
     """The bounds of the fused mel forward and backward at ``x (B, 1, T)``.
     The function: one real transform per frame (an FFT's operations) plus
@@ -4095,6 +4448,8 @@ def main() -> None:
     phase_wav2vec2(gen, card)
     torch.cuda.empty_cache()
     tts_launches = phase_tts(gen, card)
+    torch.cuda.empty_cache()
+    phase_separation(gen, card)
     source = "torchaudio_contrib_tpu_torch/csrc/"
     gl_file = "torchaudio_contrib_tpu/ops/fused_griffinlim.py"
     kernels = [

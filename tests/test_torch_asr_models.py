@@ -218,7 +218,8 @@ def test_asr_slice_trains_and_decodes_as_jax(rng, toy):
 @functools.lru_cache(maxsize=1)
 def _c1_cases():
     """(name, model, the conv or RNN to hook, a call through the model's
-    outermost entry point), every model at a toy width on the CPU."""
+    outermost entry point[, the module to hook in the backward pass where
+    it is another]), every model at a toy width on the CPU."""
     from torchaudio_contrib_tpu_torch import models as M
     g = torch.Generator().manual_seed(0)
     w2l = Wav2Letter(num_classes=5, input_type="mfcc", num_features=4,
@@ -244,6 +245,28 @@ def _c1_cases():
                      n_classes=8, device="cpu", generator=g).eval()
     hifi = M.HiFiGANVocoder(in_channels=4, upsample_initial_channel=32,
                             device="cpu", generator=g)
+    tasnet = M.ConvTasNet(2, 8, 8, 4, 6, 3, 2, 1, device="cpu", generator=g)
+    hdta = M.HDemucsTA(("a", "b"), channels=4, nfft=64, depth=3,
+                       norm_starts=1, dconv_lstm=1, dconv_attn=1,
+                       lstm_max_steps=4, attn_heads=2, attn_ndecay=2,
+                       device="cpu", generator=g)
+    hd = M.HDemucs(("a", "b"), channels=4, depth=2, shared_depth=1,
+                   nfft=64, attn_window=2, device="cpu", generator=g)
+    sq = M.SquimObjective(d_model=8, enc_kernel=16, enc_stride=8, hidden=6,
+                          num_blocks=1, chunk=5, device="cpu", generator=g)
+    sqta = M.SquimObjectiveTA(feat_dim=8, win_len=16, d_model=8, nhead=2,
+                              hidden_dim=6, num_blocks=1, chunk_size=7,
+                              device="cpu", generator=g)
+    sqs = M.SquimSubjective(d_model=8, enc_kernel=16, enc_stride=8,
+                            hidden=6, num_blocks=1, chunk=5, device="cpu",
+                            generator=g)
+    vgg = M.VGGish(device="cpu", generator=g)
+    rnnt = M.emformer_rnnt_model(
+        input_dim=16, num_symbols=11, segment_length=4,
+        right_context_length=2, max_memory_size=2, joiner_dim=20,
+        num_heads=2, ffn_dim=24, num_layers=1, left_context_length=3,
+        predictor_embed_dim=10, predictor_hidden_dim=12, device="cpu",
+        generator=g)
     tok, tl = torch.tensor([[1, 2, 3]]), torch.tensor([3])
     spec = torch.randn(1, 4, 6, generator=g)
     return [
@@ -270,8 +293,11 @@ def _c1_cases():
                                 torch.tensor([0, 1]))),
         ("RNNTPredictor", pred, pred.lstm,
          lambda: pred(torch.tensor([[1, 2, 3]]))),
+        # the encoder LSTM takes a PackedSequence, which a module's
+        # backward hook cannot see: its backward is read at the postnet
         ("Tacotron2.forward", taco, taco.encoder.lstm,
-         lambda: taco(tok, tl, torch.randn(1, 8, 3))),
+         lambda: taco(tok, tl, torch.randn(1, 8, 3)),
+         taco.postnet.convolutions[0][0]),
         ("Tacotron2.infer", taco, taco.postnet.convolutions[0][0],
          lambda: taco.infer(tok, tl, max_steps=2)),
         ("WaveRNN.forward", wrnn, wrnn.rnn1,
@@ -280,31 +306,106 @@ def _c1_cases():
          lambda: wrnn.infer(spec)),
         ("HiFiGANVocoder", hifi, hifi.conv_pre,
          lambda: hifi(torch.randn(1, 4, 3))),
+        ("ConvTasNet", tasnet,
+         tasnet.mask_generator.conv_layers[0].conv_layers[3],
+         lambda: tasnet(torch.randn(1, 40))),
+        ("HDemucsTA", hdta, hdta.encoder[2].dconv.layers[0][3].lstm,
+         lambda: hdta(torch.randn(1, 2, 300))),
+        ("HDemucs", hd, hd.enc_s[0].dconv[0].lstm.lstm,
+         lambda: hd(torch.randn(1, 2, 300))),
+        ("SquimObjective", sq, sq.encoder.blocks[0].intra.lstm,
+         lambda: sq(torch.randn(1, 300))),
+        ("SquimObjectiveTA", sqta, sqta.dprnn.row_rnn[0].rnn,
+         lambda: sqta(torch.randn(1, 300))),
+        ("SquimSubjective", sqs, sqs.encoder.conv,
+         lambda: sqs(torch.randn(1, 300), torch.randn(1, 200))),
+        ("VGGish", vgg, vgg.features[3],
+         lambda: vgg(torch.randn(1, 96, 64))),
+        # nested: the Emformer's pin and the predictor's fire in one pass
+        ("RNNT step (Emformer + RNNTPredictor)", rnnt,
+         rnnt.predictor.lstm,
+         lambda: rnnt.joint_logits(torch.randn(1, 10, 16),
+                                   torch.tensor([[1, 2]]))),
     ]
 
 
-@pytest.mark.parametrize("case", range(15))
+# entry points whose outputs carry no gradient: sampled classes, a
+# detached loss
+_NO_GRAD = {"WaveRNN.infer", "MelFrontendClassifier.train_step"}
+
+
+@pytest.mark.parametrize("case", range(23))
 def test_models_pin_cudnn_to_fp32(case):
     """Inside every model's forward (and ``infer``/``train_step``) cuDNN
     runs without TF32 while the global flag allows it, and the flags the
     pin does not concern keep their values; after the call the global
-    flags are as they were."""
-    name, _, module, call = _c1_cases()[case]
+    flags are as they were.  A backward pass through the outputs runs
+    the same way (the hooked module's backward sees TF32 off and the other
+    flags as set), also when two pins fire in it, and the flag is set
+    back when the pass ends."""
+    name, model, module, call, *bwd_module = _c1_cases()[case]
     c = torch.backends.cudnn
     saved = (c.allow_tf32, c.benchmark, c.deterministic)
-    seen = []
+    seen, seen_bwd = [], []
 
     def hook(mod, args):
         seen.append((c.allow_tf32, c.benchmark, c.deterministic, c.enabled))
 
-    handle = module.register_forward_pre_hook(hook)
+    def bwd_hook(mod, grads):
+        seen_bwd.append((c.allow_tf32, c.benchmark, c.deterministic,
+                         c.enabled))
+
+    handles = [module.register_forward_pre_hook(hook),
+               (bwd_module or [module])[0]
+               .register_full_backward_pre_hook(bwd_hook)]
     try:
         c.allow_tf32, c.benchmark, c.deterministic = True, True, True
-        call()
+        out = call()
         after = (c.allow_tf32, c.benchmark, c.deterministic)
+        flat = [t for t in torch.utils._pytree.tree_leaves(out)
+                if isinstance(t, torch.Tensor) and t.requires_grad]
+        if flat:
+            sum(t.float().sum() for t in flat).backward()
+        after_bwd = (c.allow_tf32, c.benchmark, c.deterministic)
     finally:
-        handle.remove()
+        for h in handles:
+            h.remove()
         c.allow_tf32, c.benchmark, c.deterministic = saved
+        model.zero_grad(set_to_none=True)
+    assert len(_c1_cases()) == 23
     assert seen, f"{name}: the hooked module did not run"
     assert all(s == (False, True, True, True) for s in seen), (name, seen)
     assert after == (True, True, True), name
+    assert bool(flat) == (name not in _NO_GRAD), name
+    if flat:
+        assert seen_bwd, f"{name}: the hooked module's backward did not run"
+        assert all(s == (False, True, True, True) for s in seen_bwd), \
+            (name, seen_bwd)
+    assert after_bwd == (True, True, True), name
+
+
+def test_backward_pin_holds_for_autograd_grad_and_checkpoint():
+    """``torch.autograd.grad`` runs the same engine, and so does the
+    recomputation of ``torch.utils.checkpoint`` (reentrant or not): the
+    pin holds in each, and the flag comes back."""
+    name, model, module, call = _c1_cases()[15]          # ConvTasNet
+    c = torch.backends.cudnn
+    saved = c.allow_tf32
+    seen = []
+    handle = module.register_full_backward_pre_hook(
+        lambda mod, grads: seen.append(c.allow_tf32))
+    x = torch.randn(1, 40, requires_grad=True)
+    try:
+        c.allow_tf32 = True
+        torch.autograd.grad(model(x).sum(), list(model.parameters()))
+        assert seen == [False] and c.allow_tf32
+        for reentrant in (True, False):
+            seen.clear()
+            y = torch.utils.checkpoint.checkpoint(
+                model, x, use_reentrant=reentrant)
+            y.sum().backward()
+            assert seen == [False] and c.allow_tf32, reentrant
+    finally:
+        handle.remove()
+        c.allow_tf32 = saved
+        model.zero_grad(set_to_none=True)

@@ -1029,14 +1029,35 @@ def _default_flag_case(name, g):
     if name == "hifigan":
         return M.hifigan_vocoder_v3(device="cpu", generator=g), \
             (x(2, 80, 40),)
+    if name == "conv_tasnet":
+        return M.conv_tasnet_base(device="cpu", generator=g), \
+            (x(2, 16000),)
+    if name in ("hdemucs_ta", "hdemucs"):
+        compat = "torchaudio" if name == "hdemucs_ta" else None
+        return (M.hdemucs_high(compat=compat, device="cpu", generator=g),
+                (x(1, 2, 44100),))
+    if name in ("squim_objective_ta", "squim_objective"):
+        compat = "torchaudio" if name == "squim_objective_ta" else None
+        return (M.squim_objective_base(compat, device="cpu", generator=g),
+                (x(2, 16000),))
+    if name == "squim_subjective":
+        return (M.squim_subjective_base(device="cpu", generator=g),
+                (x(2, 16000), x(2, 12000)))
+    if name == "vggish":
+        return M.VGGish(device="cpu", generator=g), (x(4, 96, 64),)
     return (M.Tacotron2(n_symbols=38, device="cpu", generator=g).eval(),
             (torch.randint(1, 38, (2, 30), generator=g),
              torch.tensor([30, 17]), x(2, 80, 12)))
 
 
+_DEFAULT_FLAG_CASES = ["wav2letter", "wav2vec2", "conformer", "hifigan",
+                       "tacotron2", "conv_tasnet", "hdemucs_ta", "hdemucs",
+                       "squim_objective_ta", "squim_objective",
+                       "squim_subjective", "vggish"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["wav2letter", "wav2vec2", "conformer",
-                                  "hifigan", "tacotron2"])
+@pytest.mark.parametrize("name", _DEFAULT_FLAG_CASES)
 def test_models_hold_the_bar_at_default_flags(default_flags, name):
     """C1: with ``cudnn.allow_tf32`` True (PyTorch's default) the models
     still run their convolutions and RNNs in FP32: 1e-4 of peak against
@@ -1056,3 +1077,66 @@ def test_models_hold_the_bar_at_default_flags(default_flags, name):
         else:
             assert torch.equal(g.cpu(), w), name
     assert torch.backends.cudnn.allow_tf32
+
+
+def _grads_at(model, args, tf32: bool) -> dict:
+    """The gradients of a fixed weighting of every floating output of
+    ``model(*args)`` with ``cudnn.allow_tf32`` at ``tf32`` (cuBLAS TF32
+    off)."""
+    torch.backends.cudnn.allow_tf32 = tf32
+    model.zero_grad(set_to_none=True)
+    out = model(*args)
+    out = out if isinstance(out, tuple) else (out,)
+    g = torch.Generator(device=args[0].device).manual_seed(1)
+    loss = sum((o * torch.randn(o.shape, generator=g, device=o.device)).sum()
+               for o in out if o is not None and o.is_floating_point()
+               and o.requires_grad)
+    loss.backward()
+    assert torch.backends.cudnn.allow_tf32 == tf32
+    return {k: p.grad.detach().clone() for k, p in model.named_parameters()
+            if p.grad is not None}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _DEFAULT_FLAG_CASES)
+def test_model_gradients_hold_the_bar_at_default_flags(default_flags, name):
+    """C2: a backward pass through a model's outputs at PyTorch's default
+    flags runs cuDNN in FP32 as the forward does: the gradients within
+    1e-4 of the whole gradient's peak of those taken with TF32 off, and the
+    flag True again after the pass."""
+    model, args = _default_flag_case(name, torch.Generator().manual_seed(0))
+    card = copy.deepcopy(model).to(default_flags)
+    if name == "tacotron2":
+        card.train()        # cuDNN runs an RNN's backward in training mode only
+    args = tuple(a.to(default_flags) for a in args)
+    want = _grads_at(card, args, tf32=False)
+    got = _grads_at(card, args, tf32=True)
+    assert got.keys() == want.keys() and got, name
+    peak = max(v.abs().max().item() for v in want.values())
+    err = max((got[k] - want[k]).abs().max().item() for k in want)
+    assert err <= GRAD_PARITY * peak, (name, err, peak)
+    assert torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.cuda
+def test_vggish_processor_on_card(cuda_device):
+    """The VGGish front end runs on the waveform's device: the card's
+    patches against the CPU's."""
+    x = torch.randn(2, 40000, generator=torch.Generator().manual_seed(0))
+    proc = tat.VGGishInputProcessor()
+    got = proc(x.to(cuda_device))
+    assert got.device.type == "cuda"
+    assert _rel(got, proc(x)) <= GRAD_PARITY
+
+
+@pytest.mark.cuda
+def test_istft_drops_the_edge_bins_imaginary_parts_on_card(cuda_device):
+    """cuFFT's ``irfft`` reads the imaginary parts of the DC and Nyquist
+    bins, the CPU's drops them: ``ops.istft`` drops them on both, so a
+    model's spectrum (``HDemucsTA``'s) inverts alike."""
+    g = torch.Generator().manual_seed(0)
+    z = torch.complex(torch.randn(2, 1025, 40, generator=g),
+                      torch.randn(2, 1025, 40, generator=g))
+    want = tops.istft(z, 512, window="hann", normalized=True)
+    got = tops.istft(z.to(cuda_device), 512, window="hann", normalized=True)
+    assert _rel(got, want) <= PARITY

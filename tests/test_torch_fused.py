@@ -190,6 +190,14 @@ def test_import_pulls_in_no_jax():
             "from torchaudio_contrib_tpu_torch import parallel\n"
             "from torchaudio_contrib_tpu_torch.parallel import corpus\n"
             "from torchaudio_contrib_tpu_torch.models import transforms\n"
+            "from torchaudio_contrib_tpu_torch.models import (tasnet, "
+            "hdemucs, hdemucs_ta, squim, vggish)\n"
+            "from torchaudio_contrib_tpu_torch.utils import precision\n"
+            "from torchaudio_contrib_tpu_torch.benchmarks import "
+            "sep_profile\n"
+            "from torchaudio_contrib_tpu_torch.pipelines import ("
+            "HDEMUCS_HIGH_MUSDB, CONVTASNET_BASE_LIBRI2MIX, SQUIM_OBJECTIVE, "
+            "VGGISH)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'jaxlib' "
             "or m.startswith('torchaudio_contrib_tpu.') "

@@ -29,7 +29,11 @@ pretraining, the Conformer and Emformer SSL variants, the wav2vec2 ASR and
 forced-alignment bundles, and ``utils.save_params``/``load_params`` in the
 JAX package's file format); and the TTS family (Tacotron2, the WaveRNN and
 HiFi-GAN vocoders, the Tacotron2 + WaveRNN / Griffin-Lim and HiFi-GAN
-bundles in ``pipelines``, and ``datasets.CMUDict`` for the phone bundles).
+bundles in ``pipelines``, and ``datasets.CMUDict`` for the phone bundles);
+and the separation, assessment and embedding models (ConvTasNet, HDemucs
+in the JAX package's build and torchaudio's, the Squim models, VGGish and
+its input processor, their bundles in ``pipelines``) with
+``utils.cast_floats``/``mixed_precision``.
 Module names follow the JAX package's; the flat names below are those of
 its ``__init__`` that are ported so far.
 
@@ -109,6 +113,8 @@ from .models import (
     EmformerHuBERT, emformer_hubert_model, emformer_hubert_base,
     Tacotron2, WaveRNN, HiFiGANVocoder, hifigan_vocoder_v1,
     hifigan_vocoder_v2, hifigan_vocoder_v3,
+    ConvTasNet, HDemucs, HDemucsTA, SquimObjective, SquimSubjective,
+    VGGish, VGGishInputProcessor,
     MFCC, Loudness, PitchShift, Speed, AddNoise, Fade, Vol,
     FrequencyMasking, TimeMasking, Preemphasis, Deemphasis, ComputeDeltas,
     SlidingWindowCmn, SpectralCentroid, MelScale, InverseMelScale, PSD,
@@ -190,6 +196,8 @@ __all__ = [
     "EmformerHuBERT", "emformer_hubert_model", "emformer_hubert_base",
     "Tacotron2", "WaveRNN", "HiFiGANVocoder", "hifigan_vocoder_v1",
     "hifigan_vocoder_v2", "hifigan_vocoder_v3",
+    "ConvTasNet", "HDemucs", "HDemucsTA", "SquimObjective",
+    "SquimSubjective", "VGGish", "VGGishInputProcessor",
     "MFCC", "Loudness", "PitchShift",
     "Speed", "AddNoise", "Fade", "Vol", "FrequencyMasking", "TimeMasking",
     "Preemphasis", "Deemphasis", "ComputeDeltas", "SlidingWindowCmn",

@@ -5,7 +5,9 @@ lexicon + LM CTC decoder, the streaming transducer family: Emformer
 and Conformer encoders, the RNN-T model, its greedy and beam decoders and
 their factories; and the wav2vec2 family: Wav2Vec2/WavLM and their
 factories, HuBERT pretraining, the Conformer and Emformer SSL variants;
-and the TTS family: Tacotron2, the WaveRNN and HiFi-GAN vocoders)."""
+and the TTS family: Tacotron2, the WaveRNN and HiFi-GAN vocoders; and
+the separation, assessment and embedding models: ConvTasNet, HDemucs in
+the JAX package's build and torchaudio's, the Squim models and VGGish)."""
 from .layers import (
     Transform, Pipeline,
     STFT, ISTFT, InverseSpectrogram, ComplexNorm,
@@ -26,7 +28,14 @@ from .factories import (emformer_rnnt_model, emformer_rnnt_base,
                         conformer_rnnt_model, conformer_rnnt_base,
                         wav2vec2_model, hubert_pretrain_base,
                         hubert_pretrain_large, hubert_pretrain_xlarge,
-                        hifigan_vocoder)
+                        hifigan_vocoder, conv_tasnet_base, hdemucs_low,
+                        hdemucs_medium, hdemucs_high, squim_objective_base,
+                        squim_subjective_base)
+from .tasnet import ConvTasNet
+from .hdemucs import HDemucs
+from .hdemucs_ta import HDemucsTA
+from .squim import SquimObjective, SquimObjectiveTA, SquimSubjective
+from .vggish import VGGish, VGGishInputProcessor
 from .tacotron2 import Tacotron2
 from .wavernn import WaveRNN
 from .hifigan import (HiFiGANVocoder, hifigan_vocoder_v1, hifigan_vocoder_v2,
@@ -91,6 +100,10 @@ __all__ = [
     "EmformerHuBERT", "emformer_hubert_model", "emformer_hubert_base",
     "Tacotron2", "WaveRNN", "HiFiGANVocoder", "hifigan_vocoder",
     "hifigan_vocoder_v1", "hifigan_vocoder_v2", "hifigan_vocoder_v3",
+    "ConvTasNet", "HDemucs", "HDemucsTA", "SquimObjective",
+    "SquimObjectiveTA", "SquimSubjective", "VGGish", "VGGishInputProcessor",
+    "conv_tasnet_base", "hdemucs_low", "hdemucs_medium", "hdemucs_high",
+    "squim_objective_base", "squim_subjective_base",
     "CTCDecoderLM", "ZeroLM", "ARPALM",
     "CTCDecoder", "CTCDecoderOutput", "ctc_decoder",
     "transforms",

@@ -8,17 +8,25 @@ population variance) is ``nn.LayerNorm``'s default and needs no helper.
 :func:`_fp32_cudnn` wraps each model's outermost ``forward``/``infer``:
 its convolutions and cuDNN RNNs run in FP32 whatever
 ``torch.backends.cudnn.allow_tf32`` says (True by default, which would
-run them in TF32), as the ops' convolutions do.
+run them in TF32), as the ops' convolutions do, and so does a backward
+pass through its outputs.
 """
 from __future__ import annotations
 
 import functools
 import math
+import threading
 
 import torch
 from torch import nn
 
 __all__ = ["_glorot_", "_dense", "_conv", "_pointwise", "_fp32_cudnn"]
+
+# the ids of the backward passes (autograd graph tasks) that reached a
+# pinned output and hold cuDNN's TF32 flag off until they end; the flag is
+# the process's, so is this record (passes on other threads share both)
+_PINNED_PASSES = set()
+_PINNED_LOCK = threading.Lock()
 
 
 def _glorot_(t: torch.Tensor, fan_in: int, fan_out: int,
@@ -62,6 +70,44 @@ def _pointwise(cin: int, cout: int, generator) -> nn.Conv1d:
     return conv
 
 
+def _restore_tf32(task: int, allow: bool):
+    with _PINNED_LOCK:
+        torch.backends.cudnn.allow_tf32 = allow
+        _PINNED_PASSES.discard(task)
+
+
+def _enter_fp32_backward(grad):
+    """Tensor hook on a pinned output: the first to fire in a backward pass
+    turns cuDNN's TF32 off and queues the flag's restore for the end of the
+    pass.  The engine runs a pass's queued callbacks first in, first out,
+    so a nested model's pin, firing later in the same pass, queues
+    nothing; a pass nested in another (a reentrant checkpoint) has its own
+    id and restores the value it found."""
+    task = torch._C._current_graph_task_id()
+    with _PINNED_LOCK:
+        if task in _PINNED_PASSES:
+            return
+        _PINNED_PASSES.add(task)
+        allow = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+    torch.autograd.Variable._execution_engine.queue_callback(
+        functools.partial(_restore_tf32, task, allow))
+
+
+def _pin_backward(out):
+    """Hook every floating tensor of ``out`` (nested tuples, lists and dict
+    values) that requires grad with :func:`_enter_fp32_backward`."""
+    if isinstance(out, torch.Tensor):
+        if out.requires_grad and out.is_floating_point():
+            out.register_hook(_enter_fp32_backward)
+    elif isinstance(out, (tuple, list)):
+        for o in out:
+            _pin_backward(o)
+    elif isinstance(out, dict):
+        for o in out.values():
+            _pin_backward(o)
+
+
 def _fp32_cudnn(fn):
     """Run the method ``fn`` under ``torch.backends.cudnn.flags`` with
     ``allow_tf32=False``: cuDNN's convolutions and RNNs in FP32.
@@ -70,8 +116,14 @@ def _fp32_cudnn(fn):
     ``benchmark``, ``deterministic`` (and ``benchmark_limit`` where cuDNN
     is there) are passed at the values in force at the call.  The cuBLAS
     flag ``torch.backends.cuda.matmul.allow_tf32`` (False by default) is
-    left to the caller.  A backward pass runs under the flags in force
-    when the caller runs it."""
+    left to the caller.
+
+    The backward pass runs later, when the caller asks for it, under the
+    flags in force then; so each floating output that requires grad gets a
+    hook (:func:`_pin_backward`): a backward pass (``backward()`` or
+    ``torch.autograd.grad``) that reaches one runs cuDNN without TF32 from
+    there to its end, the other flags as they are, and sets
+    ``allow_tf32`` back to its value when the pass ends."""
     @functools.wraps(fn)
     def pinned(*args, **kwargs):
         c = torch.backends.cudnn
@@ -80,5 +132,8 @@ def _fp32_cudnn(fn):
         with c.flags(enabled=c.enabled, benchmark=c.benchmark,
                      deterministic=c.deterministic, allow_tf32=False,
                      **kept):
-            return fn(*args, **kwargs)
+            out = fn(*args, **kwargs)
+        if torch.is_grad_enabled():
+            _pin_backward(out)
+        return out
     return pinned

@@ -4,9 +4,10 @@ Port of the four transducer factories of
 ``torchaudio_contrib_tpu/models/factories.py`` (``emformer_rnnt_model``,
 ``emformer_rnnt_base``, ``conformer_rnnt_model``,
 ``conformer_rnnt_base``), ``wav2vec2_model``, the three HuBERT
-pretraining factories (``hubert_pretrain_base|large|xlarge``) and
-``hifigan_vocoder``; the JAX
-package's other factories wait for their models.  Each takes ``device=`` (the card unless the caller asks
+pretraining factories (``hubert_pretrain_base|large|xlarge``),
+``hifigan_vocoder``, ``conv_tasnet_base``, ``hdemucs_low|medium|high``
+(``compat="torchaudio"`` for :class:`HDemucsTA`), ``squim_objective_base``
+and ``squim_subjective_base``: every factory of the JAX package.  Each takes ``device=`` (the card unless the caller asks
 for the CPU) and ``generator=`` for the initial weights, and builds on
 the CPU before it moves the model.
 """
@@ -17,16 +18,22 @@ from typing import Optional
 import torch
 
 from .conformer import ConformerTranscriber
+from .hdemucs import HDemucs
+from .hdemucs_ta import HDemucsTA
 from .hifigan import HiFiGANVocoder
 from .emformer import Emformer, EmformerTranscriber
 from .hubert import HuBERTPretrainModel
 from .rnnt import RNNT, LayerNormLSTMPredictor
+from .squim import SquimObjective, SquimObjectiveTA, SquimSubjective
+from .tasnet import ConvTasNet
 from .wav2vec2 import Wav2Vec2, hubert_base, hubert_large, hubert_xlarge
 
 __all__ = ["emformer_rnnt_model", "emformer_rnnt_base",
            "conformer_rnnt_model", "conformer_rnnt_base",
            "wav2vec2_model", "hubert_pretrain_base", "hubert_pretrain_large",
-           "hubert_pretrain_xlarge", "hifigan_vocoder"]
+           "hubert_pretrain_xlarge", "hifigan_vocoder", "conv_tasnet_base",
+           "hdemucs_low", "hdemucs_medium", "hdemucs_high",
+           "squim_objective_base", "squim_subjective_base"]
 
 
 def emformer_rnnt_model(*, input_dim: int, encoding_dim: int = 0,
@@ -230,3 +237,66 @@ def hubert_pretrain_xlarge(num_classes: int = 500, *, device="cuda",
                            generator: Optional[torch.Generator] = None
                            ) -> HuBERTPretrainModel:
     return _pretrain(hubert_xlarge, num_classes, device, generator)
+
+
+# -- separation and assessment -------------------------------------------------
+
+_SOURCES = ("drums", "bass", "other", "vocals")
+
+
+def conv_tasnet_base(num_sources: int = 2, *, device="cuda",
+                     generator: Optional[torch.Generator] = None
+                     ) -> ConvTasNet:
+    """The published ConvTasNet base configuration (N=512, L=16, B=128,
+    H=512, P=3, X=8, R=3)."""
+    return ConvTasNet(num_sources=num_sources, device=device,
+                      generator=generator)
+
+
+def _hdemucs(nfft: int, ta_depth: int, sources, compat, device, generator):
+    if compat == "torchaudio":
+        return HDemucsTA(sources=sources, nfft=nfft, depth=ta_depth,
+                         device=device, generator=generator)
+    if compat is not None:
+        raise ValueError(f"unknown compat {compat!r}")
+    return HDemucs(sources=sources, nfft=nfft, device=device,
+                   generator=generator)
+
+
+def hdemucs_low(sources=_SOURCES, compat: Optional[str] = None, *,
+                device="cuda", generator: Optional[torch.Generator] = None):
+    """HDemucs for ~8 kHz material (nfft 1024); ``compat="torchaudio"``
+    gives the checkpoint-compatible :class:`HDemucsTA` (depth 5)."""
+    return _hdemucs(1024, 5, sources, compat, device, generator)
+
+
+def hdemucs_medium(sources=_SOURCES, compat: Optional[str] = None, *,
+                   device="cuda", generator: Optional[torch.Generator] = None):
+    """HDemucs for ~16 kHz material (nfft 2048); ``compat="torchaudio"``
+    gives :class:`HDemucsTA` (depth 6)."""
+    return _hdemucs(2048, 6, sources, compat, device, generator)
+
+
+def hdemucs_high(sources=_SOURCES, compat: Optional[str] = None, *,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+    """HDemucs for 44.1/48 kHz material (nfft 4096); ``compat="torchaudio"``
+    gives :class:`HDemucsTA` (depth 6), the ``HDEMUCS_HIGH_MUSDB*``
+    layout."""
+    return _hdemucs(4096, 6, sources, compat, device, generator)
+
+
+def squim_objective_base(compat: Optional[str] = None, *, device="cuda",
+                         generator: Optional[torch.Generator] = None):
+    """``compat="torchaudio"`` gives torchaudio's weight-compatible layout
+    (:class:`SquimObjectiveTA`, the ``SQUIM_OBJECTIVE`` bundle's)."""
+    if compat == "torchaudio":
+        return SquimObjectiveTA(device=device, generator=generator)
+    if compat is not None:
+        raise ValueError(f"unknown compat {compat!r}")
+    return SquimObjective(device=device, generator=generator)
+
+
+def squim_subjective_base(*, device="cuda",
+                          generator: Optional[torch.Generator] = None
+                          ) -> SquimSubjective:
+    return SquimSubjective(device=device, generator=generator)

@@ -276,6 +276,18 @@ def _envelope(window_bytes: bytes, hop_length: int, n_frames: int,
     return env
 
 
+def _real_edges(spec: torch.Tensor, fft_length: int) -> torch.Tensor:
+    """``spec (..., n_freqs)`` with the imaginary parts of the DC bin and
+    (``fft_length`` even, when present) the Nyquist bin set to 0: a real
+    inverse has no use for them.  The CPU's ``irfft`` ignores them, cuFFT's
+    does not (a spectrum a model writes need not have them 0)."""
+    imag = spec.imag.clone()
+    imag[..., 0] = 0
+    if fft_length % 2 == 0 and spec.shape[-1] == fft_length // 2 + 1:
+        imag[..., -1] = 0
+    return torch.complex(spec.real, imag)
+
+
 def istft(stft_matrix: torch.Tensor,
           hop_length: Optional[int] = None,
           win_length: Optional[int] = None,
@@ -317,7 +329,8 @@ def istft(stft_matrix: torch.Tensor,
         frames = spec.real.to(dtype) @ icr + spec.imag.to(dtype) @ ici
     elif method == "fft":
         if onesided:
-            frames = torch.fft.irfft(spec, n=fft_length, dim=-1)
+            frames = torch.fft.irfft(_real_edges(spec, fft_length),
+                                     n=fft_length, dim=-1)
         else:
             frames = torch.fft.ifft(spec, n=fft_length, dim=-1).real
     else:

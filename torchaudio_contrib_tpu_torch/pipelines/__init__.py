@@ -6,14 +6,18 @@ Port of the transducer and wav2vec2 parts of
 :class:`Wav2Vec2ASRBundle` and their 24 constants (``WAV2VEC2_*``,
 ``HUBERT_*``, ``WAVLM_*``); :class:`Wav2Vec2FABundle` and ``MMS_FA``; the
 TTS bundles (:class:`Tacotron2TTSBundle`, :class:`HiFiGANVocoderBundle`,
-:class:`Tacotron2GriffinLimBundle` and their five constants).  The JAX
-package's other bundles wait for their models.
+:class:`Tacotron2GriffinLimBundle` and their five constants); the
+separation, assessment and embedding bundles
+(:class:`SourceSeparationBundle` with ``HDEMUCS_HIGH_MUSDB``,
+``HDEMUCS_HIGH_MUSDB_PLUS`` and ``CONVTASNET_BASE_LIBRI2MIX``;
+:class:`SquimBundle` with ``SQUIM_OBJECTIVE`` and ``SQUIM_SUBJECTIVE``;
+:class:`VGGishBundle` with ``VGGISH``).
 
 No pretrained weights can be fetched.  ``get_model`` builds the
 architecture on ``device`` (the card unless the caller asks for the CPU)
 with weights from a ``torch.Generator``, or loads ``torch_checkpoint`` (a
-``state_dict`` or a path to one: torchaudio's layout for the RNN-T, HF's
-for the wav2vec2 family) or ``checkpoint`` (a file of the JAX package's
+``state_dict`` or a path to one: torchaudio's layout for the RNN-T, the separation and assessment models, HF's for the
+wav2vec2 family, ``torchvggish``'s for VGGish) or ``checkpoint`` (a file of the JAX package's
 ``utils.checkpoint.save_params``, read by the port's ``load_params`` and
 carried over by ``utils.convert``), and raises with none of them.  It
 returns the module (the JAX package's returns ``(model, params)``); the TTS
@@ -40,7 +44,16 @@ from ..ops.filters import create_mel_filter
 from ..ops.melinv import mel_to_audio
 from ..ops.stft import stft
 from ..utils.checkpoint import load_params
-from ..utils.convert import (emformer_rnnt_from_jax_params,
+from ..utils.convert import (conv_tasnet_from_jax_params,
+                             conv_tasnet_from_torch_state_dict,
+                             hdemucs_from_torch_state_dict,
+                             hdemucs_ta_from_jax_params,
+                             squim_objective_from_torch_state_dict,
+                             squim_objective_ta_from_jax_params,
+                             squim_subjective_from_jax_params,
+                             vggish_from_jax_params,
+                             vggish_from_torch_state_dict,
+                             emformer_rnnt_from_jax_params,
                              hifigan_from_jax_params,
                              hifigan_from_torch_state_dict,
                              tacotron2_from_jax_params,
@@ -66,6 +79,9 @@ __all__ = [
     "HiFiGANVocoderBundle", "HIFIGAN_VOCODER_V3_LJSPEECH",
     "Tacotron2GriffinLimBundle", "TACOTRON2_GRIFFINLIM_CHAR_LJSPEECH",
     "TACOTRON2_GRIFFINLIM_PHONE_LJSPEECH", "TACOTRON2_WAVERNN_PHONE_LJSPEECH",
+    "SourceSeparationBundle", "HDEMUCS_HIGH_MUSDB", "HDEMUCS_HIGH_MUSDB_PLUS",
+    "CONVTASNET_BASE_LIBRI2MIX", "SquimBundle", "SQUIM_OBJECTIVE",
+    "SQUIM_SUBJECTIVE", "VGGishBundle", "VGGISH",
 ]
 
 # torchaudio's wav2vec2 CTC character vocabulary
@@ -92,8 +108,9 @@ def _torch_state_dict(source) -> Mapping:
 def _resolve(build: Callable, generator, checkpoint, torch_checkpoint,
              device, from_jax: Callable, from_torch: Callable) -> nn.Module:
     """``build(device, generator)`` with weights from ``torch_checkpoint``
-    (through ``from_torch(state_dict, model)``), ``checkpoint`` (through
-    ``from_jax(params)``) or ``generator``, in that order."""
+    (through ``from_torch(state_dict, model)``; ``None`` where the bundle
+    reads none), ``checkpoint`` (through ``from_jax(params)``) or
+    ``generator``, in that order."""
     if torch_checkpoint is None and checkpoint is None:
         if generator is None:
             raise ValueError(
@@ -104,6 +121,11 @@ def _resolve(build: Callable, generator, checkpoint, torch_checkpoint,
         return build(device, generator)
     model = build("cpu", None)
     if torch_checkpoint is not None:
+        if from_torch is None:
+            raise NotImplementedError(
+                "this bundle reads no torch checkpoint (its model is the "
+                "JAX package's own design): pass checkpoint=<a save_params "
+                "file> or generator=")
         sd = from_torch(_torch_state_dict(torch_checkpoint), model)
     else:
         sd = from_jax(load_params(checkpoint))
@@ -640,3 +662,103 @@ class _Tacotron2GLPhone(Tacotron2PhoneMixin, Tacotron2GriffinLimBundle):
 TACOTRON2_GRIFFINLIM_CHAR_LJSPEECH = Tacotron2GriffinLimBundle()
 TACOTRON2_GRIFFINLIM_PHONE_LJSPEECH = _Tacotron2GLPhone()
 TACOTRON2_WAVERNN_PHONE_LJSPEECH = _Tacotron2WaveRNNPhone()
+
+
+# -- separation, assessment and embedding -------------------------------------
+
+@dataclass(frozen=True)
+class _ModelBundle:
+    """A bundle of one model: ``get_model`` builds ``_factory(device=,
+    generator=)`` with weights from ``generator``, ``torch_checkpoint``
+    (``_from_torch``; ``None`` where the bundle reads none) or ``checkpoint``
+    (``_from_jax``)."""
+    _factory: Callable
+    _from_jax: Callable
+    _from_torch: Optional[Callable] = None
+
+    def get_model(self, generator: Optional[torch.Generator] = None,
+                  checkpoint=None, torch_checkpoint=None, *,
+                  device="cuda") -> nn.Module:
+        """``torch_checkpoint``: torchaudio's ``state_dict`` of the model
+        (``HDemucs`` for the HDemucs bundles, ``ConvTasNet``,
+        ``SquimObjective``) or a path to one; ``checkpoint``: the JAX
+        model's params saved by ``save_params``."""
+        return _resolve(
+            lambda device, generator: self._factory(device=device,
+                                                    generator=generator),
+            generator, checkpoint, torch_checkpoint, device,
+            self._from_jax, self._from_torch)
+
+
+@dataclass(frozen=True)
+class SourceSeparationBundle(_ModelBundle):
+    """Source separation: ``get_model`` gives the separator (``forward(mix)``
+    → one waveform per entry of ``sources``)."""
+    sample_rate: int = 44100
+    sources: Tuple[str, ...] = ("drums", "bass", "other", "vocals")
+
+
+def _hdemucs_high_ta(*, device, generator):
+    return M.hdemucs_high(compat="torchaudio", device=device,
+                          generator=generator)
+
+
+# the HIGH bundles have torchaudio's layout (HDemucsTA), so the released
+# MUSDB checkpoints load; models.HDemucs is the JAX package's redesign
+HDEMUCS_HIGH_MUSDB = SourceSeparationBundle(
+    _hdemucs_high_ta, hdemucs_ta_from_jax_params,
+    hdemucs_from_torch_state_dict)
+HDEMUCS_HIGH_MUSDB_PLUS = SourceSeparationBundle(
+    _hdemucs_high_ta, hdemucs_ta_from_jax_params,
+    hdemucs_from_torch_state_dict)
+CONVTASNET_BASE_LIBRI2MIX = SourceSeparationBundle(
+    M.conv_tasnet_base, conv_tasnet_from_jax_params,
+    conv_tasnet_from_torch_state_dict, sample_rate=8000,
+    sources=("speech1", "speech2"))
+
+
+@dataclass(frozen=True)
+class SquimBundle(_ModelBundle):
+    """Speech quality assessment: ``get_model`` gives the Squim model."""
+    sample_rate: int = 16000
+
+
+def _squim_objective_ta(*, device, generator):
+    return M.squim_objective_base(compat="torchaudio", device=device,
+                                  generator=generator)
+
+
+# OBJECTIVE has torchaudio's layout, so its released checkpoint loads;
+# SUBJECTIVE is the JAX package's NORESQA-MOS-style build
+SQUIM_OBJECTIVE = SquimBundle(_squim_objective_ta,
+                              squim_objective_ta_from_jax_params,
+                              squim_objective_from_torch_state_dict)
+SQUIM_SUBJECTIVE = SquimBundle(M.squim_subjective_base,
+                               squim_subjective_from_jax_params)
+
+
+@dataclass(frozen=True)
+class VGGishBundle:
+    """AudioSet VGGish embeddings (torchaudio's ``prototype.pipelines.VGGISH``
+    surface): ``get_model`` maps 96×64 log-mel patches to 128-wide
+    embeddings, ``get_input_processor`` builds the published
+    ``mel_features`` front end."""
+    sample_rate: int = 16000
+
+    def get_model(self, generator: Optional[torch.Generator] = None,
+                  checkpoint=None, torch_checkpoint=None, *,
+                  device="cuda") -> nn.Module:
+        """``torch_checkpoint``: a ``torchvggish`` ``state_dict`` or a path
+        to one; ``checkpoint``: the JAX model's params saved by
+        ``save_params``."""
+        return _resolve(
+            lambda device, generator: M.VGGish(device=device,
+                                               generator=generator),
+            generator, checkpoint, torch_checkpoint, device,
+            vggish_from_jax_params, vggish_from_torch_state_dict)
+
+    def get_input_processor(self) -> M.VGGishInputProcessor:
+        return M.VGGishInputProcessor()
+
+
+VGGISH = VGGishBundle()

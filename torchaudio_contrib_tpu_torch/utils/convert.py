@@ -13,15 +13,28 @@ the transducers; :func:`wav2vec2_from_jax_params` (``Wav2Vec2`` and
 :func:`conformer_wav2vec2_from_jax_params` and
 :func:`emformer_hubert_from_jax_params` for the wav2vec2 family;
 :func:`tacotron2_from_jax_params`, :func:`wavernn_from_jax_params` and
-:func:`hifigan_from_jax_params` for the TTS family.  None imports JAX.  The other way, the JAX package's ``utils.import_torch``
+:func:`hifigan_from_jax_params` for the TTS family;
+:func:`conv_tasnet_from_jax_params`, :func:`hdemucs_from_jax_params`,
+:func:`hdemucs_ta_from_jax_params`, :func:`squim_objective_from_jax_params`,
+:func:`squim_objective_ta_from_jax_params`,
+:func:`squim_subjective_from_jax_params` and :func:`vggish_from_jax_params`
+for the separation, assessment and embedding models.  None imports JAX.  The other way, the JAX package's ``utils.import_torch``
 importers (``import_wav2letter``, ``import_deepspeech``,
 ``import_emformer_rnnt``, ``import_wav2vec2``, ``import_tacotron2``,
-``import_wavernn``, ``import_hifigan``) load the port's
+``import_wavernn``, ``import_hifigan``, ``import_conv_tasnet``,
+``import_hdemucs``, ``import_squim_objective``, ``import_vggish``) load the
+port's
 ``state_dict`` s, whose names are torchaudio's (HF's for the wav2vec2
 family).  :func:`wav2vec2_from_torch_state_dict` reads an HF-layout
 checkpoint (a task prefix, ``lm_head``, a weight-normed positional conv,
 pretraining leftovers) into the port's names, and
-:func:`hifigan_from_torch_state_dict` a HiFi-GAN generator's.  The inverse path (ISTFT,
+:func:`hifigan_from_torch_state_dict` a HiFi-GAN generator's;
+:func:`conv_tasnet_from_torch_state_dict`,
+:func:`hdemucs_from_torch_state_dict`,
+:func:`squim_objective_from_torch_state_dict` and
+:func:`vggish_from_torch_state_dict` check a torchaudio (``torchvggish``)
+checkpoint against the model, whose names it already has, and pass it
+through.  The inverse path (ISTFT,
 Griffin-Lim, mel inversion, the vocoder ops) has no parameters, so it needs
 no conversion.
 """
@@ -41,7 +54,15 @@ __all__ = ["from_jax_params", "wav2letter_from_jax_params",
            "emformer_hubert_from_jax_params",
            "wav2vec2_from_torch_state_dict", "tacotron2_from_jax_params",
            "wavernn_from_jax_params", "hifigan_from_jax_params",
-           "hifigan_from_torch_state_dict"]
+           "hifigan_from_torch_state_dict", "conv_tasnet_from_jax_params",
+           "hdemucs_from_jax_params", "hdemucs_ta_from_jax_params",
+           "squim_objective_from_jax_params",
+           "squim_objective_ta_from_jax_params",
+           "squim_subjective_from_jax_params", "vggish_from_jax_params",
+           "conv_tasnet_from_torch_state_dict",
+           "hdemucs_from_torch_state_dict",
+           "squim_objective_from_torch_state_dict",
+           "vggish_from_torch_state_dict"]
 
 
 def _t(a) -> torch.Tensor:
@@ -626,3 +647,352 @@ def hifigan_from_torch_state_dict(state_dict, model) -> dict:
             got = _folded(sd, "ups." + name[len("upsampler."):])
         out[name] = got.reshape(want.shape).to(want.dtype)
     return out
+
+
+# -- separation, assessment and embedding ------------------------------------
+
+def _as_is(sd: dict, name: str, p: dict):
+    """Parameters the JAX model keeps in torch's layout: ``{w, b}`` →
+    ``weight``, ``bias``."""
+    sd[f"{name}.weight"] = _t(p["w"])
+    sd[f"{name}.bias"] = _t(p["b"])
+
+
+def _pointwise_sd(sd: dict, name: str, p: dict):
+    """A dense ``{w (cin, cout), b}`` → a kernel-1 conv ``(cout, cin, 1)``."""
+    sd[f"{name}.weight"] = _t(np.transpose(p["w"])[:, :, None])
+    sd[f"{name}.bias"] = _t(p["b"])
+
+
+def _gate_ifou_to_ifgo(w) -> np.ndarray:
+    """The house LSTMs' gate blocks i, f, o, u (last axis) → torch's i, f,
+    g, o (g is the JAX ``u``)."""
+    i, f, o, u = np.split(np.asarray(w, np.float32), 4, axis=-1)
+    return np.concatenate([i, f, u, o], axis=-1)
+
+
+def _torch_lstm(sd: dict, name: str, p: dict, suffix: str,
+                house: bool = False):
+    """A JAX LSTM direction ``{wi (cin, 4H), wh (H, 4H), b}`` as
+    :func:`_lstm` carries it; ``house``: the gates permuted from i, f, o, u
+    to i, f, g, o first."""
+    fix = _gate_ifou_to_ifgo if house else np.asarray
+    _lstm(sd, name, {"wx": fix(p["wi"]), "wh": fix(p["wh"]),
+                     "b": fix(p["b"])}, suffix)
+
+
+def conv_tasnet_from_jax_params(params_np: dict) -> dict:
+    """The JAX ``ConvTasNet`` params → the port's ``state_dict``
+    (torchaudio's names, which ``import_conv_tasnet`` reads): conv kernels
+    ``(k, cin, cout)`` → ``(cout, cin, k)`` (the depthwise ``(P, 1, H)``
+    → ``(H, 1, P)``), the decoder's ``(L, 1, N)`` (``transpose_kernel``
+    TIO) → ``(N, 1, L)``, the gLN ``(1, C)`` affines → ``(C,)``."""
+    p = params_np
+    mg = "mask_generator"
+
+    def c1(name, q):
+        sd[f"{name}.weight"] = _conv1d(q["w"])
+        sd[f"{name}.bias"] = _t(q["b"])
+
+    def gln(name, q):
+        sd[f"{name}.weight"] = _t(np.reshape(q["g"], -1))
+        sd[f"{name}.bias"] = _t(np.reshape(q["b"], -1))
+
+    sd = {"encoder.weight": _conv1d(p["enc"])}
+    gln(f"{mg}.input_norm", p["ln_in"])
+    c1(f"{mg}.input_conv", p["bottleneck"])
+    for i, blk in enumerate(p["blocks"]):
+        pre = f"{mg}.conv_layers.{i}"
+        c1(f"{pre}.conv_layers.0", blk["in"])
+        sd[f"{pre}.conv_layers.1.weight"] = _t(blk["a1"])
+        gln(f"{pre}.conv_layers.2", blk["n1"])
+        c1(f"{pre}.conv_layers.3", blk["dw"])
+        sd[f"{pre}.conv_layers.4.weight"] = _t(blk["a2"])
+        gln(f"{pre}.conv_layers.5", blk["n2"])
+        if "res" in blk:
+            c1(f"{pre}.res_out", blk["res"])
+        c1(f"{pre}.skip_out", blk["skip"])
+    sd[f"{mg}.output_prelu.weight"] = _t(p["mask_a"])
+    c1(f"{mg}.output_conv", p["mask"])
+    sd["decoder.weight"] = _t(np.transpose(p["dec"], (2, 1, 0)))
+    return sd
+
+
+def _hdemucs_ta_dconv(sd: dict, pre: str, blocks: list):
+    for d, b in enumerate(blocks):
+        base = f"{pre}.layers.{d}"
+        _as_is(sd, f"{base}.0", b["conv1"])
+        _norm(sd, f"{base}.1", b["gn1"])
+        j = 3
+        if "lstm" in b:
+            for k, layer in enumerate(b["lstm"]["l"]):
+                _torch_lstm(sd, f"{base}.{j}.lstm", layer["fwd"], f"_l{k}")
+                _torch_lstm(sd, f"{base}.{j}.lstm", layer["bwd"],
+                            f"_l{k}_reverse")
+            _linear(sd, f"{base}.{j}.linear", b["lstm"]["proj"])
+            j += 1
+        if "attn" in b:
+            for mine, theirs in (("content", "content"), ("query", "query"),
+                                 ("key", "key"), ("query_decay", "qdecay"),
+                                 ("proj", "proj")):
+                _pointwise_sd(sd, f"{base}.{j}.{mine}", b["attn"][theirs])
+            j += 1
+        _as_is(sd, f"{base}.{j}", b["conv2"])
+        _norm(sd, f"{base}.{j + 1}", b["gn2"])
+        sd[f"{base}.{j + 3}.scale"] = _t(b["scale"])
+
+
+def hdemucs_ta_from_jax_params(params_np: dict) -> dict:
+    """The JAX ``HDemucsTA`` params → the port's ``state_dict`` (torchaudio's
+    ``models.HDemucs`` names, which ``import_hdemucs`` reads).  Convs and
+    transposed convs are already in torch's layouts; the LocalState 1×1
+    dense kernels ``(cin, cout)`` → ``(cout, cin, 1)``, the BiLSTM
+    projection transposed, each LSTM direction's summed bias into
+    ``bias_ih`` (the gate order is torch's already)."""
+    p = params_np
+    sd = {"freq_emb.embedding.weight": _t(p["freq_emb"]["w"])}
+    for branch in ("encoder", "tencoder"):
+        for i, layer in enumerate(p[branch]):
+            pre = f"{branch}.{i}"
+            _as_is(sd, f"{pre}.conv", layer["conv"])
+            if "rewrite" not in layer:
+                continue
+            _as_is(sd, f"{pre}.rewrite", layer["rewrite"])
+            for n in ("norm1", "norm2"):
+                if n in layer:
+                    _norm(sd, f"{pre}.{n}", layer[n])
+            _hdemucs_ta_dconv(sd, f"{pre}.dconv", layer["dconv"])
+    for branch in ("decoder", "tdecoder"):
+        for i, layer in enumerate(p[branch]):
+            pre = f"{branch}.{i}"
+            _as_is(sd, f"{pre}.conv_tr", layer["conv_tr"])
+            for n in ("rewrite",):
+                if n in layer:
+                    _as_is(sd, f"{pre}.{n}", layer[n])
+            for n in ("norm1", "norm2"):
+                if n in layer:
+                    _norm(sd, f"{pre}.{n}", layer[n])
+    return sd
+
+
+def _tconv_flip(w) -> torch.Tensor:
+    """A ``lax.conv_transpose`` kernel ``(k, cin, cout)`` without
+    ``transpose_kernel`` → ``nn.ConvTranspose1d``'s ``(cin, cout, k)``,
+    the taps reversed."""
+    return _t(np.ascontiguousarray(np.transpose(np.asarray(w)[::-1], (1, 2, 0))))
+
+
+def _hdemucs_encoder(sd: dict, pre: str, p: dict):
+    sd[f"{pre}.conv.weight"] = _conv1d(p["w"])
+    _norm(sd, f"{pre}.norm", p["n"])
+    for d, b in enumerate(p["dconv"]):
+        base = f"{pre}.dconv.{d}"
+        sd[f"{base}.conv1.weight"] = _conv1d(b["w1"])
+        _norm(sd, f"{base}.norm1", b["n1"])
+        if "lstm" in b:
+            q = b["lstm"]
+            for half, suffix in ((0, "_l0"), (1, "_l0_reverse")):
+                direction = {k: np.split(np.asarray(q[k]), 2, axis=-1)[half]
+                             for k in ("wi", "wh")}
+                direction["b"] = np.split(np.asarray(q["bi"]), 2)[half]
+                _torch_lstm(sd, f"{base}.lstm.lstm", direction, suffix,
+                            house=True)
+            sd[f"{base}.lstm.proj.weight"] = _t(np.transpose(q["proj"]))
+        if "attn" in b:
+            a = b["attn"]
+            _norm(sd, f"{base}.attn.norm", a["n"])
+            sd[f"{base}.attn.qkv.weight"] = _t(np.transpose(a["wqkv"]))
+            sd[f"{base}.attn.out.weight"] = _t(np.transpose(a["wo"]))
+        sd[f"{base}.conv2.weight"] = _conv1d(b["w2"])
+        _norm(sd, f"{base}.norm2", b["n2"])
+        sd[f"{base}.scale"] = _t(b["scale"])
+    sd[f"{pre}.gate.weight"] = _conv1d(p["wg"])
+    _norm(sd, f"{pre}.gate_norm", p["ng"])
+
+
+def hdemucs_from_jax_params(params_np: dict) -> dict:
+    """The JAX ``HDemucs`` (the house redesign) params → the port's
+    ``state_dict``: conv kernels ``(k, cin, cout)`` → ``(cout, cin, k)``;
+    the decoders' and the unmerge's transposed kernels reversed
+    (:func:`_tconv_flip`); the merge kernel ``(Fm, C, C)`` → a ``(Fm, 1)``
+    Conv2d; each BiLSTM's fused ``wi``/``wh``/``bi`` split into the two
+    directions with the gates permuted (:func:`_gate_ifou_to_ifgo`)."""
+    p = params_np
+    sd = {"freq_emb": _t(p["freq_emb"])}
+    for branch in ("enc_t", "enc_f", "enc_s"):
+        for i, layer in enumerate(p[branch]):
+            _hdemucs_encoder(sd, f"{branch}.{i}", layer)
+    for branch in ("dec_s", "dec_t", "dec_f"):
+        for i, layer in enumerate(p[branch]):
+            pre = f"{branch}.{i}"
+            sd[f"{pre}.gate.weight"] = _conv1d(layer["wg"])
+            _norm(sd, f"{pre}.gate_norm", layer["ng"])
+            sd[f"{pre}.conv_tr.weight"] = _tconv_flip(layer["w"])
+    sd["merge.weight"] = _conv1d(p["merge"]["w"])[..., None]
+    sd["unmerge.weight"] = _tconv_flip(p["unmerge"]["w"])[..., None]
+    return sd
+
+
+def _squim_house_encoder(sd: dict, p: dict):
+    sd["encoder.conv.weight"] = _conv1d(p["enc"]["w"])
+    _norm(sd, "encoder.norm", p["enc"]["n"])
+    for i, blk in enumerate(p["blocks"]):
+        pre = f"encoder.blocks.{i}"
+        for part, norm in (("intra", "n1"), ("inter", "n2")):
+            q = blk[part]
+            _torch_lstm(sd, f"{pre}.{part}.lstm", q["f"], "_l0", house=True)
+            _torch_lstm(sd, f"{pre}.{part}.lstm", q["b"], "_l0_reverse",
+                        house=True)
+            sd[f"{pre}.{part}.proj.weight"] = _t(np.transpose(q["proj"]))
+            _norm(sd, f"{pre}.{norm}", blk[norm])
+
+
+def _squim_pool_head(sd: dict, pool: str, head: str, pp: dict, hp: dict):
+    sd[f"{pool}.wq.weight"] = _t(np.transpose(pp["wq"]))
+    sd[f"{pool}.q"] = _t(pp["q"])
+    _linear(sd, f"{head}.fc1", hp, "w1", "b1")
+    _linear(sd, f"{head}.fc2", hp, "w2", "b2")
+
+
+def squim_objective_from_jax_params(params_np: dict) -> dict:
+    """The JAX ``SquimObjective`` (the house build) params → the port's
+    ``state_dict``: the encoder conv ``(k, 1, d)`` → ``(d, 1, k)``, dense
+    kernels transposed, each BiLSTM direction's gates permuted from i, f,
+    o, u to torch's i, f, g, o (:func:`_torch_lstm`)."""
+    p = params_np
+    sd = {}
+    _squim_house_encoder(sd, p)
+    for m in ("stoi", "pesq", "si_sdr"):
+        _squim_pool_head(sd, f"pool.{m}", f"head.{m}", p["pool"][m],
+                         p["head"][m])
+    return sd
+
+
+def squim_subjective_from_jax_params(params_np: dict) -> dict:
+    """The JAX ``SquimSubjective`` params → the port's ``state_dict`` (the
+    shared encoder as :func:`squim_objective_from_jax_params`, the
+    cross-attention's ``wq``/``wk``/``wv`` and norm, the pooled head over
+    both representations)."""
+    p = params_np
+    sd = {}
+    _squim_house_encoder(sd, p)
+    for name in ("wq", "wk", "wv"):
+        sd[f"cross_{name[1]}.weight"] = _t(np.transpose(p["cross"][name]))
+    _norm(sd, "cross_norm", p["cross"]["n"])
+    _squim_pool_head(sd, "pool", "head", p["pool"], p["head"])
+    return sd
+
+
+def squim_objective_ta_from_jax_params(params_np: dict) -> dict:
+    """The JAX ``SquimObjectiveTA`` params → the port's ``state_dict``
+    (torchaudio's names, which ``import_squim_objective`` reads): the
+    encoder conv ``(k, 1, F)`` → ``(F, 1, k)``; each ``SingleRNN``'s two
+    directions into ``rnn`` (``_l0``, ``_l0_reverse``; the summed bias into
+    ``bias_ih``) and its ``proj``; the output 1×1 conv ``(F, d)`` →
+    ``(d, F, 1, 1)``; each branch's attention, FFN, norms, AutoPool
+    ``alpha`` and PReLU head, in (stoi, pesq, si_sdr) order."""
+    p = params_np
+    sd = {"encoder.conv1d.weight": _conv1d(p["enc"]["w"])}
+    for i, blk in enumerate(p["blocks"]):
+        for part in ("row", "col"):
+            pre = f"dprnn.{part}_rnn.{i}"
+            _torch_lstm(sd, f"{pre}.rnn", blk[part]["fwd"], "_l0")
+            _torch_lstm(sd, f"{pre}.rnn", blk[part]["bwd"], "_l0_reverse")
+            _linear(sd, f"{pre}.proj", blk[part]["proj"])
+            _norm(sd, f"dprnn.{part}_norm.{i}", blk[f"{part}_n"])
+    oc = p["out_conv"]
+    sd["dprnn.conv.0.weight"] = _t(np.transpose(oc["w"])[:, :, None, None])
+    sd["dprnn.conv.0.bias"] = _t(oc["b"])
+    sd["dprnn.conv.1.weight"] = _t(np.reshape(oc["p"], -1))
+    for bi, m in enumerate(("stoi", "pesq", "si_sdr")):
+        q, pre = p["branches"][m], f"branches.{bi}"
+        a = q["attn"]
+        sd[f"{pre}.0.self_attn.in_proj_weight"] = _t(np.transpose(a["in_w"]))
+        sd[f"{pre}.0.self_attn.in_proj_bias"] = _t(a["in_b"])
+        _linear(sd, f"{pre}.0.self_attn.out_proj", a, "out_w", "out_b")
+        _norm(sd, f"{pre}.0.norm1", q["ln1"])
+        _linear(sd, f"{pre}.0.linear1", q["ff"], "w1", "b1")
+        _linear(sd, f"{pre}.0.linear2", q["ff"], "w2", "b2")
+        _norm(sd, f"{pre}.0.norm2", q["ln2"])
+        sd[f"{pre}.1.alpha"] = _t(np.reshape(q["alpha"], -1))
+        _linear(sd, f"{pre}.2.0", q["head"], "w1", "b1")
+        sd[f"{pre}.2.1.weight"] = _t(np.reshape(q["head"]["p"], -1))
+        _linear(sd, f"{pre}.2.2", q["head"], "w2", "b2")
+    return sd
+
+
+def vggish_from_jax_params(params_np: dict) -> dict:
+    """The JAX ``VGGish`` params → the port's ``state_dict`` (``torchvggish``
+    names, which ``import_vggish`` reads): conv kernels HWIO ``(3, 3, in,
+    out)`` → OIHW at ``features.{0,3,6,8,11,13}``, dense kernels
+    transposed at ``embeddings.{0,2,4}``.  Both models flatten in (H, W, C)
+    order, so the first linear needs no permutation."""
+    sd = {}
+    for i, c in zip((0, 3, 6, 8, 11, 13), params_np["convs"]):
+        sd[f"features.{i}.weight"] = _t(np.transpose(c["w"], (3, 2, 0, 1)))
+        sd[f"features.{i}.bias"] = _t(c["b"])
+    for i, fc in zip((0, 2, 4), params_np["fcs"]):
+        _linear(sd, f"embeddings.{i}", fc)
+    return sd
+
+
+def _checked(state_dict, model, what: str) -> dict:
+    """``state_dict`` checked against ``model``'s names and sizes and
+    returned in the model's shapes and dtypes (keys the model has no use
+    for are ignored).  Raises ``KeyError`` naming the first weight the
+    checkpoint lacks, ``ValueError`` on a size that differs."""
+    sd = _tensors(state_dict)
+    out = {}
+    for name, want in model.state_dict().items():
+        if name not in sd:
+            raise KeyError(f"{what}: the state_dict has no {name!r}")
+        got = sd[name]
+        if got.numel() != want.numel():
+            raise ValueError(f"{what}: {name} has shape {tuple(got.shape)}, "
+                             f"the model {tuple(want.shape)}")
+        out[name] = got.reshape(want.shape).to(want.dtype)
+    return out
+
+
+def conv_tasnet_from_torch_state_dict(state_dict, model) -> dict:
+    """A torchaudio ``models.ConvTasNet`` ``state_dict`` (the checkpoint
+    ``import_conv_tasnet`` reads) → a ``state_dict`` for the port's
+    ``ConvTasNet``, whose names are torchaudio's: checked and passed
+    through."""
+    return _checked(state_dict, model, "conv_tasnet_from_torch_state_dict")
+
+
+def hdemucs_from_torch_state_dict(state_dict, model) -> dict:
+    """A torchaudio ``models.HDemucs`` ``state_dict`` (the
+    ``HDEMUCS_HIGH_MUSDB*`` checkpoints ``import_hdemucs`` reads) → a
+    ``state_dict`` for the port's ``HDemucsTA``: checked and passed
+    through.  The house ``HDemucs`` cannot load it and raises."""
+    from ..models.hdemucs_ta import HDemucsTA
+    if not isinstance(model, HDemucsTA):
+        raise ValueError(
+            "hdemucs_from_torch_state_dict needs the torchaudio layout, "
+            f"HDemucsTA (hdemucs_*(compat='torchaudio')); got "
+            f"{type(model).__name__}")
+    return _checked(state_dict, model, "hdemucs_from_torch_state_dict")
+
+
+def squim_objective_from_torch_state_dict(state_dict, model) -> dict:
+    """A torchaudio ``models.SquimObjective`` ``state_dict`` (the
+    ``SQUIM_OBJECTIVE`` checkpoint ``import_squim_objective`` reads) → a
+    ``state_dict`` for the port's ``SquimObjectiveTA``: checked and passed
+    through (both LSTM biases kept)."""
+    from ..models.squim import SquimObjectiveTA
+    if not isinstance(model, SquimObjectiveTA):
+        raise ValueError(
+            "squim_objective_from_torch_state_dict needs the torchaudio "
+            "layout, SquimObjectiveTA (squim_objective_base("
+            f"compat='torchaudio')); got {type(model).__name__}")
+    return _checked(state_dict, model,
+                    "squim_objective_from_torch_state_dict")
+
+
+def vggish_from_torch_state_dict(state_dict, model) -> dict:
+    """A ``torchvggish`` ``state_dict`` (the checkpoint ``import_vggish``
+    reads) → a ``state_dict`` for the port's ``VGGish``: checked and
+    passed through."""
+    return _checked(state_dict, model, "vggish_from_torch_state_dict")
