@@ -1,7 +1,8 @@
 """GPU smoke run of the PyTorch port's serving, training and inverse paths,
 its corpus path, the IIR family, the ASR path, the streaming transducer
-family, the wav2vec2 family, the TTS family and the separation, assessment
-and embedding family.
+family, the wav2vec2 family, the TTS family, the separation, assessment
+and embedding family, and the file and namespace surfaces from files on
+disk.
 
     python3 chip_smoke.py
 
@@ -252,7 +253,42 @@ imports no JAX.  Phases, each printing its lines:
     ``hubert_pretrain_base(100)`` step on 8 x 10 s in float32 and under
     ``utils.mixed_precision`` (bfloat16 compute, float32 master weights):
     ms for both, the losses within 2e-2 (the JAX package's test's bar),
-    the gradients in float32.
+    the gradients in float32;
+25. files on disk, the corpora written from the shared generator to a
+    temporary directory and deleted at the end, each part on the card
+    against the same call on a CPU copy: (a) BASELINE config 5 from a
+    10 240-file AudioSet-style shard (``<ytid>_<start>.wav``: 10 s mono
+    16-bit WAVs at 16 kHz, 64 distinct clips written by ``io.write_wav``,
+    the rest hard-linked under their own names, ~20 MiB on disk) through
+    ``io.make_wav_loader`` into phase 17's preprocessor (batch 256, 2
+    loader threads, the int16 wire, the fused forward at fft 2048, hop
+    512, 128 mels), one warm-up batch, then the timed run between a reset
+    and a read of the counters: 10 240 done, 0 failed, B1's launches = its
+    FFT-route launches = 40, sink rows against the plain chain on the
+    clips read by ``read_wav`` (1e-5 of peak); files/s, frames/s, wall,
+    busy share and the loader's decode rate alone beside phase 17's
+    in-memory files/s (the files come from the page cache: this measures
+    decode, wire and kernel, not the disk); ``io.have_native()`` must be
+    True; (b) a LibriSpeech ``test-clean``-like FLAC tree (512 utterances
+    of 2-20 s over 20 speakers x 2 chapters with their ``.trans.txt``; 16
+    distinct clips encoded by ``write_flac``, the rest hard-linked) through
+    ``datasets.LIBRISPEECH`` -> ``batch_iterator(batch_size=32,
+    bucket=True)`` -> the card -> ``fused_melspectrogram`` (fft 512, hop
+    160, 80 mels): every utterance equal to its int16 samples / 32768, the
+    native FLAC decoder equal to the Python one on the 2 s file, two
+    batches' log-mels against the CPU copy (1e-5 of peak), B1 once a
+    batch on the FFT route; utterances/s and the decode share; (c)
+    ``sox_effects.apply_effects_file`` on 32 of (a)'s files with
+    ``SOX_CHAIN`` (1e-4 of peak: float64 biquad scans and a resampler),
+    ``SOX_VOCODER_CHAIN`` on one (phase 18's phase-vocoder bar: summed in
+    float64 since fault C4, the phases still integrate the card's FFT
+    rounding, ~3 000 times amplified on noise), one
+    ``AudioEffector`` call, and a ``StreamReader`` over a 10-minute WAV in
+    0.5 s chunks equal to ``read_wav`` bitwise, the last chunk shorter;
+    (d) ``save``/``load``/``info`` of a stereo 24-bit FLAC and a float32
+    WAV loaded onto the card bitwise, and ``kaldi_io`` of (b)'s features
+    bitwise.  B1's launches in (a) and (b) are added to the kernel's
+    ``launches``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -457,6 +493,25 @@ SEP = dict(music=(2, 2, 441000), music_sr=44100, speech=(8, 80000),
            vggish=(8, 160000), vggish_check=8)
 SEP_REL = 1e-4         # card vs CPU copy, max |diff| / max |CPU|
 MIXED_REL = 2e-2
+# Phase 25, files on disk: (a) BASELINE config 5 from a 10 240-file
+# AudioSet-style shard (10 s mono 16-bit WAVs at 16 kHz: ``distinct`` clips
+# written, the rest hard-linked under their own names), the loader alone on
+# ``decode_probe`` files; (b) a LibriSpeech test-clean-like FLAC tree of
+# ``utts`` utterances of 2-20 s over ``speakers`` x ``chapters``
+# (``flac_distinct`` clips encoded, the rest hard-linked) into the fused
+# log-mel at an ASR front end's settings (``asr``); (c) sox_effects on
+# ``sox_files`` of (a)'s files, a StreamReader over ``stream_minutes`` in
+# ``chunk_s`` chunks; (d) round trips of ``round_trip_seconds``.
+FILES = dict(shard=10240, distinct=64, sr=16000, decode_probe=2048,
+             utts=512, speakers=20, chapters=2, flac_distinct=16,
+             utt_seconds=(2, 20),
+             asr=dict(batch=32, fft=512, hop=160, mels=80),
+             sox_files=32, stream_minutes=10, chunk_s=0.5,
+             round_trip_sr=48000, round_trip_seconds=2)
+SOX_CHAIN = [["speed", "1.1"], ["rate", "16000"], ["gain", "-n", "-3"],
+             ["highpass", "80"], ["lowpass", "7000"],
+             ["fade", "0.1", "10", "0.1"]]
+SOX_VOCODER_CHAIN = [["tempo", "1.1"], ["pitch", "200"]]
 # Published peaks of one H100 SXM (data sheet, 700 W): FP32 outside the
 # tensor cores, and HBM3.
 PEAK_FP32 = 67e12
@@ -4381,6 +4436,354 @@ def phase_separation(gen: torch.Generator, card: str) -> None:
     _check(moved == 0, f"phase 24 moved the kernel counters by {moved}")
 
 
+def _audioset_names(gen: torch.Generator, n: int) -> list:
+    """``n`` distinct file names in AudioSet's flat layout,
+    ``<ytid>_<start>.wav``: an 11-character YouTube id and the segment's
+    start second, drawn from ``gen``."""
+    alphabet = np.array(list("ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuv"
+                             "wxyz0123456789-_"))
+    ids = torch.randint(0, 64, (n, 11), generator=gen).numpy()
+    starts = torch.randint(0, 290, (n,), generator=gen).tolist()
+    names = [f"{''.join(alphabet[row])}_{s}.wav"
+             for row, s in zip(ids, starts)]
+    _check(len(set(names)) == n, "AudioSet names collided")
+    return names
+
+
+def _files_config5(gen: torch.Generator, card: str, tmp: Path,
+                   in_memory: dict) -> dict:
+    """Phase 25 (a): BASELINE config 5 from a 10 240-file shard on disk
+    through ``io.make_wav_loader`` into phase 17's preprocessor."""
+    from concurrent.futures import ThreadPoolExecutor
+    from torchaudio_contrib_tpu_torch import io as tio
+    from torchaudio_contrib_tpu_torch.benchmarks import corpus_run
+    cfg = corpus_run.CONFIG5
+    n, k = FILES["shard"], FILES["distinct"]
+    clips = torch.clamp(0.25 * torch.randn((k, 1, cfg["samples"]),
+                                           generator=gen), -1.0, 1.0).numpy()
+    shard = tmp / "audioset"
+    shard.mkdir()
+    paths = [str(shard / name) for name in _audioset_names(gen, n)]
+    t0 = time.perf_counter()
+    for i in range(k):
+        tio.write_wav(paths[i], clips[i], FILES["sr"])
+    for i in range(k, n):
+        os.link(paths[i % k], paths[i])
+    write_s = time.perf_counter() - t0
+    disk = sum(os.path.getsize(p) for p in paths[:k])
+    _check(tio.have_native(), "the native WAV codec is not in use")
+    decode = tio.make_wav_loader(paths)
+    spent = []              # seconds of each decode, in completion order
+
+    def loader(i):
+        t = time.perf_counter()
+        out = decode(i)
+        spent.append(time.perf_counter() - t)
+        return out
+
+    rows = {}
+
+    def sink(i, row):
+        if i % 997 == 0:                      # 11 rows of the 10 240
+            rows[i] = row.copy()
+
+    pre = corpus_run.preprocessor(clips, loader=loader, sink=sink)
+    pre.run(range(pre.batch_size))            # warm-up batch, untimed
+    rows.clear()
+    spent.clear()
+    stats = corpus_run.measure(pre, n)        # counters reset inside
+    # the timed run's n decodes end before the traced run starts: their
+    # seconds over the wall of the loader threads
+    decode_share = sum(spent[:n]) / cfg["num_workers"] / stats["wall_s"]
+    decode_ms = sum(spent[:n]) / n * 1e3
+    row_err = _corpus_rows(pre, rows)
+    # the loader alone: decode rate on one thread and on the run's threads
+    probe = FILES["decode_probe"]
+    t0 = time.perf_counter()
+    for i in range(probe):
+        decode(i)
+    one = probe / (time.perf_counter() - t0)
+    with ThreadPoolExecutor(cfg["num_workers"]) as ex:
+        t0 = time.perf_counter()
+        list(ex.map(decode, range(probe)))
+        pool = probe / (time.perf_counter() - t0)
+    print(f"files on disk (a), config 5 from a {n:,}-file AudioSet-style "
+          f"shard [{card}]: {k} distinct 10 s mono 16-bit WAVs at 16 kHz "
+          f"hard-linked under {n:,} names ({disk / 2 ** 20:.1f} MiB on disk, "
+          f"written in {write_s:.2f} s); {stats['files']} files "
+          f"({stats['failed']} failed): {stats['files_per_sec']:.1f} files/s, "
+          f"{stats['frames_per_sec']:,.0f} frames/s, wall "
+          f"{stats['wall_s']:.3f} s ({stats['batches']} batches); busy "
+          f"{stats['busy_ms']:.2f} ms, busy share {stats['busy_share']:.4f}; "
+          f"fused forward {stats['b1_ms_per_batch']:.3f} ms a batch; "
+          f"launches (all, FFT route) {stats['launches']}, "
+          f"{stats['fft_launches']}; decode {decode_ms:.3f} ms a file in the "
+          f"run, {decode_share:.3f} of the {cfg['num_workers']} loader "
+          f"threads' wall; the loader alone decodes {one:.0f} files/s on one "
+          f"thread, {pool:.0f} on {cfg['num_workers']}; phase 17 from "
+          f"memory, same run: {in_memory['files_per_sec']:.1f} files/s; "
+          f"{len(rows)} sink rows vs the plain chain on the clips read by "
+          f"read_wav max|diff|/max|plain| {row_err:.3e}.  The files come "
+          f"from the page cache ({k} distinct inodes), so this measures "
+          "decode, wire and kernel, not the disk", flush=True)
+    _check(stats["files"] == n and stats["failed"] == 0,
+           f"files (a): {stats['files']} done, {stats['failed']} failed")
+    _check(stats["launches"] == stats["fft_launches"] == stats["batches"]
+           == n // cfg["batch_size"],
+           f"files (a): launches {stats['launches']}, FFT route "
+           f"{stats['fft_launches']}, batches {stats['batches']}")
+    _check(len(rows) == len(range(0, n, 997)) and row_err <= F32_PARITY,
+           f"files (a) sink rows: {len(rows)}, error {row_err}")
+    return {"launches": stats["launches"], "paths": paths[:k]}
+
+
+def _utterance_clips(gen: torch.Generator) -> list:
+    """``FILES["flac_distinct"]`` int16 utterances, 2 to 20 s evenly."""
+    lo, hi = FILES["utt_seconds"]
+    k = FILES["flac_distinct"]
+    out = []
+    for j in range(k):
+        n = int(round((lo + (hi - lo) * j / (k - 1)) * FILES["sr"]))
+        q = torch.round(3000.0 * torch.randn(n, generator=gen))
+        out.append(torch.clamp(q, -32768, 32767).to(torch.int16).numpy())
+    return out
+
+
+def _files_librispeech(gen: torch.Generator, card: str, tmp: Path) -> dict:
+    """Phase 25 (b): a LibriSpeech ``test-clean``-like FLAC tree through
+    ``datasets.LIBRISPEECH`` and ``batch_iterator`` into the fused log-mel
+    at an ASR front end's settings."""
+    from torchaudio_contrib_tpu_torch import datasets, io as tio, ops
+    from torchaudio_contrib_tpu_torch.io import _flac
+    asr = FILES["asr"]
+    clips = _utterance_clips(gen)
+    k, utts = len(clips), FILES["utts"]
+    chapters = [(1089 + 37 * s, 134686 + 1000 * s + c)
+                for s in range(FILES["speakers"])
+                for c in range(FILES["chapters"])]
+    base = tmp / "LibriSpeech" / "test-clean"
+    written, clip_of, trans = {}, {}, {}
+    encode_s, t0 = 0.0, time.perf_counter()
+    for u in range(utts):
+        spk, chap = chapters[u % len(chapters)]
+        uid = u // len(chapters)
+        d = base / str(spk) / str(chap)
+        d.mkdir(parents=True, exist_ok=True)
+        key = f"{spk}-{chap}-{uid:04d}"
+        path = d / f"{key}.flac"
+        if u < k:
+            t1 = time.perf_counter()
+            _flac.write_flac(str(path), clips[u] / 32768.0, FILES["sr"])
+            encode_s += time.perf_counter() - t1
+            written[u] = path
+        else:
+            os.link(written[u % k], path)
+        trans.setdefault(d / f"{spk}-{chap}.trans.txt", []).append(
+            f"{key} UTTERANCE {uid} OF SPEAKER {spk}")
+        clip_of[(spk, chap, uid)] = u % k
+    for path, lines in trans.items():
+        path.write_text("\n".join(lines) + "\n")
+    write_s = time.perf_counter() - t0
+    buf = written[0].read_bytes()                 # the 2 s clip
+    native = _flac.read_flac(buf)[0]
+    python = _flac._py_flac_decode(buf)
+    _check(tio.have_native_flac(), "the native FLAC decoder is not in use")
+    _check(np.array_equal(native, python) and native.shape[-1]
+           == FILES["utt_seconds"][0] * FILES["sr"],
+           "files (b): the native FLAC decoder differs from the Python one")
+
+    ds = datasets.LIBRISPEECH(str(tmp), url="test-clean")
+    _check(len(ds) == utts and ds.ext == ".flac",
+           f"files (b): {len(ds)} utterances of {ds.ext}")
+    fb = ops.create_mel_filter(asr["mels"], FILES["sr"], 0.0, None,
+                               asr["fft"] // 2 + 1)
+    fb_card = fb.to("cuda")
+    batches, decode_s = [], 0.0
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    it = datasets.batch_iterator(ds, asr["batch"], bucket=True)
+    while True:
+        t1 = time.perf_counter()
+        batch = next(it, None)
+        decode_s += time.perf_counter() - t1
+        if batch is None:
+            break
+        wavs, lengths, rest = batch               # (B, 1, T): mono items
+        wavs = wavs[:, 0]
+        with torch.inference_mode():
+            mel = ops.fused_melspectrogram(
+                wavs.to("cuda", non_blocking=True), fb_card, asr["fft"],
+                asr["hop"])
+        batches.append((wavs, lengths, rest, mel))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, fft_launches = _counts()[0], _fft_counts()[0]
+    audio_s = 0.0
+    for wavs, lengths, rest, _ in batches:
+        for row, n, (_, spk, chap, uid) in zip(wavs, lengths.tolist(), rest):
+            want = clips[clip_of[(spk, chap, uid)]]
+            got = row[:n].numpy()
+            _check(n == want.shape[0] and np.array_equal(
+                got, want.astype(np.float32) / np.float32(32768.0))
+                and not row[n:].any(),
+                f"files (b): {spk}-{chap}-{uid} is not the int16 samples "
+                "written / 32768")
+            audio_s += n / FILES["sr"]
+    errs = []
+    for wavs, _, _, mel in batches[:2]:
+        want = ops.fused_melspectrogram(wavs, fb, asr["fft"], asr["hop"])
+        errs.append(_rel(mel.cpu(), want))
+    feats = [(f"{spk}-{chap}-{uid:04d}",
+              mel[i, :, :1 + (n - asr["fft"]) // asr["hop"]].T.cpu())
+             for wavs, lengths, rest, mel in batches[:2]
+             for i, (n, (_, spk, chap, uid)) in enumerate(
+                 zip(lengths.tolist(), rest))]
+    print(f"files on disk (b), a LibriSpeech test-clean-like FLAC tree "
+          f"[{card}]: {utts} utterances of {FILES['utt_seconds'][0]}-"
+          f"{FILES['utt_seconds'][1]} s ({audio_s:.0f} s of audio) over "
+          f"{FILES['speakers']} speakers x {FILES['chapters']} chapters, "
+          f"{k} distinct clips encoded by write_flac in {encode_s:.1f} s "
+          f"(tree written in {write_s:.1f} s); LIBRISPEECH -> batch_iterator"
+          f"(batch {asr['batch']}, bucket) -> the card -> "
+          f"fused_melspectrogram (fft {asr['fft']}, hop {asr['hop']}, "
+          f"{asr['mels']} mels): {utts / wall:.1f} utterances/s, "
+          f"{audio_s / wall:.0f} s of audio a second, wall {wall:.3f} s, "
+          f"decode share {decode_s / wall:.3f}; launches (all, FFT route) "
+          f"{launches}, {fft_launches} for {len(batches)} batches; every "
+          f"utterance = its int16 samples / 32768 exactly; native FLAC = "
+          f"Python decoder bitwise on a 2 s file; 2 batches' log-mels vs the "
+          f"CPU copy max|diff|/max|CPU| {max(errs):.3e}", flush=True)
+    _check(launches == fft_launches == len(batches) == -(-utts
+                                                          // asr["batch"]),
+           f"files (b): launches {launches}, FFT route {fft_launches}, "
+           f"batches {len(batches)}")
+    _check(max(errs) <= F32_PARITY, f"files (b): log-mels differ by {errs}")
+    return {"launches": launches, "feats": feats}
+
+
+def _files_effects(card: str, paths: list, tmp: Path) -> None:
+    """Phase 25 (c): ``sox_effects.apply_effects_file`` on the card against
+    the CPU copy, one ``AudioEffector`` call, a ``StreamReader`` over a
+    10-minute WAV."""
+    from torchaudio_contrib_tpu_torch import io as tio, sox_effects
+    errs, card_s = [], 0.0
+    for path in paths[:FILES["sox_files"]]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, sr = sox_effects.apply_effects_file(path, SOX_CHAIN)
+        torch.cuda.synchronize()
+        card_s += time.perf_counter() - t0
+        want, want_sr = sox_effects.apply_effects_file(path, SOX_CHAIN,
+                                                       device="cpu")
+        _check(got.device.type == "cuda" and sr == want_sr
+               and got.shape == want.shape,
+               f"files (c): {tuple(got.shape)} at {sr} against "
+               f"{tuple(want.shape)} at {want_sr}")
+        errs.append(_rel(got.cpu(), want))
+    got, _ = sox_effects.apply_effects_file(paths[0], SOX_VOCODER_CHAIN)
+    want, _ = sox_effects.apply_effects_file(paths[0], SOX_VOCODER_CHAIN,
+                                             device="cpu")
+    vocoder_err = _rel(got.cpu(), want)
+    wave = torch.from_numpy(tio.read_wav(paths[1])[0].T.copy())
+    effector = tio.AudioEffector(effect="speed 1.1, lowpass 3000",
+                                 format="wav", encoder="PCM_S",
+                                 bits_per_sample=24)
+    got = effector.apply(wave.to("cuda"), FILES["sr"])
+    effector_err = _rel(got.cpu(), effector.apply(wave, FILES["sr"]))
+    # a StreamReader over a 10-minute WAV in 0.5 s chunks
+    n = FILES["stream_minutes"] * 60 * FILES["sr"] + 1234
+    long_wav = str(tmp / "long.wav")
+    tio.write_wav(long_wav, np.tile(tio.read_wav(paths[2])[0],
+                                    (1, -(-n // 160000)))[:, :n],
+                  FILES["sr"])
+    fpc = int(FILES["chunk_s"] * FILES["sr"])
+    t0 = time.perf_counter()
+    reader = tio.StreamReader(long_wav)
+    reader.add_basic_audio_stream(frames_per_chunk=fpc)
+    chunks = [c for (c,) in reader.stream()]
+    reader.close()
+    stream_s = time.perf_counter() - t0
+    whole = tio.read_wav(long_wav)[0]
+    _check(np.array_equal(np.concatenate(chunks).T, whole)
+           and [c.shape[0] for c in chunks] == [fpc] * (n // fpc)
+           + [n % fpc], "files (c): the StreamReader's chunks are not "
+           "read_wav's samples")
+    print(f"files on disk (c), sox_effects on the card [{card}]: "
+          f"apply_effects_file({SOX_CHAIN}) on {len(errs)} files of (a): "
+          f"{card_s / len(errs) * 1e3:.1f} ms a file, max|diff|/max|CPU| "
+          f"{max(errs):.3e}; {SOX_VOCODER_CHAIN}: {vocoder_err:.3e}; "
+          f"AudioEffector(speed 1.1, lowpass 3000, PCM_S 24): "
+          f"{effector_err:.3e}; StreamReader over {n / FILES['sr'] / 60:.2f} "
+          f"min in {fpc}-frame chunks: {len(chunks)} chunks (last "
+          f"{chunks[-1].shape[0]}) equal to read_wav bitwise, "
+          f"{stream_s:.2f} s", flush=True)
+    # the chains run biquads (scans in float64) and a resampler
+    _check(max(errs) <= SCAN_PARITY, f"files (c): chain error {max(errs)}")
+    _check(vocoder_err <= VOCODER_PARITY,
+           f"files (c): tempo/pitch error {vocoder_err}")
+    _check(effector_err <= SCAN_PARITY, f"files (c): effector {effector_err}")
+
+
+def _files_round_trips(gen: torch.Generator, card: str, tmp: Path,
+                       feats: list) -> None:
+    """Phase 25 (d): ``save``/``load``/``info`` with a stereo 24-bit FLAC
+    and a float32 WAV loaded onto the card; ``kaldi_io`` of (b)'s
+    features."""
+    import torchaudio_contrib_tpu_torch as tat
+    from torchaudio_contrib_tpu_torch import kaldi_io
+    sr = FILES["round_trip_sr"]
+    n = FILES["round_trip_seconds"] * sr
+    q24 = torch.randint(-(1 << 23), 1 << 23, (2, n), generator=gen)
+    x24 = (q24.double() / (1 << 23)).float().to("cuda")
+    xf = (0.5 * torch.randn((2, n), generator=gen)).to("cuda")
+    for path, x, bits in ((tmp / "stereo24.flac", x24, 24),
+                          (tmp / "float32.wav", xf, 32)):
+        tat.save(str(path), x, sr, bits_per_sample=bits)
+        info = tat.info(str(path))
+        _check(info == {"sample_rate": sr, "channels": 2, "bits": bits,
+                        "num_frames": n, "float": bits == 32},
+               f"files (d): info {info}")
+        got, got_sr = tat.load(str(path))
+        got_t, _ = tat.load(str(path), channels_first=False)
+        _check(got.device.type == "cuda" and got_sr == sr
+               and torch.equal(got, x) and torch.equal(got_t, x.T),
+               f"files (d): {path.name} does not load back bitwise")
+    ark, scp = str(tmp / "feats.ark"), str(tmp / "feats.scp")
+    kaldi_io.write_mat_ark(ark, feats, scp_path=scp)
+    for read in (kaldi_io.read_mat_ark(ark), kaldi_io.read_mat_scp(scp)):
+        back = list(read)
+        _check([k for k, _ in back] == [k for k, _ in feats]
+               and all(torch.equal(m, f) for (_, m), (_, f)
+                       in zip(back, feats)),
+               "files (d): kaldi_io does not read (b)'s features back")
+    print(f"files on disk (d), round trips [{card}]: save/load/info of a "
+          f"stereo 24-bit FLAC and a float32 WAV ({n} frames at {sr} Hz) "
+          f"loaded onto the card bitwise; kaldi_io write_mat_ark -> "
+          f"read_mat_ark / read_mat_scp of {len(feats)} feature matrices of "
+          f"(b) bitwise ({os.path.getsize(ark):,} bytes)", flush=True)
+
+
+def phase_files(gen: torch.Generator, card: str, in_memory: dict) -> dict:
+    """Phase 25: the user's path from files on disk (the module
+    docstring).  The corpora are written to a temporary directory from the
+    shared generator and deleted at the end.  Returns B1's launches."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as root:
+        tmp = Path(root)
+        shard = _files_config5(gen, card, tmp, in_memory)
+        torch.cuda.empty_cache()
+        libri = _files_librispeech(gen, card, tmp)
+        torch.cuda.empty_cache()
+        _files_effects(card, shard["paths"], tmp)
+        _files_round_trips(gen, card, tmp, libri["feats"])
+    print(f"files on disk: phase 25 took {time.perf_counter() - t0:.1f} s, "
+          "the corpora deleted", flush=True)
+    return {"corpus_launches": shard["launches"],
+            "asr_launches": libri["launches"]}
+
+
 def _mel_bounds(x, mels: int, n_fft: int, hop: int) -> tuple:
     """The bounds of the fused mel forward and backward at ``x (B, 1, T)``.
     The function: one real transform per frame (an FFT's operations) plus
@@ -4450,6 +4853,9 @@ def main() -> None:
     tts_launches = phase_tts(gen, card)
     torch.cuda.empty_cache()
     phase_separation(gen, card)
+    torch.cuda.empty_cache()
+    files = phase_files(gen, card, corpus)
+    files_launches = files["corpus_launches"] + files["asr_launches"]
     source = "torchaudio_contrib_tpu_torch/csrc/"
     gl_file = "torchaudio_contrib_tpu/ops/fused_griffinlim.py"
     kernels = [
@@ -4458,10 +4864,13 @@ def main() -> None:
          "headers": [source + "fft_smem.cuh"],
          "replaces": "torchaudio_contrib_tpu/ops/fused.py:440",
          "launches": launches + train_counts[0] + corpus["launches"]
-         + iir_launches + asr_launches,
+         + iir_launches + asr_launches + files_launches,
          "corpus_launches": corpus["launches"],
          "iir_pipeline_launches": iir_launches,
          "asr_launches": asr_launches,
+         "files_launches": files_launches,
+         "files_corpus_launches": files["corpus_launches"],
+         "files_asr_launches": files["asr_launches"],
          "corpus_ms_per_batch": corpus["b1_ms_per_batch"],
          **stats, **fwd_bound},
         {"name": "fused_mel_bwd", "route": "cuda",

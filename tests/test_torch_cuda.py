@@ -1140,3 +1140,68 @@ def test_istft_drops_the_edge_bins_imaginary_parts_on_card(cuda_device):
     want = tops.istft(z, 512, window="hann", normalized=True)
     got = tops.istft(z.to(cuda_device), 512, window="hann", normalized=True)
     assert _rel(got, want) <= PARITY
+
+
+# ---- the file and namespace surfaces -----------------------------------------
+
+@pytest.mark.cuda
+def test_native_codecs_are_in_use(cuda_device):
+    """The card's machine builds both codecs with g++: the numbers of
+    chip_smoke.py phase 25 are the native decoders'."""
+    from torchaudio_contrib_tpu_torch import io as tio
+    assert tio.have_native() and tio.have_native_flac()
+
+
+@pytest.mark.cuda
+def test_load_returns_a_tensor_on_the_card(cuda_device, tmp_path):
+    x = np.random.default_rng(0).uniform(-0.9, 0.9, (2, 3000)) \
+        .astype(np.float32)
+    for ext, bits in ((".wav", 16), (".wav", 32), (".flac", 24)):
+        path = str(tmp_path / f"c{bits}{ext}")
+        tat.save(path, torch.from_numpy(x).to(cuda_device), 16000,
+                 bits_per_sample=bits)
+        got, sr = tat.load(path)
+        want, _ = tat.load(path, device="cpu")
+        assert got.device.type == "cuda" and sr == 16000
+        assert torch.equal(got.cpu(), want)
+        assert tat.info(path)["num_frames"] == 3000
+
+
+@pytest.mark.cuda
+def test_sox_chain_on_card_matches_cpu(cuda_device):
+    """A chain runs on its waveform's device: the card against the CPU
+    copy (1e-4 of peak for the chains through the float64 biquad scans,
+    as chip_smoke.py phase 19; 1e-2 through the phase vocoder, phase 18's
+    bar: its output moves ~3 000 times as far as its input, below)."""
+    from torchaudio_contrib_tpu_torch import sox_effects as tse
+    x = torch.randn(2, 32000, generator=torch.Generator().manual_seed(1))
+    chains = [
+        ([["speed", "1.1"], ["rate", "16000"], ["gain", "-n", "-3"],
+          ["highpass", "80"], ["lowpass", "7000"],
+          ["fade", "0.1", "10", "0.1"]], 1e-4),
+        ([["tempo", "1.2"], ["pitch", "200"], ["reverse"]], 1e-2),
+        ([["phaser"], ["overdrive", "10"], ["channels", "1"]], 1e-4),
+    ]
+    for chain, bar in chains:
+        got, sr = tse.apply_effects_tensor(x.to(cuda_device), 16000, chain)
+        want, want_sr = tse.apply_effects_tensor(x, 16000, chain)
+        assert got.device.type == "cuda" and sr == want_sr
+        assert _rel(got, want) <= bar, chain
+
+
+@pytest.mark.cuda
+def test_phase_vocoder_on_card_matches_cpu_on_a_long_clip(cuda_device):
+    """C4: the phases of a 10 s clip are summed in float64 on both devices.
+    Summed in float32, the card's order landed 0.41 of peak from the CPU's
+    (a running sum reaches ~1e5 rad at the top bins); in float64 what is
+    left is the function's own conditioning: on the CPU, a 4.9e-7 relative
+    perturbation of this spectrogram moves the output 1.6e-3 of peak
+    (phases integrate the angle errors of a bin's weak frames), so the
+    card's FFT rounding is held to phase 18's 1e-2."""
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 160000, generator=g)
+    spec = tops.stft(x, 1024, 256)
+    adv = tops.compute_phase_advance(513, 256, 1024)
+    want = tops.phase_vocoder(spec, 1.1, adv)
+    got = tops.phase_vocoder(spec.to(cuda_device), 1.1, adv.to(cuda_device))
+    assert _rel(torch.view_as_real(got), torch.view_as_real(want)) <= 1e-2

@@ -198,6 +198,14 @@ def test_import_pulls_in_no_jax():
             "from torchaudio_contrib_tpu_torch.pipelines import ("
             "HDEMUCS_HIGH_MUSDB, CONVTASNET_BASE_LIBRI2MIX, SQUIM_OBJECTIVE, "
             "VGGISH)\n"
+            "from torchaudio_contrib_tpu_torch import (io, datasets, "
+            "kaldi_io, sox_effects, functional, transforms, prototype)\n"
+            "from torchaudio_contrib_tpu_torch.io import (stream, effector, "
+            "_flac, _native)\n"
+            "from torchaudio_contrib_tpu_torch.prototype import (functional, "
+            "models, pipelines, transforms)\n"
+            "from torchaudio_contrib_tpu_torch.utils import compat\n"
+            "io.have_native(), io.have_native_flac()\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'jaxlib' "
             "or m.startswith('torchaudio_contrib_tpu.') "

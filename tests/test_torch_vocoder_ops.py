@@ -9,7 +9,9 @@ cumulative sum whose order differs between XLA and PyTorch.  A bin's
 phase advances by up to ``2π·hop/2`` radians a frame, so after a few
 hundred frames the sum is of order 1e4 radians and one float32 rounding of
 it is 1e-3 radians: 1e-2 of peak (measured up to 2.6e-3), and the pitch
-shifter (stft → vocoder → istft → resample) inherits that bar.
+shifter (stft → vocoder → istft → resample) inherits that bar.  (The port
+sums in float64 since fault C4; the JAX package's float32 sum keeps the
+bar.)
 """
 import numpy as np
 import pytest
@@ -66,6 +68,25 @@ def test_stretch_layer(rng):
     want = np.asarray(jat.StretchSpecTime(1.25, hop_length=64,
                                           num_freqs=129)(jnp.asarray(spec)))
     assert _rel(layer(s).numpy(), want) <= VOCODER
+
+
+def test_phase_vocoder_amplifies_its_input_rounding():
+    """Why the card is held to its CPU copy at 1e-2 through the vocoder
+    (chip_smoke.py phases 18 and 25, ``tests/test_torch_cuda.py``): a
+    perturbation of a 10 s spectrogram at the size of float32 FFT rounding
+    (5e-7 of peak) moves the output 1e-4 to 1e-2 of peak, because a bin's
+    phase integrates the angle errors of its weak frames."""
+    g = torch.Generator().manual_seed(2)
+    spec = tops.stft(torch.randn(2, 160000, generator=g), 1024, 256)
+    adv = tops.compute_phase_advance(513, 256, 1024)
+    noise = torch.complex(torch.randn(spec.shape, generator=g),
+                          torch.randn(spec.shape, generator=g))
+    moved = spec + 1e-7 * spec.abs().max() * noise
+    base = torch.view_as_real(tops.phase_vocoder(spec, 1.1, adv)).numpy()
+    out = torch.view_as_real(tops.phase_vocoder(moved, 1.1, adv)).numpy()
+    assert _rel(torch.view_as_real(moved).numpy(),
+                torch.view_as_real(spec).numpy()) <= 1e-6
+    assert 1e-4 <= _rel(out, base) <= VOCODER
 
 
 # ---- resample ----------------------------------------------------------------

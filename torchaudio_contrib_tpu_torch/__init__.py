@@ -33,9 +33,15 @@ bundles in ``pipelines``, and ``datasets.CMUDict`` for the phone bundles);
 and the separation, assessment and embedding models (ConvTasNet, HDemucs
 in the JAX package's build and torchaudio's, the Squim models, VGGish and
 its input processor, their bundles in ``pipelines``) with
-``utils.cast_floats``/``mixed_precision``.
+``utils.cast_floats``/``mixed_precision``; and the file and namespace
+surfaces: the native WAV and FLAC codecs and chunked streams (``io``),
+the dataset parsers and batching (``datasets``), Kaldi tables
+(``kaldi_io``), SoX-style effect chains (``sox_effects``), the
+torchaudio-named namespaces (``functional``, ``transforms``,
+``prototype``), ``utils.view_as_real``/``view_as_complex`` and the
+top-level ``load``/``save``/``info``.
 Module names follow the JAX package's; the flat names below are those of
-its ``__init__`` that are ported so far.
+its ``__init__``, every one of them.
 
 This package imports torch and NumPy only — never JAX, and never the JAX
 package.
@@ -44,7 +50,10 @@ package.
 __version__ = "0.1.0"
 
 from . import (ops, models, utils, benchmarks, parallel, compliance,
-               datasets, pipelines)
+               datasets, pipelines, io, sox_effects, kaldi_io)
+# torchaudio-shaped namespace aliases (imported after the packages they
+# re-export from)
+from . import functional, transforms, prototype
 
 from .ops import (
     stft, istft, frame_signal, num_frames, stft_output_length,
@@ -122,10 +131,45 @@ from .models import (
     Highpass, Equalizer, RNNTLoss, LFCC, Convolve, FFTConvolve,
     SpeedPerturbation,
 )
+from .utils import view_as_real, view_as_complex
+
+
+def load(path, channels_first: bool = True, device="cuda"):
+    """torchaudio's top-level ``load``: decode a WAV or FLAC file with the
+    package codecs (dispatch on content magic) → ``(waveform (channels,
+    frames) float32 tensor on device, sample_rate)``; the card unless the
+    caller asks for the CPU (``channels_first=False`` transposes).  Other
+    compressed formats need a one-time external conversion."""
+    import torch as _torch
+    data, sr = io.read_audio(path)
+    wav = _torch.from_numpy(data).to(device)
+    return (wav if channels_first else wav.T), sr
+
+
+def save(path, src, sample_rate: int, channels_first: bool = True,
+         bits_per_sample: int = 16) -> None:
+    """torchaudio's top-level ``save``: encode a tensor (on any device) or
+    array via the package codecs — ``.flac`` extension → lossless FLAC
+    (8/16/24-bit), else WAV (PCM 16 or float32 bits)."""
+    from .io._flac import _host_float32
+    arr = _host_float32(src)
+    if arr.ndim == 2 and not channels_first:
+        arr = arr.T
+    io.write_audio(path, arr, sample_rate, bits=bits_per_sample)
+
+
+def info(path) -> dict:
+    """torchaudio's top-level ``info``: WAV/FLAC header metadata
+    (``sample_rate``, ``num_frames``, ``channels``, ``bits``, ...)
+    without decoding samples."""
+    return io.audio_info(path)
+
 
 __all__ = [
     "ops", "models", "utils", "benchmarks", "parallel", "compliance",
-    "datasets", "pipelines",
+    "datasets", "pipelines", "io", "sox_effects", "kaldi_io",
+    "functional", "transforms", "prototype", "load", "save", "info",
+    "view_as_real", "view_as_complex",
     "stft", "istft", "frame_signal", "num_frames", "stft_output_length",
     "complex_norm", "angle", "magphase",
     "hertz_to_mel", "mel_to_hertz", "hertz_to_bark", "bark_to_hertz",

@@ -3,7 +3,8 @@
 Port of ``torchaudio_contrib_tpu/ops/phase_vocoder.py``.  The fractional
 frame positions are computed in float64 NumPy from the static ``rate``;
 the phase accumulation, the only sequentially dependent step, is one
-``torch.cumsum``.
+``torch.cumsum`` in float64 (the JAX package sums in float32; on a long
+clip that sum's rounding, not the signal, decides the phases).
 """
 from __future__ import annotations
 
@@ -63,9 +64,14 @@ def phase_vocoder(complex_specgrams: torch.Tensor, rate: float,
     dphase = dphase - 2.0 * math.pi * torch.round(dphase / (2.0 * math.pi))
     dphase = dphase + phase_advance
 
-    # seeded with the first frame's phase
+    # seeded with the first frame's phase; summed in float64 and wrapped
+    # into [0, 2π) before the trigonometry: a float32 running sum reaches
+    # ~1e5 rad at the top bins of a 10 s clip, where its ulp is ~0.01 rad,
+    # and the card's and the CPU's summation orders then land up to 0.4 of
+    # peak apart (chip_smoke.py phase 25 (c))
     phase = torch.cat([angle0[..., :1], dphase[..., :-1]], dim=-1)
-    phase_acc = torch.cumsum(phase, dim=-1)
+    phase_acc = torch.remainder(torch.cumsum(phase.double(), dim=-1),
+                                2.0 * math.pi).to(phase.dtype)
 
     mag = alphas * norm1 + (1.0 - alphas) * norm0
     return torch.complex(mag * torch.cos(phase_acc),

@@ -24,7 +24,9 @@ from .convert import (from_jax_params, wav2letter_from_jax_params,
                       vggish_from_torch_state_dict)
 from .checkpoint import save_params, load_params
 from .precision import cast_floats, mixed_precision
+from .compat import view_as_real, view_as_complex
 from . import convert
 
-__all__ = ["cast_floats", "mixed_precision", "save_params", "load_params"] \
+__all__ = ["cast_floats", "mixed_precision", "save_params", "load_params",
+           "view_as_real", "view_as_complex"] \
     + convert.__all__
