@@ -1,8 +1,8 @@
 """GPU smoke run of the PyTorch port's serving, training and inverse paths,
 its corpus path, the IIR family, the ASR path, the streaming transducer
 family, the wav2vec2 family, the TTS family, the separation, assessment
-and embedding family, and the file and namespace surfaces from files on
-disk.
+and embedding family, the file and namespace surfaces from files on
+disk, and the multi-device layer.
 
     python3 chip_smoke.py
 
@@ -288,7 +288,33 @@ imports no JAX.  Phases, each printing its lines:
     (d) ``save``/``load``/``info`` of a stereo 24-bit FLAC and a float32
     WAV loaded onto the card bitwise, and ``kaldi_io`` of (b)'s features
     bitwise.  B1's launches in (a) and (b) are added to the kernel's
-    ``launches``.
+    ``launches``;
+26. the multi-device layer (``parallel``) on the card, after
+    ``make_mesh()`` started a one-rank NCCL group: (a)
+    ``data_parallel(FusedMelspectrogram)`` on config 2, bitwise the layer,
+    and config 5 through ``CorpusPreprocessor(mesh=make_mesh())`` (phase
+    17's settings: files/s beside phase 17's, B1 once a batch, the sink rows
+    bitwise phase 17's); (b) ``time_sharded_melspectrogram(use_fused=True)``
+    on one hour of mono audio at 22.05 kHz (79.4 M samples) against B1's
+    plain version (the ``torch.stft`` chain) on the same hour and against
+    one-shot ``fused_melspectrogram`` (1e-5 of peak), ms and frames/s; (c)
+    ``sp_wav2vec2_apply`` with ``WAV2VEC2_ASR_BASE_960H``'s model on 2 x 60
+    s at 16 kHz and ``sp_conformer_apply`` with the house Conformer at
+    ``conformer_rnnt_base``'s encoder width (d 256, 16 layers, 4 heads,
+    kernel 31) on 8 x 250 frames, against the models' own forwards (1e-4 of
+    peak), ms and peak MiB; (d) ``pipeline_apply(model.encoder_layer)``
+    over (c)'s 12 layers in 8 microbatches against the sequential stack,
+    forward and gradients (phase 22's bars), one SGD step of (c)'s model
+    under ``shard_params`` + ``fsdp_shard`` on a (1, 1) mesh against the
+    plain step, and a DCP save and load of its state onto an unsharded
+    model, bitwise; (e) two ranks on the one card: NCCL's answer to two
+    ranks on one GPU is printed in its own words, then two gloo processes
+    run ``time_sharded_melspectrogram(use_fused=True)`` on a 10-minute
+    clip and ``ring_attention`` at (c)'s widths against the one-rank
+    results (1e-5 of peak; 1e-5 abs), the mel also against the plain
+    chain (1e-5 of peak), with the bytes ``parallel._comm``
+    staged through pinned host memory.  B1's launches in (a), (b) and (e)
+    are added to the kernel's ``launches`` as ``multidevice_launches``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -512,6 +538,22 @@ SOX_CHAIN = [["speed", "1.1"], ["rate", "16000"], ["gain", "-n", "-3"],
              ["highpass", "80"], ["lowpass", "7000"],
              ["fade", "0.1", "10", "0.1"]]
 SOX_VOCODER_CHAIN = [["tempo", "1.1"], ["pitch", "200"]]
+# Phase 26, the multi-device layer on the card (``parallel``): config 2
+# through ``data_parallel`` (``dp``), config 5 on a mesh, an hour of mono
+# audio at 22.05 kHz time-sharded through B1 (``hour_s``), the sequence
+# parallel wav2vec2 on ``sp_w2v2`` = (clips, samples at 16 kHz) and the
+# house Conformer at conformer_rnnt_base's encoder width on ``sp_conf`` =
+# (clips, frames after the stride-4 stacking of 80 features), the pipeline
+# over the 12 layers on ``pp`` = (clips, frames) in ``micro`` microbatches,
+# a TP + FSDP step on ``step`` = (clips, samples); two gloo ranks on the
+# one card over ``two_rank_minutes`` of audio and (c)'s attention widths.
+MULTI = dict(hour_s=3600, sr=22050, sp_w2v2=(2, 960000),
+             sp_conf=(8, 250), conf=dict(input_dim=320, d_model=256,
+                                         num_layers=16, num_heads=4,
+                                         ff_ratio=4, conv_kernel=31,
+                                         convolution_first=True),
+             pp=(8, 500), micro=8, step=(2, 160000), lr=1e-5,
+             two_rank_minutes=10, ring=(2, 3000, 12, 64), timeout_s=240)
 # Published peaks of one H100 SXM (data sheet, 700 W): FP32 outside the
 # tensor cores, and HBM3.
 PEAK_FP32 = 67e12
@@ -1807,6 +1849,7 @@ def phase_corpus(gen: torch.Generator, card: str) -> dict:
            f"{stats['fft_launches']}, batches {stats['batches']}")
     _check(len(rows) == 14 and row_err <= F32_PARITY,
            f"config 5 sink rows: {len(rows)}, error {row_err}")
+    stats["rows"], stats["clips"] = dict(rows), clips     # for phase 26
 
     # a loader that fails on every 7th file: skipped, logged, counted
     def flaky(i):
@@ -4784,6 +4827,455 @@ def phase_files(gen: torch.Generator, card: str, in_memory: dict) -> dict:
             "asr_launches": libri["launches"]}
 
 
+def _md_data_parallel(gen: torch.Generator, card: str, mesh) -> int:
+    """Phase 26 (a): config 2 through ``data_parallel`` on the one-rank
+    mesh, equal to the layer itself bitwise.  Returns B1's launches."""
+    from torchaudio_contrib_tpu_torch import parallel as par
+    from torchaudio_contrib_tpu_torch.models import FusedMelspectrogram
+    c = CFG2
+    x = torch.randn((c["batch"], 1, c["seconds"] * c["sr"]),
+                    generator=gen).cuda()
+    layer = FusedMelspectrogram(num_mels=c["mels"], sample_rate=c["sr"],
+                                fft_length=c["fft"], hop_length=c["hop"],
+                                precision="split3").cuda()
+    dp = par.data_parallel(layer, mesh)
+    _reset_counts()
+    with torch.inference_mode():
+        out = dp(x)
+    launches, fft_launches = _counts()[0], _fft_counts()[0]
+    with torch.inference_mode():
+        ref = layer(x)
+        ms = _time_ms(lambda: dp(x), 2, 7)
+        layer_ms = _time_ms(lambda: layer(x), 2, 7)
+    same = torch.equal(out.to_local(), ref)
+    print(f"multi-device (a) [{card}]: data_parallel(FusedMelspectrogram) "
+          f"on a one-rank {_dist_backend()} mesh, config 2 "
+          f"{tuple(x.shape)} -> {tuple(out.shape)} {out.placements}; "
+          f"bitwise the layer: {same}; {ms:.3f} ms (the layer alone "
+          f"{layer_ms:.3f}); B1 launches {launches} (FFT route "
+          f"{fft_launches})", flush=True)
+    _check(same, "data_parallel differs from the layer")
+    _check(launches == fft_launches == 1,
+           f"data_parallel: {launches} launches, {fft_launches} FFT")
+    return launches
+
+
+def _dist_backend() -> str:
+    import torch.distributed as dist
+    return dist.get_backend()
+
+
+def _md_corpus(gen: torch.Generator, card: str, mesh, in_memory) -> int:
+    """Phase 26 (a): config 5 through ``CorpusPreprocessor(mesh=)``: B1
+    once a batch, sink rows bitwise phase 17's, files/s beside phase
+    17's.  Returns B1's launches."""
+    from torchaudio_contrib_tpu_torch.benchmarks import corpus_run
+    cfg = corpus_run.CONFIG5
+    clips = in_memory["clips"]
+    rows = {}
+
+    def sink(i, row):
+        if i in in_memory["rows"]:
+            rows[i] = row.copy()
+
+    pre = corpus_run.preprocessor(clips, mesh=mesh)
+    pre.sink = sink
+    pre.run(range(pre.batch_size))            # warm-up batch, untimed
+    rows.clear()
+    stats = corpus_run.measure(pre, cfg["files"])   # counters reset inside
+    same = sorted(rows) == sorted(in_memory["rows"]) and all(
+        np.array_equal(rows[i], in_memory["rows"][i]) for i in rows)
+    print(f"multi-device (a) [{card}]: config 5 with mesh=make_mesh(): "
+          f"{stats['files']} files, {stats['files_per_sec']:.1f} files/s "
+          f"(phase 17 {in_memory['files_per_sec']:.1f}), "
+          f"{stats['frames_per_sec']:,.0f} frames/s, B1 launches "
+          f"{stats['launches']} (FFT {stats['fft_launches']}) for "
+          f"{stats['batches']} batches; {len(rows)} sink rows bitwise "
+          f"phase 17's: {same}", flush=True)
+    _check(stats["files"] == cfg["files"] and stats["failed"] == 0,
+           f"corpus on a mesh: {stats['files']} done")
+    _check(stats["launches"] == stats["fft_launches"] == stats["batches"],
+           f"corpus on a mesh: launches {stats['launches']}, batches "
+           f"{stats['batches']}")
+    _check(same, "corpus on a mesh: sink rows differ from phase 17's")
+    return stats["launches"]
+
+
+def _md_timeshard(gen: torch.Generator, card: str, mesh) -> int:
+    """Phase 26 (b): one hour of mono audio time-sharded through B1
+    against B1's plain version (the ``torch.stft`` chain) on the same hour
+    and against one-shot ``fused_melspectrogram``.  Returns B1's
+    launches."""
+    from torchaudio_contrib_tpu_torch import parallel as par
+    from torchaudio_contrib_tpu_torch.ops import create_mel_filter, fused
+    from torchaudio_contrib_tpu_torch.ops.fused import fused_melspectrogram
+    c = CFG2
+    n = MULTI["hour_s"] * MULTI["sr"]
+    n = -(-n // c["hop"]) * c["hop"]          # hop-aligned tail
+    wave = (0.1 * torch.randn(n, generator=gen)).cuda()
+    kw = dict(num_mels=c["mels"], sample_rate=MULTI["sr"],
+              fft_length=c["fft"], hop_length=c["hop"], use_fused=True,
+              precision="split3")
+    _reset_counts()
+    with torch.inference_mode():
+        mel = par.time_sharded_melspectrogram(wave, mesh, **kw)
+    launches, fft_launches = _counts()[0], _fft_counts()[0]
+    fb = create_mel_filter(c["mels"], MULTI["sr"], 0.0, None,
+                           c["fft"] // 2 + 1, device="cuda")
+    with torch.inference_mode():
+        ms = _time_ms(lambda: par.time_sharded_melspectrogram(
+            wave, mesh, **kw), 1, 5)
+        ref = fused_melspectrogram(wave, fb, c["fft"], c["hop"],
+                                   precision="split3")
+        err = _rel(mel, ref)
+        del ref
+        torch.cuda.empty_cache()
+        plain = fused._reference(wave, fb, c["fft"], c["hop"], "hann", 2.0,
+                                 True, 1.0, 1e-7)
+        torch.cuda.synchronize()
+        plain_ms = _time_ms(lambda: fused._reference(
+            wave, fb, c["fft"], c["hop"], "hann", 2.0, True, 1.0, 1e-7), 0, 2)
+    plain_err = _rel(mel, plain)
+    frames = mel.shape[-1]
+    print(f"multi-device (b) [{card}]: time_sharded_melspectrogram("
+          f"use_fused=True) of {n:,} samples ({n / MULTI['sr'] / 60:.1f} "
+          f"min, {n * 4 / 1e6:.0f} MB) -> {tuple(mel.shape)}: "
+          f"{ms:.3f} ms, {frames / ms * 1e3:,.0f} frames/s; vs the plain "
+          f"torch.stft chain on the same hour {plain_err:.3e} of peak "
+          f"(the chain {plain_ms:.3f} ms); vs one-shot fused_melspectrogram "
+          f"{err:.3e} of peak; B1 launches {launches} (FFT "
+          f"{fft_launches})", flush=True)
+    _check(mel.shape == plain.shape and bool(torch.isfinite(mel).all()),
+           f"time-sharded mel {tuple(mel.shape)} vs {tuple(plain.shape)}")
+    _check(plain_err <= F32_PARITY,
+           f"time-sharded mel vs the plain chain: {plain_err} of peak")
+    _check(err <= F32_PARITY, f"time-sharded mel: {err} of peak")
+    _check(launches == fft_launches == 1,
+           f"time-sharded mel: {launches} launches, {fft_launches} FFT")
+    return launches
+
+
+def _md_sequence(gen: torch.Generator, card: str, mesh):
+    """Phase 26 (c): the sequence-parallel wav2vec2 and Conformer against
+    the models' own forwards.  Returns the wav2vec2 model."""
+    from torchaudio_contrib_tpu_torch import parallel as par
+    from torchaudio_contrib_tpu_torch.models import Conformer
+    from torchaudio_contrib_tpu_torch.pipelines import \
+        WAV2VEC2_ASR_BASE_960H as bundle
+    model = bundle.get_model(gen, device="cuda").eval()
+    b, t = MULTI["sp_w2v2"]
+    x = _speech_batch(gen, b, t, 16000).cuda()
+    with torch.inference_mode():
+        (out, _), ms, peak = _on_card(
+            lambda: par.sp_wav2vec2_apply(model, x, mesh=mesh), reps=2)
+        (want, _), ref_ms, ref_peak = _on_card(lambda: model(x), reps=2)
+    # the last rank's phantom frames (past output_length(T)) are not
+    # compared: the one-shot VALID extractor never emits them
+    err = _rel(out.full_tensor()[:, :want.shape[1]], want)
+    conf = Conformer(**MULTI["conf"], device="cpu", generator=gen).cuda()
+    conf.eval()
+    cb, ct = MULTI["sp_conf"]
+    f = torch.randn((cb, ct, MULTI["conf"]["input_dim"]),
+                    generator=gen).cuda()
+    with torch.inference_mode():
+        cout, cms, cpeak = _on_card(
+            lambda: par.sp_conformer_apply(conf, f, mesh=mesh), reps=2)
+        cwant, cref_ms, _ = _on_card(lambda: conf(f), reps=2)
+    cerr = _rel(cout.full_tensor(), cwant)
+    print(f"multi-device (c) [{card}]: sp_wav2vec2_apply "
+          f"(WAV2VEC2_ASR_BASE_960H) on {b} x {t / 16000:.0f} s -> "
+          f"{tuple(out.shape)}: {ms:.1f} ms, peak {peak:.0f} MiB (the "
+          f"model's forward {ref_ms:.1f} ms, {ref_peak:.0f} MiB), "
+          f"{err:.3e} of peak; sp_conformer_apply (d 256, 16 layers, 4 "
+          f"heads, kernel 31) on {tuple(f.shape)}: {cms:.1f} ms, peak "
+          f"{cpeak:.0f} MiB (forward {cref_ms:.1f} ms), {cerr:.3e} of "
+          f"peak", flush=True)
+    _check(err <= W2V2_REL, f"sp_wav2vec2_apply: {err} of peak")
+    _check(cerr <= W2V2_REL, f"sp_conformer_apply: {cerr} of peak")
+    return model
+
+
+def _md_pipeline(gen: torch.Generator, card: str, model) -> None:
+    """Phase 26 (d): ``pipeline_apply`` of the 12 encoder layers against
+    the sequential stack, forward and gradients."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torchaudio_contrib_tpu_torch import parallel as par
+    pipe = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("pipe",))
+    layers = list(model.encoder.layers)
+    stacked = par.pipeline_shard(par.stack_pipeline(layers, 1), pipe)
+    b, t = MULTI["pp"]
+    acts = torch.randn((b, t, model.d_model), generator=gen).cuda()
+    g = torch.randn((b, t, model.d_model), generator=gen).cuda()
+    params = [p for layer in layers for p in layer.parameters()]
+    model.zero_grad()
+    (out, ms, peak) = _on_card(lambda: par.pipeline_apply(
+        model.encoder_layer, stacked, acts, mesh=pipe,
+        n_microbatches=MULTI["micro"]), reps=0)
+    (out * g).sum().backward()
+    got = [p.grad.clone() for p in params]
+    model.zero_grad()
+    y = acts
+    for layer in layers:
+        y = model.encoder_layer(layer, y)
+    (y * g).sum().backward()
+    want = [p.grad for p in params]
+    model.zero_grad()
+    err = _rel(out.detach(), y.detach())
+    peak_g = max(w.abs().max().item() for w in want)
+    gerr = max((a - b).abs().max().item() for a, b in zip(got, want)) \
+        / peak_g
+    print(f"multi-device (d) [{card}]: pipeline_apply(encoder_layer) over "
+          f"12 layers, {MULTI['micro']} microbatches of {tuple(acts.shape)}"
+          f": {ms:.1f} ms (first call), peak {peak:.0f} MiB; vs the "
+          f"sequential stack {err:.3e} of peak, gradients {gerr:.3e} of "
+          f"the whole gradient's peak", flush=True)
+    _check(err <= W2V2_REL and gerr <= W2V2_REL,
+           f"pipeline: forward {err}, gradients {gerr}")
+
+
+def _md_step(gen: torch.Generator, card: str, model) -> None:
+    """Phase 26 (d): one SGD step under ``shard_params`` + ``fsdp_shard``
+    on a (1, 1) mesh against the plain step, and a DCP checkpoint round
+    trip of its state."""
+    import tempfile
+    from torch.distributed.tensor import DTensor
+    from torchaudio_contrib_tpu_torch import parallel as par
+    from torchaudio_contrib_tpu_torch.utils import (load_checkpoint,
+                                                    save_checkpoint)
+    plain = copy.deepcopy(model).train()
+    sharded = copy.deepcopy(model).train()
+    mesh = par.make_mesh(1, 1)
+    tp = par.tensor_parallel_specs(sharded, mesh)
+    par.shard_params(sharded, mesh)
+    par.fsdp_shard(sharded, mesh, base_specs=tp)
+    b, t = MULTI["step"]
+    x = _speech_batch(gen, b, t, 16000).cuda()
+    opts = [torch.optim.SGD(m.parameters(), lr=MULTI["lr"])
+            for m in (plain, sharded)]
+    losses = []
+    for m, opt in zip((plain, sharded), opts):
+        t0 = time.perf_counter()
+        loss = (m(x)[0] ** 2).mean()
+        loss.backward()
+        losses.append((loss.item(), time.perf_counter() - t0))
+    full = {n: (p.full_tensor() if isinstance(p, DTensor) else p)
+            for n, p in sharded.named_parameters()}
+    grads = {n: (p.grad.full_tensor() if isinstance(p.grad, DTensor)
+                 else p.grad) for n, p in sharded.named_parameters()}
+    want = dict(plain.named_parameters())
+    peak_g = max(p.grad.abs().max().item() for p in want.values())
+    gerr = max((grads[n] - want[n].grad).abs().max().item()
+               for n in want) / peak_g
+    for opt in opts:
+        opt.step()
+    full = {n: (p.full_tensor() if isinstance(p, DTensor) else p).detach()
+            for n, p in sharded.named_parameters()}
+    # the parameters after the step over the whole model's peak (a bias
+    # that starts at 0 is all update: its own peak is the step's rounding)
+    peak_p = max(p.detach().abs().max().item() for p in want.values())
+    perr = max((full[n] - want[n].detach()).abs().max().item()
+               for n in want) / peak_p
+    lerr = abs(losses[0][0] - losses[1][0]) / abs(losses[0][0])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dcp_") as d:
+        save_checkpoint(d, sharded)
+        back = copy.deepcopy(model)
+        with torch.no_grad():
+            for p in back.parameters():
+                p.zero_()
+        load_checkpoint(d, back)
+        same = all(torch.equal(p.detach(), full[n])
+                   for n, p in back.named_parameters())
+    print(f"multi-device (d) [{card}]: one SGD step (lr {MULTI['lr']}) on "
+          f"{b} x {t / 16000:.0f} s under shard_params + fsdp_shard on a "
+          f"(1, 1) mesh: loss {losses[1][0]:.6f} vs plain "
+          f"{losses[0][0]:.6f} ({lerr:.2e} relative), gradients "
+          f"{gerr:.3e} of the whole gradient's peak, the parameters after "
+          f"the step {perr:.3e} of the model's peak; forward+backward {losses[1][1]:.3f} s "
+          f"(plain {losses[0][1]:.3f} s, first calls); DCP save + load "
+          f"onto an unsharded model bitwise: {same}", flush=True)
+    _check(lerr <= 1e-5 and gerr <= W2V2_REL and perr <= 1e-6,
+           f"TP + FSDP step: loss {lerr}, gradients {gerr}, params {perr}")
+    _check(same, "DCP round trip is not bitwise")
+
+
+def _two_rank_child(rank: int, tmp: str) -> None:
+    """One of the two gloo ranks on the one card (phase 26 (e))."""
+    from datetime import timedelta
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torchaudio_contrib_tpu_torch import parallel as par
+    from torchaudio_contrib_tpu_torch.parallel import _comm
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=2,
+                            timeout=timedelta(seconds=60))
+    mesh = DeviceMesh("cpu", torch.arange(2), mesh_dim_names=("data",))
+    data = torch.load(f"{tmp}/inputs.pt")
+    wave = data["wave"].cuda()
+    c = CFG2
+    _reset_counts()
+    with torch.inference_mode():
+        mel = par.time_sharded_melspectrogram(
+            wave, mesh, num_mels=c["mels"], sample_rate=MULTI["sr"],
+            fft_length=c["fft"], hop_length=c["hop"], use_fused=True,
+            precision="split3")
+    launches = (_counts()[0], _fft_counts()[0])
+    staged_mel = _comm.STAGED_BYTES
+    half = data["q"].shape[1] // 2
+    qkv = [data[k][:, rank * half:(rank + 1) * half].cuda()
+           for k in ("q", "k", "v")]
+    with torch.inference_mode():
+        ring = par.ring_attention(*qkv, mesh.get_group("data"))
+    torch.save({"mel": mel.cpu(), "ring": ring.cpu(), "launches": launches,
+                "staged_mel": staged_mel, "staged": _comm.STAGED_BYTES},
+               f"{tmp}/out_{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _nccl_child(rank: int, tmp: str) -> None:
+    """Two NCCL ranks on the one card: NCCL's answer, in its own words."""
+    from datetime import timedelta
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl",
+                            rank=rank, world_size=2,
+                            timeout=timedelta(seconds=60))
+    try:
+        x = torch.ones(4, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        msg = f"accepted: all_reduce gave {x.tolist()}"
+    except Exception as e:  # noqa: BLE001 — the refusal is the result
+        msg = f"{type(e).__name__}: {e}"
+    Path(f"{tmp}/nccl_{rank}.txt").write_text(msg)
+    os._exit(0)
+
+
+def _spawn(fn: str, tmp: str, timeout: float) -> tuple:
+    """Run ``chip_smoke.<fn>(rank, tmp)`` in two processes; (their return
+    codes, None for a rank killed at the timeout; their output)."""
+    import subprocess
+    import sys
+    here = str(Path(__file__).resolve().parent)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import sys; sys.path.insert(0, {here!r}); "
+         f"import chip_smoke; chip_smoke.{fn}({r}, {tmp!r})"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    deadline = time.monotonic() + timeout
+    codes, logs = [], []
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=max(deadline - time.monotonic(),
+                                               1.0))
+            codes.append(p.returncode)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, _ = p.communicate()
+            codes.append(None)
+        logs.append(out)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+    return codes, logs
+
+
+def _md_two_ranks(gen: torch.Generator, card: str, mesh) -> int:
+    """Phase 26 (e): two gloo ranks on the one card (NCCL refuses them),
+    the time-sharded mel through B1 and ring attention against the
+    one-rank results and the mel also against B1's plain version.
+    Returns the ranks' B1 launches."""
+    import tempfile
+    from torchaudio_contrib_tpu_torch import parallel as par
+    from torchaudio_contrib_tpu_torch.ops import create_mel_filter, fused
+    c = CFG2
+    n = MULTI["two_rank_minutes"] * 60 * MULTI["sr"]
+    n = -(-n // (2 * c["hop"])) * 2 * c["hop"]
+    wave = 0.1 * torch.randn(n, generator=gen)
+    q, k, v = (torch.randn(MULTI["ring"], generator=gen) for _ in range(3))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        t0 = time.perf_counter()
+        codes, logs = _spawn("_nccl_child", tmp, 90.0)
+        refusal = [Path(f"{tmp}/nccl_{r}.txt").read_text()
+                   if Path(f"{tmp}/nccl_{r}.txt").exists()
+                   else f"no answer (rc {codes[r]})" for r in range(2)]
+        print(f"multi-device (e) [{card}]: two NCCL ranks on the one card "
+              f"({time.perf_counter() - t0:.1f} s): rank 0: "
+              f"{refusal[0][:400]!r}; rank 1: {refusal[1][:400]!r}",
+              flush=True)
+        torch.save({"wave": wave, "q": q, "k": k, "v": v},
+                   f"{tmp}/inputs.pt")
+        t0 = time.perf_counter()
+        codes, logs = _spawn("_two_rank_child", tmp, MULTI["timeout_s"])
+        wall = time.perf_counter() - t0
+        if codes != [0, 0]:
+            _check(False, f"two gloo ranks: return codes {codes}\n"
+                   + "\n".join(log[-2000:] for log in logs))
+        outs = [torch.load(f"{tmp}/out_{r}.pt") for r in range(2)]
+    fb_kw = dict(num_mels=c["mels"], sample_rate=MULTI["sr"],
+                 fft_length=c["fft"], hop_length=c["hop"], use_fused=True,
+                 precision="split3")
+    fb = create_mel_filter(c["mels"], MULTI["sr"], 0.0, None,
+                           c["fft"] // 2 + 1, device="cuda")
+    with torch.inference_mode():
+        mel1 = par.time_sharded_melspectrogram(wave.cuda(), mesh, **fb_kw)
+        plain = fused._reference(wave.cuda(), fb, c["fft"], c["hop"],
+                                 "hann", 2.0, True, 1.0, 1e-7).cpu()
+        ring1 = par.ring_attention(q.cuda(), k.cuda(), v.cuda(),
+                                   mesh.get_group("data"))
+    mel2 = torch.cat([o["mel"] for o in outs], -1)
+    ring2 = torch.cat([o["ring"] for o in outs], 1)
+    merr = _rel(mel2, mel1.cpu())
+    perr = _rel(mel2, plain)
+    rerr = (ring2 - ring1.cpu()).abs().max().item()
+    launches = sum(o["launches"][0] for o in outs)
+    fft = sum(o["launches"][1] for o in outs)
+    staged = sum(o["staged"] for o in outs)
+    staged_mel = sum(o["staged_mel"] for o in outs)
+    print(f"multi-device (e) [{card}]: two gloo ranks on the one card "
+          f"({wall:.1f} s with start-up): time_sharded_melspectrogram("
+          f"use_fused=True) of {n / MULTI['sr'] / 60:.1f} min -> "
+          f"{tuple(mel2.shape)}, vs one rank {merr:.3e} and vs the plain "
+          f"torch.stft chain {perr:.3e} of peak, B1 "
+          f"launches {launches} (FFT {fft}); ring_attention on "
+          f"{tuple(q.shape)} vs one rank max|diff| {rerr:.3e}; staged "
+          f"through pinned host memory: {staged_mel:,} bytes for the "
+          f"halos, {staged:,} bytes in all", flush=True)
+    _check(mel2.shape == mel1.shape and merr <= F32_PARITY,
+           f"two ranks: mel {tuple(mel2.shape)}, {merr} of peak")
+    _check(mel2.shape == plain.shape and perr <= F32_PARITY,
+           f"two ranks: mel vs the plain chain {perr} of peak")
+    _check(rerr <= 1e-5, f"two ranks: ring attention off by {rerr}")
+    _check(launches == fft == 2, f"two ranks: {launches} B1 launches")
+    _check(staged > 0, "two ranks: nothing staged through the host")
+    return launches
+
+
+def phase_multidevice(gen: torch.Generator, card: str, corpus: dict) -> int:
+    """Phase 26: the multi-device layer on the card (the module
+    docstring).  Returns B1's launches on its paths."""
+    from torchaudio_contrib_tpu_torch import parallel as par
+    t0 = time.perf_counter()
+    mesh = par.make_mesh()
+    _check(_dist_backend() == "nccl", f"backend {_dist_backend()}")
+    launches = _md_data_parallel(gen, card, mesh)
+    torch.cuda.empty_cache()
+    launches += _md_corpus(gen, card, mesh, corpus)
+    launches += _md_timeshard(gen, card, mesh)
+    torch.cuda.empty_cache()
+    model = _md_sequence(gen, card, mesh)
+    torch.cuda.empty_cache()
+    _md_pipeline(gen, card, model)
+    _md_step(gen, card, model)
+    del model
+    torch.cuda.empty_cache()
+    launches += _md_two_ranks(gen, card, mesh)
+    print(f"multi-device: phase 26 took {time.perf_counter() - t0:.1f} s, "
+          f"B1 launches on its paths {launches}", flush=True)
+    return launches
+
+
 def _mel_bounds(x, mels: int, n_fft: int, hop: int) -> tuple:
     """The bounds of the fused mel forward and backward at ``x (B, 1, T)``.
     The function: one real transform per frame (an FFT's operations) plus
@@ -4856,6 +5348,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     files = phase_files(gen, card, corpus)
     files_launches = files["corpus_launches"] + files["asr_launches"]
+    torch.cuda.empty_cache()
+    multi_launches = phase_multidevice(gen, card, corpus)
     source = "torchaudio_contrib_tpu_torch/csrc/"
     gl_file = "torchaudio_contrib_tpu/ops/fused_griffinlim.py"
     kernels = [
@@ -4864,13 +5358,14 @@ def main() -> None:
          "headers": [source + "fft_smem.cuh"],
          "replaces": "torchaudio_contrib_tpu/ops/fused.py:440",
          "launches": launches + train_counts[0] + corpus["launches"]
-         + iir_launches + asr_launches + files_launches,
+         + iir_launches + asr_launches + files_launches + multi_launches,
          "corpus_launches": corpus["launches"],
          "iir_pipeline_launches": iir_launches,
          "asr_launches": asr_launches,
          "files_launches": files_launches,
          "files_corpus_launches": files["corpus_launches"],
          "files_asr_launches": files["asr_launches"],
+         "multidevice_launches": multi_launches,
          "corpus_ms_per_batch": corpus["b1_ms_per_batch"],
          **stats, **fwd_bound},
         {"name": "fused_mel_bwd", "route": "cuda",

@@ -241,7 +241,7 @@ def test_last_batch_is_padded_with_silence():
 
 
 def test_mesh_and_wire_format_are_checked():
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tpar.CorpusPreprocessor(lambda i: CLIPS[i], CLIP, BATCH,
                                 mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="wire_format"):

@@ -1205,3 +1205,137 @@ def test_phase_vocoder_on_card_matches_cpu_on_a_long_clip(cuda_device):
     want = tops.phase_vocoder(spec, 1.1, adv)
     got = tops.phase_vocoder(spec.to(cuda_device), 1.1, adv.to(cuda_device))
     assert _rel(torch.view_as_real(got), torch.view_as_real(want)) <= 1e-2
+
+
+# -- the multi-device layer at world size 1 (parallel/) --------------------
+
+def _one_rank_mesh():
+    from torchaudio_contrib_tpu_torch.parallel import make_mesh
+    return make_mesh()          # starts a one-rank NCCL group if none
+
+
+@pytest.mark.cuda
+def test_make_mesh_is_one_nccl_rank_on_card(cuda_device):
+    import torch.distributed as dist
+    mesh = _one_rank_mesh()
+    assert dist.get_backend() == "nccl"
+    assert mesh.device_type == "cuda" and mesh.size(0) == mesh.size(1) == 1
+
+
+@pytest.mark.cuda
+def test_data_parallel_fused_layer_on_card_is_the_layer(cuda_device):
+    from torchaudio_contrib_tpu_torch.models import FusedMelspectrogram
+    from torchaudio_contrib_tpu_torch.parallel import data_parallel
+    layer = FusedMelspectrogram(num_mels=128, sample_rate=22050,
+                                fft_length=2048, hop_length=512).cuda()
+    x = torch.randn(4, 1, 88200, device="cuda")
+    before = tfused.FFT_KERNEL_LAUNCHES
+    with torch.inference_mode():
+        out = data_parallel(layer, _one_rank_mesh())(x)
+    assert tfused.FFT_KERNEL_LAUNCHES == before + 1
+    with torch.inference_mode():
+        assert torch.equal(out.to_local(), layer(x))
+
+
+@pytest.mark.cuda
+def test_time_sharded_mel_runs_the_fused_kernel_on_card(cuda_device):
+    from torchaudio_contrib_tpu_torch.parallel import \
+        time_sharded_melspectrogram
+    x = torch.randn(2, 512 * 400, device="cuda")
+    fb = tops.create_mel_filter(128, 22050, 0.0, None, 1025, device="cuda")
+    before = tfused.FFT_KERNEL_LAUNCHES
+    with torch.inference_mode():
+        got = time_sharded_melspectrogram(
+            x, _one_rank_mesh(), num_mels=128, sample_rate=22050,
+            fft_length=2048, hop_length=512, use_fused=True)
+    assert tfused.FFT_KERNEL_LAUNCHES == before + 1
+    with torch.inference_mode():
+        want = tfused.fused_melspectrogram(x, fb, 2048, 512)
+    assert got.shape == want.shape and _rel(got, want) <= PARITY
+
+
+@pytest.mark.cuda
+def test_corpus_on_a_mesh_on_card(cuda_device):
+    from torchaudio_contrib_tpu_torch.parallel import CorpusPreprocessor
+    clips = np.random.default_rng(0).standard_normal((8, 1, 16000)) \
+        .astype(np.float32)
+    rows = {}
+    before = tfused.KERNEL_LAUNCHES
+    stats = CorpusPreprocessor(
+        lambda i: clips[i], 16000, 4, mesh=_one_rank_mesh(), use_fused=True,
+        sink=lambda i, r: rows.__setitem__(i, r), fft_length=512,
+        hop_length=128, num_mels=64, sample_rate=16000).run(range(8))
+    assert stats.files_done == 8 and len(rows) == 8
+    assert tfused.KERNEL_LAUNCHES == before + 2
+
+
+@pytest.mark.cuda
+def test_sequence_parallel_wav2vec2_on_card(cuda_device):
+    from torchaudio_contrib_tpu_torch.models import Wav2Vec2
+    from torchaudio_contrib_tpu_torch.parallel import sp_wav2vec2_apply
+    model = Wav2Vec2(extractor_conv_layers=((32, 10, 5), (32, 4, 2)),
+                     d_model=64, num_layers=2, num_heads=4, ff_dim=128,
+                     pos_conv_kernel=16, pos_conv_groups=4,
+                     extractor_mode="group_norm", layer_norm_first=False,
+                     device="cuda").eval()
+    x = torch.randn(2, 4000, device="cuda")
+    with torch.inference_mode():
+        got, _ = sp_wav2vec2_apply(model, x, mesh=_one_rank_mesh())
+        want, _ = model(x)
+    assert _rel(got.full_tensor()[:, :want.shape[1]], want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_ring_attention_accumulates_bf16_in_float32_on_card(cuda_device):
+    from torchaudio_contrib_tpu_torch.parallel import ring_attention
+    mesh = _one_rank_mesh()
+    q, k, v = (3 * torch.randn(2, 256, 4, 32, device="cuda")
+               for _ in range(3))
+    got = ring_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                         mesh.get_group("data"))
+    qf, kf, vf = (t.bfloat16().float() for t in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) / 32 ** 0.5
+    want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vf)
+    assert got.dtype == torch.bfloat16
+    assert (got.float() - want).abs().max() <= \
+        2.0 ** -8 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_pipeline_and_tp_fsdp_step_on_card(cuda_device, tmp_path):
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor
+    from torchaudio_contrib_tpu_torch.models import Wav2Vec2
+    from torchaudio_contrib_tpu_torch import parallel as par
+    from torchaudio_contrib_tpu_torch.utils import (load_checkpoint,
+                                                    save_checkpoint)
+    mesh = _one_rank_mesh()
+    model = Wav2Vec2(extractor_conv_layers=((32, 10, 5), (32, 4, 2)),
+                     d_model=64, num_layers=4, num_heads=4, ff_dim=128,
+                     pos_conv_kernel=16, pos_conv_groups=4, device="cuda")
+    pipe = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("pipe",))
+    acts = torch.randn(4, 50, 64, device="cuda")
+    stacked = par.stack_pipeline(list(model.encoder.layers), 1)
+    out = par.pipeline_apply(model.encoder_layer, stacked, acts, mesh=pipe,
+                             n_microbatches=4)
+    ref = acts
+    for layer in model.encoder.layers:
+        ref = model.encoder_layer(layer, ref)
+    assert _rel(out, ref) <= 1e-5
+    sharded = copy.deepcopy(model)
+    tp = par.tensor_parallel_specs(sharded, mesh)
+    par.shard_params(sharded, mesh)
+    par.fsdp_shard(sharded, mesh, base_specs=tp)
+    x = torch.randn(2, 4000, device="cuda")
+    (model(x)[0] ** 2).mean().backward()
+    (sharded(x)[0] ** 2).mean().backward()
+    for (n, p), (_, q) in zip(sorted(model.named_parameters()),
+                              sorted(sharded.named_parameters())):
+        g = q.grad.full_tensor() if isinstance(q.grad, DTensor) else q.grad
+        assert _rel(g, p.grad) <= GRAD_PARITY, n
+    save_checkpoint(str(tmp_path / "ck"), sharded)
+    back = copy.deepcopy(model)
+    load_checkpoint(str(tmp_path / "ck"), back)
+    for (n, p), (_, q) in zip(sorted(back.named_parameters()),
+                              sorted(sharded.named_parameters())):
+        assert torch.equal(p.detach(), q.full_tensor().detach()), n

@@ -18,7 +18,9 @@ traces a streamed segment of the Emformer-RNNT bundle (greedy, encoder
 alone, beam) and a ``conformer_rnnt_base`` training step at phase 21's;
 ``w2v2_profile`` traces the ``WAV2VEC2_ASR_BASE_960H`` batch of 8 requests
 and a CTC fine-tuning step at phase 22's, with the feature extractor's and
-the positional conv's shares of the forward.
+the positional conv's shares of the forward; ``md_profile`` traces phase
+26's sequence-parallel wav2vec2 and Conformer and its pipeline beside the
+models' own forwards, by kind of kernel.
 """
 from __future__ import annotations
 

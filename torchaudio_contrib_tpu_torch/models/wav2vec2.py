@@ -121,6 +121,7 @@ class _Attention(nn.Module):
     def __init__(self, d: int, h: int, generator, wavlm: bool = False,
                  num_buckets: int = 0, rel_table: bool = False):
         super().__init__()
+        self.num_heads = h
         for name in ("q_proj", "k_proj", "v_proj"):
             lin = nn.Linear(d, d)
             _glorot_(lin.weight, d, 3 * d, generator)
@@ -136,6 +137,29 @@ class _Attention(nn.Module):
                     self.rel_attn_embed.weight.normal_(
                         generator=generator).mul_(0.02)
 
+    def forward(self, x, pad_mask=None, pos_bias=None):
+        b, t, d = x.shape
+        h = self.num_heads
+        hd = d // h
+        # the head count comes from the projections' width, which holds
+        # this rank's heads when q/k/v are column-sharded
+        q, k, v = (lin(x).view(b, t, -1, hd).transpose(1, 2)
+                   for lin in (self.q_proj, self.k_proj, self.v_proj))
+        logits = q @ k.transpose(-1, -2) / math.sqrt(hd)
+        if pos_bias is not None:
+            # WavLM's gated relative position bias: per-(head, query)
+            # gates from the PRE-projection input, reshaped per head
+            gates = torch.sigmoid(self.gru_rel_pos_linear(
+                x.view(b, t, h, hd)).view(b, t, h, 2, 4).sum(-1))
+            gate = gates[..., 0] * (gates[..., 1]
+                                    * self.gru_rel_pos_const.view(h)
+                                    - 1.0) + 2.0            # (B, T, H)
+            logits = logits + gate.transpose(1, 2)[..., None] * pos_bias
+        if pad_mask is not None:
+            logits = logits.masked_fill(~pad_mask[:, None, None, :], _NEG)
+        w = torch.softmax(logits, -1)
+        return self.out_proj((w @ v).transpose(1, 2).reshape(b, t, -1))
+
 
 class _FeedForward(nn.Module):
     def __init__(self, d: int, f: int, generator):
@@ -148,20 +172,35 @@ class _FeedForward(nn.Module):
 
 
 class _EncoderLayer(nn.Module):
-    def __init__(self, d: int, h: int, f: int, generator, **wavlm):
+    def __init__(self, d: int, h: int, f: int, generator,
+                 layer_norm_first: bool, **wavlm):
         super().__init__()
+        self.layer_norm_first = layer_norm_first
         self.attention = _Attention(d, h, generator, **wavlm)
         self.layer_norm = nn.LayerNorm(d)
         self.feed_forward = _FeedForward(d, f, generator)
         self.final_layer_norm = nn.LayerNorm(d)
 
+    def forward(self, x, pad_mask=None, pos_bias=None):
+        if self.layer_norm_first:
+            x = x + self.attention(self.layer_norm(x), pad_mask, pos_bias)
+            x = x + self.feed_forward(self.final_layer_norm(x))
+        else:
+            x = self.layer_norm(x + self.attention(x, pad_mask, pos_bias))
+            x = self.final_layer_norm(x + self.feed_forward(x))
+        if pad_mask is not None:
+            x = torch.where(pad_mask[..., None], x, 0.0)
+        return x
+
 
 class _Encoder(nn.Module):
     def __init__(self, d: int, h: int, f: int, n: int, pos_k: int,
-                 pos_groups: int, generator, num_buckets: int = 0):
+                 pos_groups: int, generator, layer_norm_first: bool,
+                 num_buckets: int = 0):
         super().__init__()
         # the JAX init draws the positional conv after the layers
-        layers = [_EncoderLayer(d, h, f, generator, wavlm=num_buckets > 0,
+        layers = [_EncoderLayer(d, h, f, generator, layer_norm_first,
+                                wavlm=num_buckets > 0,
                                 num_buckets=num_buckets, rel_table=i == 0)
                   for i in range(n)]
         self.pos_conv_embed = _PosConv(d, pos_k, pos_groups, generator)
@@ -228,7 +267,7 @@ class Wav2Vec2(nn.Module):
         self.feature_projection = _FeatureProjection(c, d_model, generator)
         self.encoder = _Encoder(d_model, num_heads, ff_dim, num_layers,
                                 pos_conv_kernel, pos_conv_groups, generator,
-                                _num_buckets)
+                                self.layer_norm_first, _num_buckets)
         if aux_out is not None:
             self.aux = _dense(d_model, aux_out, generator)
         self.to(device)
@@ -250,43 +289,12 @@ class Wav2Vec2(nn.Module):
         """WavLM's ``(H, T, T)`` bucket bias (None here)."""
         return None
 
-    def _attention(self, att: _Attention, x, pad_mask, pos_bias=None):
-        b, t, d = x.shape
-        h = self.num_heads
-        hd = d // h
-        q, k, v = (lin(x).view(b, t, h, hd).transpose(1, 2)
-                   for lin in (att.q_proj, att.k_proj, att.v_proj))
-        logits = q @ k.transpose(-1, -2) / math.sqrt(hd)
-        if pos_bias is not None:
-            # WavLM's gated relative position bias: per-(head, query)
-            # gates from the PRE-projection input, reshaped per head
-            gates = torch.sigmoid(att.gru_rel_pos_linear(
-                x.view(b, t, h, hd)).view(b, t, h, 2, 4).sum(-1))
-            gate = gates[..., 0] * (gates[..., 1]
-                                    * att.gru_rel_pos_const.view(h)
-                                    - 1.0) + 2.0            # (B, T, H)
-            logits = logits + gate.transpose(1, 2)[..., None] * pos_bias
-        if pad_mask is not None:
-            logits = logits.masked_fill(~pad_mask[:, None, None, :], _NEG)
-        w = torch.softmax(logits, -1)
-        return att.out_proj((w @ v).transpose(1, 2).reshape(b, t, d))
-
     def encoder_layer(self, layer: _EncoderLayer, x, pad_mask=None,
                       pos_bias=None):
         """ONE transformer layer (``self.encoder.layers[i]``) on ``x (B,
         T', d_model)``; public, as the JAX package's, for a pipeline that
         streams the stack (the forward loops this same function)."""
-        if self.layer_norm_first:
-            x = x + self._attention(layer.attention, layer.layer_norm(x),
-                                    pad_mask, pos_bias)
-            x = x + layer.feed_forward(layer.final_layer_norm(x))
-        else:
-            x = layer.layer_norm(x + self._attention(layer.attention, x,
-                                                     pad_mask, pos_bias))
-            x = layer.final_layer_norm(x + layer.feed_forward(x))
-        if pad_mask is not None:
-            x = torch.where(pad_mask[..., None], x, 0.0)
-        return x
+        return layer(x, pad_mask, pos_bias)
 
     def _encode(self, x, pad_mask):
         pos_bias = self._pos_bias(x.shape[1], x.device)
@@ -382,6 +390,10 @@ class WavLM(Wav2Vec2):
     from its attention input reshaped per head (``gru_rel_pos_linear``,
     ``gru_rel_pos_const``).  The bucket grid of a length is built once on
     the host and cached."""
+
+    # read outside the module that owns it (every layer's bias comes from
+    # layer 0's table): a per-layer wrapper (FSDP) must leave it whole
+    _shared_params = ("encoder.layers.0.attention.rel_attn_embed.weight",)
 
     def __init__(self, *args, num_buckets: int = 320,
                  max_distance: int = 800, **kwargs):

@@ -1,5 +1,5 @@
-"""Corpus-scale preprocessing on one GPU: streamed chunked STFT and a batch
-preprocessor.
+"""Corpus-scale preprocessing: streamed chunked STFT and a batch
+preprocessor, on one GPU or split over a mesh's data axis.
 
 Port of ``torchaudio_contrib_tpu/parallel/corpus.py`` (BASELINE config 5).
 ``StreamingSTFT`` holds a carry of the last ``fft_length − hop`` samples, so
@@ -28,8 +28,14 @@ Port-specific, on a CUDA device:
   log-mel kernel once (``ops.fused.KERNEL_LAUNCHES``) or raises; any other
   power computes the plain chain, the fused op's rule on every device.
 
-There is no mesh: ``mesh=`` waits for the port of the multi-device layer
-(``parallel/sharding.py``) and raises ``NotImplementedError``.
+With ``mesh=`` (a :func:`~.sharding.make_mesh` mesh) every rank runs the
+same ``run(indices)``: each batch of ``batch_size`` indices is split over
+the mesh's ``data`` axis, and each rank loads, stages and transforms the
+rows that fall in its shard (``batch_size / data`` of them) on the mesh's
+device, as the JAX ``shard_map`` runs the kernel per shard.  Each rank's
+``sink`` gets its own rows, so the union over ranks is the one-rank run's;
+the returned :class:`CorpusStats` are summed over the ``data`` ranks
+(``seconds`` is the slowest rank's).
 """
 from __future__ import annotations
 
@@ -51,6 +57,7 @@ from ..ops.filters import apply_filterbank, create_mel_filter
 from ..ops.fused import fused_melspectrogram
 from ..ops.mulaw import mu_law_decoding
 from ..ops.stft import stft as _stft
+from ._comm import axis_group, mesh_device
 
 logger = logging.getLogger("torchaudio_contrib_tpu.corpus")
 
@@ -165,7 +172,9 @@ class CorpusStats:
 
 
 class CorpusPreprocessor:
-    """Batched mel extraction over a file corpus on one device.
+    """Batched mel extraction over a file corpus on one device, or on each
+    rank of ``mesh``'s data axis (its shard of every batch; see the module
+    docstring).
 
     ``loader(i) -> np.ndarray (channels, samples)`` may raise; failures are
     retried ``retries`` times, then the file is skipped and logged: a bad
@@ -192,16 +201,20 @@ class CorpusPreprocessor:
                  prefetch_batches: int = 2,
                  device="cuda",
                  **mel_kwargs):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= needs the multi-device layer (parallel/sharding.py, "
-                "the data-parallel mesh), which is not ported yet; pass "
-                "device= for one device")
         if wire_format not in _WIRE_DTYPES:
             raise ValueError(f"unknown wire_format {wire_format!r}")
+        self.mesh = mesh
+        self._shard = (None, 0, 1)
+        if mesh is not None:
+            self._shard = axis_group(mesh, "data")
+            if batch_size % self._shard[2] != 0:
+                raise ValueError(
+                    "batch_size must divide over the data axis")
+            device = mesh_device(mesh)
         self.loader = loader
         self.clip_samples = clip_samples
-        self.batch_size = batch_size
+        self.global_batch_size = batch_size
+        self.batch_size = batch_size // self._shard[2]
         self.channels = channels
         self.retries = retries
         self.sink = sink
@@ -357,6 +370,34 @@ class CorpusPreprocessor:
         scale.record_stream(compute)
         return x, scale
 
+    def _my_indices(self, indices: Iterable[int]):
+        """The indices of this rank's data shard of every batch."""
+        _, r, n = self._shard
+        if n == 1:
+            yield from indices
+            return
+        for pos, idx in enumerate(indices):
+            if (pos % self.global_batch_size) // self.batch_size == r:
+                yield idx
+
+    def _reduce_stats(self, stats: CorpusStats) -> CorpusStats:
+        """Sum the counts over the data ranks; the slowest rank's time."""
+        group, _, n = self._shard
+        if n == 1:
+            return stats
+        dev = (self.device if torch.distributed.get_backend(group) == "nccl"
+               else torch.device("cpu"))
+        counts = torch.tensor([stats.files_done, stats.files_failed,
+                               stats.frames], dtype=torch.float64,
+                              device=dev)
+        secs = torch.tensor([stats.seconds], dtype=torch.float64,
+                            device=dev)
+        torch.distributed.all_reduce(counts, group=group)
+        torch.distributed.all_reduce(secs, op=torch.distributed.ReduceOp.MAX,
+                                     group=group)
+        done, failed, frames = (int(v) for v in counts.tolist())
+        return CorpusStats(done, failed, frames, float(secs.item()))
+
     def run(self, indices: Iterable[int]) -> CorpusStats:
         stats = CorpusStats()
         cuda = self.device.type == "cuda"
@@ -412,7 +453,8 @@ class CorpusPreprocessor:
             while len(pending) > self.prefetch_batches:
                 drain(pending.popleft())
 
-        for idx, (clip, scale) in self._iter_loaded(indices, stats):
+        for idx, (clip, scale) in self._iter_loaded(
+                self._my_indices(indices), stats):
             batch.append(clip)
             scales.append(scale)
             ids.append(idx)
@@ -423,4 +465,4 @@ class CorpusPreprocessor:
         while pending:
             drain(pending.popleft())
         stats.seconds = time.perf_counter() - t0
-        return stats
+        return self._reduce_stats(stats)

@@ -22,11 +22,13 @@ from .convert import (from_jax_params, wav2letter_from_jax_params,
                       hdemucs_from_torch_state_dict,
                       squim_objective_from_torch_state_dict,
                       vggish_from_torch_state_dict)
-from .checkpoint import save_params, load_params
+from .checkpoint import (save_params, load_params, save_checkpoint,
+                         load_checkpoint)
 from .precision import cast_floats, mixed_precision
 from .compat import view_as_real, view_as_complex
 from . import convert
 
 __all__ = ["cast_floats", "mixed_precision", "save_params", "load_params",
-           "view_as_real", "view_as_complex"] \
+           "save_checkpoint", "load_checkpoint", "view_as_real",
+           "view_as_complex"] \
     + convert.__all__

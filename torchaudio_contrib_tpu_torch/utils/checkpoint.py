@@ -14,8 +14,14 @@ read this way become a port ``state_dict`` through ``utils.convert``'s
 
 No JAX is imported: the structure is read back from the ``__treedef__``
 string itself (dicts, lists, tuples and ``None`` of the JAX package's
-parameter trees; a custom pytree node raises).  ``save_checkpoint``/
-``load_checkpoint`` (orbax, sharded) are not ported.
+parameter trees; a custom pytree node raises).
+
+:func:`save_checkpoint`/:func:`load_checkpoint` are the sharded
+checkpoints, in ``torch.distributed.checkpoint`` (DCP)'s directory format
+where the JAX package writes orbax's: every rank writes its own shards of
+its DTensors (FSDP or tensor-parallel parameters), and a load reshards to
+the layout of ``like``, so a checkpoint saved from two ranks loads on one
+and the reverse.  Orbax files are not read.
 """
 from __future__ import annotations
 
@@ -28,7 +34,8 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["save_params", "load_params"]
+__all__ = ["save_params", "load_params", "save_checkpoint",
+           "load_checkpoint"]
 
 _FORMAT_VERSION = 1
 
@@ -152,3 +159,45 @@ def load_params(path, like: Any = None) -> Any:
         raise ValueError(f"checkpoint has {n} leaves; its structure has "
                          f"{len(_leaves(tree))}")
     return _fill(tree, iter(leaves))
+
+
+# -- sharded checkpoints (torch.distributed.checkpoint) ----------------------
+
+def _state(obj: Any) -> dict:
+    if isinstance(obj, torch.nn.Module):
+        return obj.state_dict()
+    if not isinstance(obj, dict):
+        raise TypeError("a checkpoint holds a module or a dict of tensors, "
+                        f"got {type(obj).__name__}")
+    return obj
+
+
+def save_checkpoint(path: str, params: Any) -> None:
+    """Write ``params`` (a module, whose ``state_dict`` is saved, or a
+    dict of tensors and DTensors) to the directory ``path``.  Under a
+    process group every rank calls it and writes its own shards; without
+    one the process writes everything.  An existing checkpoint there is
+    overwritten."""
+    import os
+
+    import torch.distributed.checkpoint as dcp
+
+    dcp.save(_state(params), checkpoint_id=os.path.abspath(path))
+
+
+def load_checkpoint(path: str, like: Any) -> Any:
+    """Read a :func:`save_checkpoint` directory into the layout of
+    ``like``: a module (loaded in place and returned) or a dict of tensors
+    and DTensors, whose shapes, dtypes and placements say what each rank
+    reads (a new dict is returned; ``like``'s tensors are filled in
+    place)."""
+    import os
+
+    import torch.distributed.checkpoint as dcp
+
+    state = _state(like)
+    dcp.load(state, checkpoint_id=os.path.abspath(path))
+    if isinstance(like, torch.nn.Module):
+        like.load_state_dict(state)
+        return like
+    return dict(state)
