@@ -2,7 +2,8 @@
 its corpus path, the IIR family, the ASR path, the streaming transducer
 family, the wav2vec2 family, the TTS family, the separation, assessment
 and embedding family, the file and namespace surfaces from files on
-disk, and the multi-device layer.
+disk, the multi-device layer, and ``bench.py``'s device-loop measurements
+replayed from CUDA graphs.
 
     python3 chip_smoke.py
 
@@ -314,7 +315,26 @@ imports no JAX.  Phases, each printing its lines:
     results (1e-5 of peak; 1e-5 abs), the mel also against the plain
     chain (1e-5 of peak), with the bytes ``parallel._comm``
     staged through pinned host memory.  B1's launches in (a), (b) and (e)
-    are added to the kernel's ``launches`` as ``multidevice_launches``.
+    are added to the kernel's ``launches`` as ``multidevice_launches``;
+27. ``bench.py``'s four device-loop measurements through the port's
+    ``utils.timing`` at ``bench.py``'s shapes (:data:`BENCH`; inputs drawn
+    as ``bench.py`` draws them), each between a reset and a read of the
+    counters: (a) config 2 through ``FusedMelspectrogram(precision=
+    "split3")`` at k 16 (B1), (b) its waveform gradient at k 16 (B1 with
+    its residual, B2), (c) ``ctc_beam_decode`` on (8, 1000, 1024) with beam
+    16 at k 4, non-finite scores zeroed, (d) ``RNNTBeamSearch._run_batched``
+    at the emformer_rnnt scale (J 1024, V 4097, 8 x 250 frames of features
+    as encodings, predictor 512 x 3, beam 8, 200 tokens) at k 2, the
+    lengths on the card.  Each: ``time_device_loop``'s seconds (the
+    warm-up application, the capture, then the best of 3 replays), the
+    same replay by CUDA events, the function eager by CUDA events, the
+    capture and instantiation seconds, the graph's nodes (libcuda's
+    ``cuGraphGetNodes``) and the peak memory; the last replay's outputs
+    bitwise eager's and the value bitwise the eager sum folded k times in
+    float32; (a) within 1e-5 of peak of the plain chain and (b) within
+    1e-4 of its autograd; B1 (and B2) = 1 + k x replays on the FFT route,
+    (c) and (d) no launch.  B1's and B2's launches are added to their
+    ``launches`` as ``devloop_launches``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -554,6 +574,17 @@ MULTI = dict(hour_s=3600, sr=22050, sp_w2v2=(2, 960000),
                                          convolution_first=True),
              pp=(8, 500), micro=8, step=(2, 160000), lr=1e-5,
              two_rank_minutes=10, ring=(2, 3000, 12, 64), timeout_s=240)
+# Phase 27, bench.py's four device-loop measurements at its shapes
+# (bench.py:110-113, 133-134, 182, 202, 247-288) through utils.device_loop:
+# config 2 forward and forward + backward (k 16), ctc_beam_decode on
+# ``ctc`` = (batch, frames, classes) with beam 16 (k 4), and the RNN-T
+# batched beam at the emformer_rnnt scale (k 2), on features as encodings.
+# The inputs are drawn as bench.py draws them, from numpy's default_rng(0):
+# the waveform, the emissions, the features.
+BENCH = dict(k=16, reps=3, event_reps=3, ctc=(8, 1000, 1024), ctc_beam=16,
+             ctc_k=4, rnnt=dict(J=1024, V=4097, T=250, B=8, embed=512,
+                                hidden=512, layers=3, beam=8, max_tokens=200,
+                                k=2, seed=7))
 # Published peaks of one H100 SXM (data sheet, 700 W): FP32 outside the
 # tensor cores, and HBM3.
 PEAK_FP32 = 67e12
@@ -5276,6 +5307,185 @@ def phase_multidevice(gen: torch.Generator, card: str, corpus: dict) -> int:
     return launches
 
 
+def _graph_nodes(graph) -> int:
+    """Nodes of a graph ``device_loop`` captured (it keeps the graph), as
+    libcuda's ``cuGraphGetNodes`` counts them."""
+    import ctypes
+    n = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    _check(rc == 0, f"cuGraphGetNodes: CUresult {rc}")
+    return n.value
+
+
+def _fold(s: float, k: int) -> float:
+    """The loop's value for ``k`` applications whose sum is ``s``: its
+    running float32 sum, added in its order."""
+    acc = np.float32(0.0)
+    for _ in range(k):
+        acc = np.float32(acc + np.float32(s))
+    return float(acc)
+
+
+def _devloop_part(name: str, full, x, k: int, card: str,
+                  eager_warmup: int, eager_iters: int) -> tuple:
+    """One of bench.py's measurements through the port's device loop.
+    ``full(v)`` gives the tensors to compare, the first of them the one the
+    loop sums.  Between a reset and a read of the counters:
+    ``time_device_loop``'s method (``timing._best_seconds`` over
+    ``device_loop(f, k)``: one warm-up application, the capture, then the
+    best of ``reps`` replays to the scalar on the host), one more replay
+    for the value, and the same replay timed by CUDA events.  Then, outside
+    the count, the function run eagerly: its outputs against the last
+    replay's, bitwise, its sum folded ``k`` times against the loop's value,
+    bitwise, and its ms by CUDA events.  Returns ``(the last replay's
+    outputs, the counters, replays)``."""
+    from torchaudio_contrib_tpu_torch.utils import timing
+    last = {}
+
+    def f(v):
+        last["out"] = full(v)
+        return last["out"][0]
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    _reset_gl_counts()
+    looped = timing.device_loop(f, k)
+    best_s = timing._best_seconds(looped, x, BENCH["reps"])
+    value = float(looped(x))
+    event_ms = _time_ms(lambda: looped(x), 0, BENCH["event_reps"]) / k
+    torch.cuda.synchronize()
+    counts = _counts() + _fft_counts() + _gl_counts() + (_gl_fft_count(),)
+    replays = BENCH["reps"] + 2 + BENCH["event_reps"]
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    (cap,) = looped.captures.values()
+    nodes = _graph_nodes(cap.graph)
+    got = last["out"]
+    eager = full(x)
+    eager_ms = _time_ms(lambda: full(x), eager_warmup, eager_iters)
+    s = float(eager[0].sum(dtype=torch.float32))
+    same = [torch.equal(a, b) for a, b in zip(got, eager)]
+    ms = best_s * 1e3
+    stats = {"part": name, "card": card, "k": k, "replayed_ms": ms,
+             "replayed_event_ms": event_ms, "eager_ms": eager_ms,
+             "eager_over_replayed": eager_ms / ms,
+             "capture_s": cap.capture_s, "instantiate_s": cap.instantiate_s,
+             "graph_nodes": nodes, "nodes_per_application": nodes / k,
+             "pool_peak_mib": peak, "value": value, "fold": _fold(s, k),
+             "k_times_eager": float(np.float32(k) * np.float32(s)),
+             "replays": replays, "counts": counts}
+    print(f"device loop [{card}]: {name}, k {k}: replayed {ms:.3f} ms an "
+          f"application (time_device_loop; CUDA events on the same replay "
+          f"{event_ms:.3f}), eager {eager_ms:.3f} ms (CUDA events), eager / "
+          f"replayed {eager_ms / ms:.2f}; capture {cap.capture_s:.3f} s + "
+          f"instantiate {cap.instantiate_s:.3f} s; {nodes} graph nodes "
+          f"({nodes / k:.1f} an application); peak {peak:.0f} MiB above "
+          f"the inputs in warm-up and capture; value {value!r}, eager sum "
+          f"folded {k} times {stats['fold']!r} (k x eager "
+          f"{stats['k_times_eager']!r}); outputs bitwise {same}",
+          flush=True)
+    print(json.dumps({"device_loop": stats}), flush=True)
+    _check(value == stats["fold"],
+           f"{name}: the replayed value {value!r} is not the eager sum "
+           f"folded {k} times, {stats['fold']!r}")
+    _check(all(same), f"{name}: the last replay's outputs differ from "
+           f"eager's ({same})")
+    return got, counts, replays
+
+
+def phase_device_loop(card: str) -> tuple:
+    """Phase 27: bench.py's four device-loop measurements through the
+    port's ``utils.timing`` at bench.py's shapes (:data:`BENCH`).  Returns
+    the B1 and B2 launches of its counted runs."""
+    import torchaudio_contrib_tpu_torch as tac
+    from torchaudio_contrib_tpu_torch.models import RNNT, RNNTBeamSearch
+    from torchaudio_contrib_tpu_torch.ops import ctc_beam_decode, fused
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    k = BENCH["k"]
+    x = torch.from_numpy(rng.standard_normal(
+        (CFG2["batch"], 1, CFG2["seconds"] * CFG2["sr"]))
+        .astype(np.float32)).cuda()
+    lp = torch.log_softmax(torch.from_numpy(
+        rng.standard_normal(BENCH["ctc"]).astype(np.float32)).cuda(), -1)
+    r = BENCH["rnnt"]
+    feats = torch.from_numpy((rng.standard_normal((r["B"], r["T"], r["J"]))
+                              * 0.1).astype(np.float32)).cuda()
+    layer = tac.FusedMelspectrogram(num_mels=CFG2["mels"],
+                                    sample_rate=CFG2["sr"],
+                                    fft_length=CFG2["fft"],
+                                    hop_length=CFG2["hop"],
+                                    precision="split3").cuda()
+    fb = layer.filterbank
+    args = (CFG2["fft"], CFG2["hop"], "hann", 2.0, True, 1.0, 1e-7)
+
+    def grad_of(v, fn):
+        v = v.detach().requires_grad_(True)
+        return torch.autograd.grad(fn(v).sum(), v)
+
+    # (a) config 2 forward: B1 once an application
+    got, counts, replays = _devloop_part(
+        "(a) config 2 forward", lambda v: (layer(v),), x, k, card, 3, 15)
+    with torch.no_grad():
+        err_a = _rel(got[0], fused._reference(x, fb, *args))
+    b1 = 1 + k * replays
+    _check(counts == (b1, 0, 0, b1, 0, 0, 0, 0),
+           f"(a) counters {counts}: want B1 = FFT route = {b1}, no other")
+    # (b) config 2 forward + backward: B1 with its residual and B2 (frame
+    # passes on the FFT route) once an application
+    got, counts, replays = _devloop_part(
+        "(b) config 2 forward + backward", lambda v: grad_of(v, layer), x,
+        k, card, 3, 10)
+    err_b = _rel(got[0], grad_of(x, lambda v: fused._reference(v, fb,
+                                                               *args))[0])
+    n = 1 + k * replays
+    _check(counts == (n, n, n, n, n, 0, 0, 0),
+           f"(b) counters {counts}: want B1 = B2 = frame passes = FFT route "
+           f"= {n}, no other")
+    print(f"device loop: (a) last replay vs the plain chain "
+          f"{err_a:.3e} of peak; (b) its gradient vs autograd of the plain "
+          f"chain {err_b:.3e} of peak; B1 launches {b1} + {n}, B2 {n}, all "
+          f"on the FFT route", flush=True)
+    _check(err_a <= F32_PARITY and err_b <= GRAD_PARITY,
+           f"(a) {err_a} > {F32_PARITY} or (b) {err_b} > {GRAD_PARITY}")
+    del got, x, layer
+    torch.cuda.empty_cache()
+
+    # (c) the CTC prefix beam, 1 000 frame steps (no kernel)
+    def ctc(v):
+        toks, lens, scores = ctc_beam_decode(v, beam_width=BENCH["ctc_beam"])
+        return torch.where(torch.isfinite(scores), scores, 0.0), toks, lens
+    _, counts, _ = _devloop_part("(c) ctc_beam_decode", ctc, lp,
+                                    BENCH["ctc_k"], card, 0, 2)
+    _check(not any(counts), f"(c) moved the counters {counts}")
+    del lp
+    # (d) the RNN-T batched beam on features as encodings (no kernel); the
+    # lengths on the card, as bench.py passes them
+    model = RNNT(torch.nn.Identity(), num_symbols=r["V"], encoding_dim=r["J"],
+                 joiner_dim=r["J"], predictor_embed_dim=r["embed"],
+                 predictor_hidden_dim=r["hidden"],
+                 predictor_layers=r["layers"], device="cuda",
+                 generator=torch.Generator().manual_seed(r["seed"]))
+    search = RNNTBeamSearch(model, beam_width=r["beam"])
+    lens = torch.full((r["B"],), r["T"], dtype=torch.long, device="cuda")
+    carry = search.init_batched_state(r["B"], max_tokens=r["max_tokens"])
+
+    def rnnt(v):
+        c = search._run_batched(v, lens, carry)
+        return (torch.where(torch.isfinite(c["scores"]), c["scores"], 0.0),
+                c["toks"], c["lens"])
+    _, counts, _ = _devloop_part("(d) RNN-T batched beam", rnnt, feats,
+                                    r["k"], card, 0, 2)
+    _check(not any(counts), f"(d) moved the counters {counts}")
+    del model, search, carry, feats
+    torch.cuda.empty_cache()
+    print(f"device loop: phase 27 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return b1 + n, n
+
+
 def _mel_bounds(x, mels: int, n_fft: int, hop: int) -> tuple:
     """The bounds of the fused mel forward and backward at ``x (B, 1, T)``.
     The function: one real transform per frame (an FFT's operations) plus
@@ -5350,6 +5560,8 @@ def main() -> None:
     files_launches = files["corpus_launches"] + files["asr_launches"]
     torch.cuda.empty_cache()
     multi_launches = phase_multidevice(gen, card, corpus)
+    torch.cuda.empty_cache()
+    loop_b1, loop_b2 = phase_device_loop(card)
     source = "torchaudio_contrib_tpu_torch/csrc/"
     gl_file = "torchaudio_contrib_tpu/ops/fused_griffinlim.py"
     kernels = [
@@ -5358,7 +5570,8 @@ def main() -> None:
          "headers": [source + "fft_smem.cuh"],
          "replaces": "torchaudio_contrib_tpu/ops/fused.py:440",
          "launches": launches + train_counts[0] + corpus["launches"]
-         + iir_launches + asr_launches + files_launches + multi_launches,
+         + iir_launches + asr_launches + files_launches + multi_launches
+         + loop_b1,
          "corpus_launches": corpus["launches"],
          "iir_pipeline_launches": iir_launches,
          "asr_launches": asr_launches,
@@ -5366,13 +5579,15 @@ def main() -> None:
          "files_corpus_launches": files["corpus_launches"],
          "files_asr_launches": files["asr_launches"],
          "multidevice_launches": multi_launches,
+         "devloop_launches": loop_b1,
          "corpus_ms_per_batch": corpus["b1_ms_per_batch"],
          **stats, **fwd_bound},
         {"name": "fused_mel_bwd", "route": "cuda",
          "source": source + "fused_mel_bwd.cu",
          "headers": [source + "fft_smem.cuh"],
          "replaces": "torchaudio_contrib_tpu/ops/fused.py:604",
-         "launches": train_counts[1], **bwd_stats, **bwd_bound},
+         "launches": train_counts[1] + loop_b2,
+         "devloop_launches": loop_b2, **bwd_stats, **bwd_bound},
     ] + [
         {"name": name, "route": "cuda", "source": source + "fused_gl.cu",
          "headers": [source + "fft_smem.cuh"], "replaces": replaces,

@@ -1339,3 +1339,94 @@ def test_pipeline_and_tp_fsdp_step_on_card(cuda_device, tmp_path):
     for (n, p), (_, q) in zip(sorted(back.named_parameters()),
                               sorted(sharded.named_parameters())):
         assert torch.equal(p.detach(), q.full_tensor().detach()), n
+
+
+# ---- utils.timing: the device loop as one CUDA graph replay ---------------
+
+def _fold(s, k):
+    """The loop's running float32 sum of ``k`` applications whose sum is
+    ``s``."""
+    acc = np.float32(0.0)
+    for _ in range(k):
+        acc = np.float32(acc + np.float32(s))
+    return float(acc)
+
+
+def _mel_grad_loop(shape, fft, hop, mels, k, seed):
+    """A device loop over the gradient of the fused layer (B1 with its
+    residual, then B2), with the last application's output kept; the
+    input and the eager gradient."""
+    from torchaudio_contrib_tpu_torch.utils import device_loop
+    layer = tat.FusedMelspectrogram(num_mels=mels, sample_rate=16000,
+                                    fft_length=fft, hop_length=hop).cuda()
+    last = {}
+
+    def f(v):
+        v = v.detach().requires_grad_(True)
+        last["g"] = torch.autograd.grad(layer(v).sum(), v)[0]
+        return last["g"]
+
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(shape)
+                         .astype(np.float32)).cuda()
+    return device_loop(f, k), x, last, f
+
+
+@pytest.mark.cuda
+def test_device_loop_replays_b1_b2_bitwise_as_eager(cuda_device):
+    looped, x, last, f = _mel_grad_loop((4, 1, 32000), 2048, 512, 128, 3, 1)
+    value = float(looped(x))
+    want = f(x)
+    assert torch.equal(last["g"], want)
+    assert value == _fold(float(want.sum(dtype=torch.float32)), 3)
+
+
+@pytest.mark.cuda
+def test_device_loop_captures_a_fresh_shape(cuda_device):
+    """A size no call has seen (the constants on the card, the kernels'
+    library looked up again): the warm-up fills every cache, the capture
+    succeeds and replays the eager value."""
+    tfused._fft_consts_on.cache_clear()
+    tfused._basis_on.cache_clear()
+    tfused._kernel_lib.cache_clear()
+    looped, x, last, f = _mel_grad_loop((3, 1, 7777), 512, 160, 48, 2, 2)
+    value = float(looped(x))
+    assert len(looped.captures) == 1
+    assert value == _fold(float(f(x).sum(dtype=torch.float32)), 2)
+
+
+@pytest.mark.cuda
+def test_device_loop_counters_count_replays(cuda_device):
+    from torchaudio_contrib_tpu_torch.ops import _launches
+    looped, x, _, _ = _mel_grad_loop((2, 1, 16000), 1024, 256, 64, 4, 3)
+    before = _launches.counts()
+    for _ in range(3):
+        looped(x)
+    torch.cuda.synchronize()
+    moved = _launches.delta(before)
+    n = 1 + 4 * 3           # the warm-up application, then 3 replays of 4
+    for name in ("KERNEL_LAUNCHES", "FFT_KERNEL_LAUNCHES",
+                 "BWD_KERNEL_LAUNCHES", "BWD_DFRAMES_LAUNCHES",
+                 "BWD_FFT_LAUNCHES"):
+        assert moved["fused." + name] == n, (name, moved)
+    assert not any(v for k, v in moved.items()
+                   if k.startswith("fused_griffinlim."))
+
+
+@pytest.mark.cuda
+def test_device_loop_raises_on_a_host_sync(cuda_device):
+    """``.item()`` cannot be captured: the call raises, names ``f`` and
+    quotes CUDA, and runs nothing eagerly instead; the card's generator and
+    a later capture still work."""
+    from torchaudio_contrib_tpu_torch.utils import device_loop
+    calls = []
+
+    def syncs(v):
+        calls.append(1)
+        return v * v.sum().item()
+
+    x = torch.ones(8, device="cuda")
+    with pytest.raises(RuntimeError, match="syncs cannot be captured"):
+        device_loop(syncs, 3)(x)
+    assert len(calls) == 2          # the warm-up, then the capture's first
+    torch.randn(4, device="cuda")
+    assert float(device_loop(lambda v: v * 2, 3)(x)) == 48.0

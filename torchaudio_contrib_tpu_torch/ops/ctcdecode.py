@@ -95,7 +95,9 @@ def _ctc_beam_frame(carry, row, valid, blank: int, L: int):
     B, K = lens.shape
     V = row.shape[-1]
     dev = row.device
-    neg = torch.tensor(-math.inf, dtype=row.dtype, device=dev)
+    # a fill on the device, not a host copy: the step runs inside a CUDA
+    # graph capture (utils.device_loop)
+    neg = torch.full((), -math.inf, dtype=row.dtype, device=dev)
     total = torch.logaddexp(pb, pnb)
     has = lens > 0
     last = toks.gather(2, (lens - 1).clamp(min=0)[..., None])[..., 0]

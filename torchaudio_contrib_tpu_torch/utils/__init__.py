@@ -25,10 +25,11 @@ from .convert import (from_jax_params, wav2letter_from_jax_params,
 from .checkpoint import (save_params, load_params, save_checkpoint,
                          load_checkpoint)
 from .precision import cast_floats, mixed_precision
+from .timing import device_loop, time_device_loop, time_device_loop_p
 from .compat import view_as_real, view_as_complex
 from . import convert
 
 __all__ = ["cast_floats", "mixed_precision", "save_params", "load_params",
            "save_checkpoint", "load_checkpoint", "view_as_real",
-           "view_as_complex"] \
+           "view_as_complex", "device_loop", "time_device_loop"] \
     + convert.__all__
