@@ -206,7 +206,7 @@ def test_import_pulls_in_no_jax():
             "models, pipelines, transforms)\n"
             "from torchaudio_contrib_tpu_torch.utils import compat\n"
             "from torchaudio_contrib_tpu_torch.utils import (timing, "
-            "import_torch)\n"
+            "import_torch, trace)\n"
             "io.have_native(), io.have_native_flac()\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'jaxlib' "

@@ -9,6 +9,11 @@ global average pooling and a linear head.  Layouts are PyTorch's
 an even input, not (1, 1)).  ``loss_fn``/``train_step`` are the JAX
 model's mean cross-entropy and plain SGD step; with ``fused=True`` on the
 GPU the filterbank's gradient runs through the backward kernel.
+
+``forward`` and ``train_step`` mark their parts for a recording
+``torch.profiler`` (``tac::classifier.step`` > ``.forward`` (``.frontend``,
+``.conv0``–``.conv2``, ``.head``), ``.loss``, ``.grad``, ``.update``; see
+:mod:`..utils.trace`).
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.trace import span
 from ._common import _fp32_cudnn
 from .layers import (AmplitudeToDb, FusedMelspectrogram, Melspectrogram,
                      Pipeline)
@@ -95,18 +101,26 @@ class MelFrontendClassifier(nn.Module):
 
     @_fp32_cudnn
     def forward(self, waveform: torch.Tensor) -> torch.Tensor:
-        x = self.features(waveform).mean(dim=1, keepdim=True)  # (B,1,M,F)
-        for conv in self.convs:
-            ph = _same_pad(x.shape[-2], 3, 2)
-            pw = _same_pad(x.shape[-1], 3, 2)
-            x = F.relu(conv(F.pad(x, (pw[0], pw[1], ph[0], ph[1]))))
-        return self.head(x.mean(dim=(-2, -1)))
+        with span("classifier.forward"):
+            with span("classifier.frontend"):
+                # (B, 1, M, F)
+                x = self.features(waveform).mean(dim=1, keepdim=True)
+            for i, conv in enumerate(self.convs):
+                with span(f"classifier.conv{i}"):
+                    ph = _same_pad(x.shape[-2], 3, 2)
+                    pw = _same_pad(x.shape[-1], 3, 2)
+                    x = F.relu(conv(F.pad(x, (pw[0], pw[1], ph[0],
+                                                  ph[1]))))
+            with span("classifier.head"):
+                return self.head(x.mean(dim=(-2, -1)))
 
     def loss_fn(self, waveform: torch.Tensor,
                 labels: torch.Tensor) -> torch.Tensor:
         """Mean cross-entropy of ``forward(waveform)`` against integer
         ``labels (B,)``."""
-        return F.cross_entropy(self(waveform), labels.long())
+        logits = self(waveform)
+        with span("classifier.loss"):
+            return F.cross_entropy(logits, labels.long())
 
     @_fp32_cudnn
     def train_step(self, waveform: torch.Tensor, labels: torch.Tensor,
@@ -114,10 +128,12 @@ class MelFrontendClassifier(nn.Module):
         """One plain SGD step, ``p ← p − lr·∂loss/∂p``, on every parameter
         (the filterbank too when it is trainable), in place.  Returns the
         loss before the step, detached."""
-        params = [p for p in self.parameters() if p.requires_grad]
-        loss = self.loss_fn(waveform, labels)
-        grads = torch.autograd.grad(loss, params)
-        with torch.no_grad():
-            for p, g in zip(params, grads):
-                p.sub_(lr * g)
-        return loss.detach()
+        with span("classifier.step"):
+            params = [p for p in self.parameters() if p.requires_grad]
+            loss = self.loss_fn(waveform, labels)
+            with span("classifier.grad"):
+                grads = torch.autograd.grad(loss, params)
+            with span("classifier.update"), torch.no_grad():
+                for p, g in zip(params, grads):
+                    p.sub_(lr * g)
+            return loss.detach()

@@ -40,9 +40,16 @@ backward launches that also ran the frame gradient passes;
 ``FFT_KERNEL_LAUNCHES`` and ``BWD_FFT_LAUNCHES`` count those of the
 forward and of the frame passes that took the FFT route (and nothing
 else), so a run can show which kernels it went through.
+
+On a CUDA tensor the op marks its parts for a recording ``torch.profiler``
+(``tac::fused_mel``, ``tac::fused_mel.fwd``, ``tac::fused_mel.bwd`` with
+``.dmel``, ``.bwd_launch`` and ``.overlap_add``), and the caches of
+constants count what they copy to the card (``CONST_UPLOADS``,
+``CONST_UPLOAD_BYTES``): see :mod:`..utils.trace`.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -51,6 +58,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from ..utils.trace import span, uploaded
 from . import _cuda
 from .complexops import complex_norm
 from .db import amplitude_to_db
@@ -189,7 +197,9 @@ def _basis_np(fft_length: int, win_key, win_length):
 def _basis_on(device: torch.device, fft_length: int, win_key, win_length):
     """:func:`_basis_np` copied to ``device`` once per config."""
     basis, n_freqs, ft_count = _basis_np(fft_length, win_key, win_length)
-    return torch.from_numpy(basis).to(device), n_freqs, ft_count
+    basis = torch.from_numpy(basis).to(device)
+    uploaded(basis)
+    return basis, n_freqs, ft_count
 
 
 def _fft_plan(n: int):
@@ -237,9 +247,11 @@ def _fft_consts_on(device: torch.device, fft_length: int, win_key,
     w = _resolve_window(win_key, win_length, fft_length)
     # never inference tensors, whatever mode the first caller was in
     with torch.inference_mode(False):
-        return (torch.from_numpy(w.astype(np.float32)).to(device),
-                torch.from_numpy(_twiddle_np(fft_length).astype(np.float32))
-                .to(device))
+        consts = (torch.from_numpy(w.astype(np.float32)).to(device),
+                  torch.from_numpy(_twiddle_np(fft_length).astype(np.float32))
+                  .to(device))
+    uploaded(*consts)
+    return consts
 
 
 def _fft_consts(like, fft_length, window, win_length):
@@ -685,7 +697,8 @@ class _FusedMel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2, filterbank, cfg, fwd, bwd):
-        out, reim = fwd(x2, filterbank, *cfg, save_spec=True)
+        with span("fused_mel.fwd"):
+            out, reim = fwd(x2, filterbank, *cfg, save_spec=True)
         ctx.save_for_backward(filterbank, out, reim)
         ctx.cfg, ctx.bwd, ctx.n_samples = cfg, bwd, x2.shape[-1]
         return out
@@ -693,22 +706,27 @@ class _FusedMel(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        need_dx, need_dfb = ctx.needs_input_grad[:2]
-        filterbank, out, reim = ctx.saved_tensors
-        fft_length, hop_length, window, win_length, to_db, db_ref, amin = \
-            ctx.cfg
-        streams, _, n_frames = out.shape
-        dmel = _dmel_from(g, out, to_db, db_ref, amin)
-        dframes, dfb = ctx.bwd(dmel, reim.reshape(streams * n_frames, -1),
-                               filterbank, fft_length, window, win_length,
-                               need_dx, need_dfb)
-        dx = None
-        if need_dx:
-            # samples past the last full frame get zero gradient
-            full = (n_frames - 1) * hop_length + fft_length
-            dx = _overlap_add(dframes.view(streams, n_frames, fft_length),
-                              fft_length, hop_length, full)
-            dx = F.pad(dx, (0, ctx.n_samples - full))
+        with span("fused_mel.bwd"):
+            need_dx, need_dfb = ctx.needs_input_grad[:2]
+            filterbank, out, reim = ctx.saved_tensors
+            (fft_length, hop_length, window, win_length, to_db, db_ref,
+             amin) = ctx.cfg
+            streams, _, n_frames = out.shape
+            with span("fused_mel.dmel"):
+                dmel = _dmel_from(g, out, to_db, db_ref, amin)
+            with span("fused_mel.bwd_launch"):
+                dframes, dfb = ctx.bwd(
+                    dmel, reim.reshape(streams * n_frames, -1), filterbank,
+                    fft_length, window, win_length, need_dx, need_dfb)
+            dx = None
+            if need_dx:
+                with span("fused_mel.overlap_add"):
+                    # samples past the last full frame get zero gradient
+                    full = (n_frames - 1) * hop_length + fft_length
+                    dx = _overlap_add(
+                        dframes.view(streams, n_frames, fft_length),
+                        fft_length, hop_length, full)
+                    dx = F.pad(dx, (0, ctx.n_samples - full))
         return dx, dfb, None, None, None
 
 
@@ -724,7 +742,8 @@ def _fused_apply(waveform, filterbank, fft_length, hop_length, window,
                                     or filterbank.requires_grad):
         out = _FusedMel.apply(x2, filterbank, cfg, fwd, bwd)
     else:
-        out, _ = fwd(x2, filterbank, *cfg)
+        with span("fused_mel.fwd"):
+            out, _ = fwd(x2, filterbank, *cfg)
     return out.reshape(lead + out.shape[1:])
 
 
@@ -771,30 +790,33 @@ def fused_melspectrogram(waveform: torch.Tensor,
     grad; under ``torch.inference_mode()`` or ``torch.no_grad()`` the
     forward runs without its residual.
     """
-    precision = resolve_precision(precision, fft_length,
-                                  filterbank.shape[-1])
-    if not fused_mel_supported(fft_length, hop_length):
-        raise ValueError(f"unsupported fft_length={fft_length} / "
-                         f"hop_length={hop_length}")
-    n_freqs = fft_length // 2 + 1
-    if filterbank.ndim != 2 or filterbank.shape[0] != n_freqs:
-        raise ValueError(f"filterbank must have {n_freqs} rows, got "
-                         f"{tuple(filterbank.shape)}")
-    if waveform.device != filterbank.device:
-        raise ValueError(f"waveform on {waveform.device} but filterbank on "
-                         f"{filterbank.device}")
-    if center:
-        waveform = _pad_center(waveform, fft_length // 2, pad_mode)
-    n_samples = waveform.shape[-1]
-    if n_samples < fft_length:
-        raise ValueError(f"input too short: {n_samples} < "
-                         f"fft_length={fft_length}")
-    if waveform.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {waveform.device}")
-    if waveform.device.type == "cpu" or power != 2.0:
-        return _reference(waveform, filterbank, fft_length, hop_length,
-                          window, power, to_db, db_ref, amin, win_length)
-    return _fused_apply(waveform.to(torch.float32),
-                        filterbank.to(torch.float32), fft_length,
-                        hop_length, window, win_length, to_db, db_ref, amin,
-                        _fused_mel_fwd_cuda, _fused_mel_bwd_cuda)
+    # the plain chain on the CPU takes no span
+    with (span("fused_mel") if waveform.is_cuda
+          else contextlib.nullcontext()):
+        precision = resolve_precision(precision, fft_length,
+                                      filterbank.shape[-1])
+        if not fused_mel_supported(fft_length, hop_length):
+            raise ValueError(f"unsupported fft_length={fft_length} / "
+                             f"hop_length={hop_length}")
+        n_freqs = fft_length // 2 + 1
+        if filterbank.ndim != 2 or filterbank.shape[0] != n_freqs:
+            raise ValueError(f"filterbank must have {n_freqs} rows, got "
+                             f"{tuple(filterbank.shape)}")
+        if waveform.device != filterbank.device:
+            raise ValueError(f"waveform on {waveform.device} but filterbank "
+                             f"on {filterbank.device}")
+        if center:
+            waveform = _pad_center(waveform, fft_length // 2, pad_mode)
+        n_samples = waveform.shape[-1]
+        if n_samples < fft_length:
+            raise ValueError(f"input too short: {n_samples} < "
+                             f"fft_length={fft_length}")
+        if waveform.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"unsupported device {waveform.device}")
+        if waveform.device.type == "cpu" or power != 2.0:
+            return _reference(waveform, filterbank, fft_length, hop_length,
+                              window, power, to_db, db_ref, amin, win_length)
+        return _fused_apply(waveform.to(torch.float32),
+                            filterbank.to(torch.float32), fft_length,
+                            hop_length, window, win_length, to_db, db_ref,
+                            amin, _fused_mel_fwd_cuda, _fused_mel_bwd_cuda)

@@ -33,8 +33,6 @@ import time
 
 import torch
 
-from ..ops import _launches
-
 __all__ = ["device_loop", "time_device_loop", "time_device_loop_p"]
 
 
@@ -99,6 +97,7 @@ class _Loop:
         else:
             cap.x.copy_(x)
         cap.graph.replay()
+        from ..ops import _launches     # ops imports utils (its spans)
         _launches.add(cap.launches)
         return cap.total.clone()
 
@@ -115,6 +114,7 @@ class _Loop:
             self.f(static)
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
+        from ..ops import _launches
         before = _launches.counts()
         t0 = time.perf_counter()
         try:
