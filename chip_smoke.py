@@ -1196,8 +1196,27 @@ def phase_config2_train(layer, x, g, y, dx, dfb, card: str) -> tuple:
             _check(max(bwd_err) <= GRAD_PARITY and twice,
                    f"{route} backward kernel: {bwd_err}, two runs equal "
                    f"{twice}")
+        # the frame pass's overlap-add epilogue: dx against the plain
+        # chain's frame gradient overlap-added
+        from torchaudio_contrib_tpu_torch.ops.stft import _overlap_add
+        streams, n_frames = out_p.shape[0], out_p.shape[-1]
+        full = (n_frames - 1) * hop + n_fft
+        want_dx = torch.zeros_like(x2)
+        want_dx[:, :full] = _overlap_add(
+            dframes_p.view(streams, n_frames, n_fft), n_fft, hop, full)
+        dx_runs = [fused._fused_mel_bwd_cuda(
+            dmel, reim2, *bargs, True, False, dx=torch.empty_like(x2),
+            hop_length=hop)[0] for _ in range(2)]
+        torch.cuda.synchronize()
+        dx_err = _rel(dx_runs[0], want_dx)
+        dx_twice = torch.equal(dx_runs[0], dx_runs[1])
+        print(f"frame pass writing dx at config 2 vs the plain frame "
+              f"gradient overlap-added: {dx_err:.3e}, two runs bitwise "
+              f"equal: {dx_twice}", flush=True)
+        _check(dx_err <= GRAD_PARITY and dx_twice,
+               f"frame pass with dx: {dx_err}, two runs equal {dx_twice}")
         del out, reim, out_serve, runs, dframes, dframes_2, dframes_s, reim_s
-        del dframes_p, out_p
+        del dframes_p, out_p, want_dx, dx_runs
     fwd_abs, bwd_abs = stats["fft"]
 
     xg = x.detach().requires_grad_()

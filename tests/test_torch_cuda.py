@@ -301,6 +301,115 @@ def test_route_counters(cuda_device, fft, takes_fft):
                 None, True, 1.0, 1e-7, _route="fft")
 
 
+# ---- the frame pass's overlap-add epilogue: dx written by B2 ----------------
+
+# fft, hop: every size of the FFT route at a quarter, a half and a whole
+# frame's hop, a hop that does not divide the frame, the smallest hop the
+# epilogue takes (fft / 17)
+DX_CASES = [(n, n // d) for n in (256, 512, 1024, 2048) for d in (4, 2, 1)]
+DX_CASES += [(1024, 300), (2048, 121)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streams", [1, 33])
+@pytest.mark.parametrize("fft,hop", DX_CASES)
+def test_frame_pass_overlap_adds_dx(cuda_device, fft, hop, streams):
+    """The frame pass with ``dx`` against ``_overlap_add`` of the plain
+    frame gradient (1e-4 of peak) and of the kernel's own (1e-5): 37
+    frames a stream, so two tiles of 16 and a partial one; samples past
+    the last full frame, exactly zero; ``dx`` written whole (it starts as
+    NaN) and bitwise equal over two runs; ``BWD_DX_FUSED_LAUNCHES`` one a
+    launch."""
+    from torchaudio_contrib_tpu_torch.ops.stft import _overlap_add
+    n_frames, mels = 37, 40
+    full = (n_frames - 1) * hop + fft
+    n_samples = full + hop // 2 + 1
+    x, fb = _inputs(fft + hop, (streams, n_samples), mels, 16000, fft)
+    x, fb = x.to(cuda_device), fb.to(cuda_device)
+    _, reim = tfused._fused_mel_fwd_cuda(x, fb, fft, hop, "hann", None, True,
+                                         1.0, 1e-7, save_spec=True)
+    rows = streams * n_frames
+    reim2 = reim.reshape(rows, -1)
+    dmel = torch.from_numpy(np.random.default_rng(hop).standard_normal(
+        (rows, 64)).astype(np.float32)).to(cuda_device)
+    dmel[:, mels:] = 0.0
+    bargs = (fb, fft, "hann", None, True, False)
+    wants = [_overlap_add(frames.view(streams, n_frames, fft), fft, hop, full)
+             for frames in (tfused._bwd_plain(dmel, reim2, *bargs)[0],
+                            tfused._fused_mel_bwd_cuda(dmel, reim2,
+                                                       *bargs)[0])]
+    before = tfused.BWD_DX_FUSED_LAUNCHES
+    runs = []
+    for _ in range(2):
+        dx = torch.full((streams, n_samples), float("nan"),
+                        device=cuda_device)
+        got, dfb = tfused._fused_mel_bwd_cuda(dmel, reim2, *bargs, dx=dx,
+                                              hop_length=hop)
+        assert got is dx and dfb is None
+        runs.append(got)
+    torch.cuda.synchronize()
+    assert tfused.BWD_DX_FUSED_LAUNCHES == before + 2
+    dx, dx2 = runs
+    assert torch.equal(dx, dx2)
+    assert not dx[:, full:].any()
+    assert _peak_err(dx[:, :full], wants[0]) <= GRAD_PARITY
+    assert _peak_err(dx[:, :full], wants[1]) <= PARITY
+
+
+@pytest.mark.cuda
+def test_frame_pass_refuses_dx_outside_its_rule(cuda_device):
+    """``dx`` is taken only on the FFT route at a hop from fft / 17 to
+    fft, for frames that are the rows, and with the waveform gradient
+    asked for."""
+    fb = tops.create_mel_filter(32, 16000, 0.0, None, 513,
+                                device=cuda_device)
+    dmel = torch.zeros((10, 64), device=cuda_device)
+    reim = torch.zeros((10, 9 * 128), device=cuda_device)
+    dx = torch.empty((2, 1024 + 4 * 256), device=cuda_device)
+    bargs = (fb, 1024, "hann", None)
+    for hop, route, need_dx, what in ((60, None, True, "overlap-adds"),
+                                      (1025, None, True, "overlap-adds"),
+                                      (256, "dft", True, "overlap-adds"),
+                                      (256, None, False, "overlap-adds"),
+                                      (200, None, True, "rows")):
+        with pytest.raises(ValueError, match=what):
+            tfused._fused_mel_bwd_cuda(dmel, reim, *bargs, need_dx, True,
+                                       _route=route, dx=dx, hop_length=hop)
+
+
+# fft, hop, whether the frame pass writes dx: both edges of the hop rule,
+# the DFT route
+DX_RULE = [(1024, 256, True), (1024, 1024, True), (1024, 1100, False),
+           (1024, 61, True), (1024, 60, False), (2048, 121, True),
+           (2048, 120, False), (400, 160, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need", [(True, True), (True, False), (False, True)])
+@pytest.mark.parametrize("fft,hop,fused", DX_RULE)
+def test_dx_epilogue_where_the_rule_says(cuda_device, fft, hop, fused, need):
+    """Gradients through the op on the card: ``BWD_DX_FUSED_LAUNCHES``
+    moves by one a backward where the rule holds and the waveform gradient
+    is asked for, by none otherwise (the filterbank gradient alone, the
+    DFT route, a hop outside the rule); every gradient within 1e-4 of
+    peak of autograd of the plain chain on the CPU."""
+    x, fb = _inputs(fft + hop, (2, 1, 20 * hop + fft + 7), 48, 16000, fft)
+    with torch.no_grad():
+        out = tops.fused_melspectrogram(x, fb, fft, hop)
+    g = torch.from_numpy(np.random.default_rng(fft).standard_normal(
+        tuple(out.shape)).astype(np.float32))
+    _, want_dx, want_dfb = _grads(x, fb, fft, hop, g, need=need)
+    before = tfused.BWD_DX_FUSED_LAUNCHES
+    _, dx, dfb = _grads(x.to(cuda_device), fb.to(cuda_device), fft, hop,
+                        g.to(cuda_device), need=need)
+    torch.cuda.synchronize()
+    assert tfused.BWD_DX_FUSED_LAUNCHES - before == int(fused and need[0])
+    for got, want in ((dx, want_dx), (dfb, want_dfb)):
+        assert (got is None) == (want is None)
+        if got is not None:
+            assert _peak_err(got.cpu(), want) <= GRAD_PARITY
+
+
 # ---- fused Griffin-Lim: the solve's kernels vs their plain version ---------
 
 # fft, hop, samples, window, center: the JAX package's four eligible

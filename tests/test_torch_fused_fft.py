@@ -20,6 +20,8 @@ transform, the residual in the same tile layout.  Here they are held
 The kernels themselves are held against these versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -359,6 +361,87 @@ def test_routing_rule(fft, takes_fft):
             tfused._route_for(fft, "fft")
     with pytest.raises(ValueError, match="unknown route"):
         tfused._route_for(fft, "cufft")
+
+
+@pytest.mark.parametrize("fft,hop,fusable", [
+    (2048, 512, True), (2048, 2048, True), (2048, 2049, False),
+    (2048, 121, True), (2048, 120, False), (256, 16, True), (256, 15, False),
+    (1024, 300, True), (400, 160, False), (128, 32, False),
+    (4096, 1024, False)])
+def test_dx_rule(fft, hop, fusable):
+    """The frame pass overlap-adds itself on the FFT route at a hop from
+    fft / 17 to fft; the DFT route and every other hop keep
+    ``_overlap_add``.  Only the CUDA wrapper on a card's tensor takes it:
+    never a plain version, the wrapper bound to a route, or a CPU
+    tensor."""
+    assert tfused._dx_fusable(fft, hop) is fusable
+    cpu = torch.zeros(1)
+    for bwd in (tfused._fused_mel_bwd_cuda, tfused._bwd_plain,
+                tfused._bwd_fft_plain,
+                functools.partial(tfused._fused_mel_bwd_cuda, _route="fft")):
+        assert not tfused._dx_in_kernel(bwd, cpu, fft, hop)
+
+
+@pytest.mark.parametrize("fft,hop,fused", [
+    (512, 128, True), (2048, 512, True), (256, 100, True),
+    (400, 160, False), (512, 600, False), (2048, 100, False)])
+def test_backward_hands_the_overlap_add_to_the_frame_pass(rng, monkeypatch,
+                                                          fft, hop, fused):
+    """Where :func:`_dx_in_kernel` holds, ``_FusedMel``'s backward asks
+    ``bwd`` for ``dx`` (and the hop) and runs no ``_overlap_add``; else it
+    asks for the frame gradient and overlap-adds it.  Here the rule is
+    taken from the shape alone (a CPU tensor never takes it), and a stand-in
+    for the CUDA wrapper fills ``dx`` from the plain frame gradient: both
+    paths give the chain's gradients, for a waveform with samples past the
+    last full frame."""
+    asked, added = [], []
+    plain_ola = tfused._overlap_add
+
+    def ola(*args):
+        added.append(args[1:3])
+        return plain_ola(*args)
+
+    def bwd(*args, dx=None, hop_length=None):
+        asked.append(hop_length)
+        frames, dfb = tfused._bwd_plain(*args)
+        if dx is not None:
+            streams, n = dx.shape
+            full = n - (n - fft) % hop_length
+            dx.zero_()[:, :full] = plain_ola(frames.view(streams, -1, fft),
+                                             fft, hop_length, full)
+            frames = dx
+        return frames, dfb
+
+    monkeypatch.setattr(tfused, "_overlap_add", ola)
+    monkeypatch.setattr(tfused, "_dx_in_kernel",
+                        lambda b, g, f, h: b is bwd and tfused._dx_fusable(f, h))
+    mels, n = 32, 3 * fft + 5 * hop + hop // 3
+    x = rng.standard_normal((2, n)).astype(np.float32)
+    fb = tops.create_mel_filter(mels, 16000, 0.0, None, fft // 2 + 1)
+    g = torch.from_numpy(rng.standard_normal(
+        (2, mels, 1 + (n - fft) // hop)).astype(np.float32))
+    grads = []
+    for path in ("kernel", "chain"):
+        xt = torch.from_numpy(x).requires_grad_()
+        fbt = fb.clone().requires_grad_()
+        out = (tfused._fused_apply(xt, fbt, fft, hop, "hann", None, True, 1.0,
+                                   1e-7, tfused._fwd_res_plain, bwd)
+               if path == "kernel" else
+               tfused._reference(xt, fbt, fft, hop, "hann", 2.0, True, 1.0,
+                                 1e-7))
+        (out * g).sum().backward()
+        grads.append((xt.grad, fbt.grad))
+    assert asked == [hop if fused else None]
+    assert added == ([] if fused else [(fft, hop)])
+    for got, want in zip(*grads):
+        assert _rel(got, want) <= GRAD_TOL
+
+
+def test_dx_counter_is_a_launch_counter():
+    """``BWD_DX_FUSED_LAUNCHES`` is one of the counters a graph replay
+    moves."""
+    from torchaudio_contrib_tpu_torch.ops import _launches
+    assert "fused.BWD_DX_FUSED_LAUNCHES" in _launches.counts()
 
 
 def test_wrappers_refuse_cpu_tensors_on_both_routes():

@@ -13,7 +13,8 @@
 //
 // with the windowed onesided DFT basis of the forward.  Rows are (stream,
 // frame) pairs, frame fastest; the host overlap-adds dframes onto the
-// waveform.
+// waveform, or, on the FFT route at hops from fft_length / (FR + 1) to
+// fft_length, the kernel does: see dframes_fft_kernel.
 //
 // The frame gradient is the transpose of the forward's windowed real
 // transform.  With G_k = dre_k + i dim_k,
@@ -34,7 +35,9 @@
 //     2048, 128 mels) and the FFT's shared-memory traffic; its bytes (the
 //     residual read and dframes written once, 0.70 GB) are below both.
 //     The last pass leaves each thread with sample pairs, which go
-//     straight to device memory, coalesced.
+//     straight to device memory, coalesced, or (the waveform-gradient
+//     epilogue) are overlap-added in shared memory into dx, so that the
+//     frame gradient never reaches device memory.
 //   * dreim_kernel (pass A) and dframes_kernel (pass B), for every other
 //     size.  The TPU kernel recomputed dp for every tile of the dframes
 //     output; a Hopper block cannot hold a (64 frames, fft) dframes tile
@@ -300,31 +303,119 @@ dframes_kernel(const float* __restrict__ dreim, const float* __restrict__ basis,
 
 
 // The frame passes of the FFT route in one kernel: dp as pass A forms it,
-// dreim in registers, the inverse FFT of pass B.  One block per FR rows.
-//   * dp[f, k] = sum_m dmel[f, m] * fbt[m, k] for the block's rows stays in
+// dreim in registers, the inverse FFT of pass B.  One block per tile of FR
+// consecutive frames of one stream (`frames` a stream, `tiles` a stream;
+// the stream's last tile may be partial).
+//   * dp[f, k] = sum_m dmel[f, m] * fbt[m, k] for the tile's rows stays in
 //     shared memory, (FR, bins padded).  Each warp owns 32 * BPL of the N / 2
 //     bins below Nyquist and a lane BPL of them for all FR rows in registers;
 //     it reads the transposed filterbank as one coalesced row per mel and
 //     dmel, staged mel-major in shared memory, as broadcast 16-byte loads.
 //     The Nyquist bin is summed by all threads, 1 / 16 of the mels each, and
 //     added up in a fixed order.
-//   * Then, FR rows in rounds of 4096 / N: Y_k = (re_k, im_k) * dp_k from the
-//     residual (G_k / 2 with G = [2 re dp, 2 im dp]; Re G_k at k = 0 and N /
-//     2), the inverse transform, the window, and dframes.
+//   * Then, FR rows in rounds of G = 4096 / N: Y_k = (re_k, im_k) * dp_k from
+//     the residual (G_k / 2 with G = [2 re dp, 2 im dp]; Re G_k at k = 0 and
+//     N / 2), the inverse transform and the window.  Rounds past the tile's
+//     last frame are skipped.
+//   * The epilogue, OLA false: the windowed frames go to dframes (rows, N),
+//     the caller passes the rows as one stream.
+//   * OLA true: the frames are overlap-added onto out = dx (streams,
+//     n_samples), tile-local sample s = f * hop + n.  A round's G frames are
+//     staged in their own parts of `work`; then each thread sums, for its
+//     samples of the round's span (G - 1) * hop + N, what the round before
+//     left of them and the round's frames, in a fixed order (ola_round).
+//     A sample that no later frame of the tile reaches (below the next
+//     round's first frame, or all of them in the tile's last round) goes to
+//     dx; the rest stays in `ring`, a circular buffer of one span (sample s
+//     at s mod span), for the next round.  With hop >= N / (FR + 1) the first and the last N -
+//     hop samples of a tile are each shared with one neighbouring tile of
+//     the stream and with no other: those go to dx by a float atomic add
+//     onto the zeros that the launch set first, two partial sums each, so
+//     the result is the same whichever lands first; every other sample is
+//     stored once.  Samples past the last frame are not written.
 // dmel (rows, m_pad); reim (rows, ldr) with ldr = 2 * (N / 2 + FBT); fbt
 // (m_pad, N / 2 + FBT) the filterbank transposed, zero padded; window (N);
-// twiddle: the N pairs of fft_smem.cuh's twiddle table; dframes (rows, N).
-constexpr int FR = 16;          // rows per block of the fused frame passes
+// twiddle: the N pairs of fft_smem.cuh's twiddle table.
+constexpr int FR = 16;          // frames per block of the fused frame passes
 constexpr int DM = 128;         // mels staged per step
 
-template <int N>
+// Loads W consecutive floats (W = 2: 8-byte aligned).
+template <int W>
+__device__ __forceinline__ void ld_w(float (&v)[W], const float* p) {
+    if constexpr (W == 2) {
+        const float2 t = *reinterpret_cast<const float2*>(p);
+        v[0] = t.x;
+        v[1] = t.y;
+    } else {
+        v[0] = *p;
+    }
+}
+
+// One round of dframes_fft_kernel's overlap-add epilogue, in samples of
+// the round's span from its first, `base` samples into the tile.
+struct OlaRound {
+    int ring0;      // where the span starts in the ring
+    int span;       // (G - 1) * hop + N, the ring's length
+    int carried;    // samples below this add what the ring holds of them
+    int settled;    // samples from this go back to the ring, the rest to dx
+    int end;        // samples from this are past the tile's last frame
+    int count;      // the round's frames
+    int base;
+    int hop;
+};
+
+// After the round's frames are staged (frame q's sample n at float 2
+// padded(q M + n / 2) + n % 2 of `staged`), the thread sums samples k ..
+// k + W - 1 of the span for k = W tid, W (tid + FFT_THREADS), ...: W = 2
+// with an even hop, where a pair lies whole in every frame, in the carried
+// part, in a seam and in the settled part.  `dxt` is the tile's first
+// sample of dx; `lead` / `trail`: the tile shares its first / last N - hop
+// samples with a neighbour.
+template <int N, int W>
+__device__ __forceinline__ void ola_round(const float* __restrict__ staged,
+                                          float* ring, float* dxt,
+                                          const OlaRound& r, bool lead,
+                                          bool trail) {
+    constexpr int M = N / 2;
+    const float inv_hop = 1.f / (float)r.hop;
+    for (int k = W * threadIdx.x; k < r.end; k += W * tacfft::FFT_THREADS) {
+        int slot = r.ring0 + k;
+        if (slot >= r.span) slot -= r.span;
+        float sum[W] = {};
+        if (k < r.carried) ld_w<W>(sum, ring + slot);
+        // frames q <= k / hop reach k while k - q * hop < N; the last first
+        int q = min(r.count - 1, (int)(((float)k + 0.5f) * inv_hop));
+        for (int n = k - q * r.hop; q >= 0 && n < N; --q, n += r.hop) {
+            float t[W];
+            ld_w<W>(t, staged + 2 * tacfft::padded(q * M + (n >> 1)) + (n & 1));
+#pragma unroll
+            for (int w = 0; w < W; ++w) sum[w] += t[w];
+        }
+        if (k >= r.settled) {
+#pragma unroll
+            for (int w = 0; w < W; ++w) ring[slot + w] = sum[w];
+            continue;
+        }
+        const int s = r.base + k;
+        if ((lead && s < N - r.hop) || (trail && s >= FR * r.hop)) {
+#pragma unroll
+            for (int w = 0; w < W; ++w) atomicAdd(dxt + s + w, sum[w]);
+        } else {
+#pragma unroll
+            for (int w = 0; w < W; ++w) dxt[s + w] = sum[w];
+        }
+    }
+}
+
+template <int N, bool OLA>
 __global__ void __launch_bounds__(tacfft::FFT_THREADS, 2)
 dframes_fft_kernel(const float* __restrict__ dmel,
                    const float* __restrict__ reim,
                    const float* __restrict__ fbt,
                    const float* __restrict__ window,
                    const float2* __restrict__ twiddle,
-                   float* __restrict__ dframes, int rows, int m_pad) {
+                   float* __restrict__ out, int frames, int tiles, int m_pad,
+                   int hop, int n_samples) {
     using namespace tacfft;
     constexpr int M = N / 2;
     constexpr int TPF = M / POINTS;
@@ -334,23 +425,28 @@ dframes_fft_kernel(const float* __restrict__ dmel,
     constexpr int WARPS = FFT_THREADS / 32;
     constexpr int BPL = M / (32 * WARPS) > 0 ? M / (32 * WARPS) : 1;
     constexpr int TASKS = M / (32 * BPL);        // warps with bins to sum
-    static_assert(G <= FR && FR * DM + FFT_THREADS <= 2 * WORK_POINTS,
+    static_assert(G <= FR && FR % G == 0
+                  && FR * DM + FFT_THREADS <= 2 * WORK_POINTS,
                   "a round's rows fit the block; dmel is staged in `work`");
     extern __shared__ __align__(16) float smem[];
     float2* work = reinterpret_cast<float2*>(smem);      // (WORK_POINTS)
     float2* tw_s = work + WORK_POINTS;                   // (N)
     float* dp_s = reinterpret_cast<float*>(tw_s + N);    // (FR, KP)
+    float* ring = dp_s + FR * KP;        // (span) OLA: the sums carried on
     float* dm_s = smem;                  // (DM, FR) dmel, mel-major; in `work`
     float* ny_s = dm_s + FR * DM;        // (16, FR) partial sums of bin M
 
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
-    const long long r0 = (long long)blockIdx.x * FR;
+    const int tile = blockIdx.x % tiles;
+    const long long stream = blockIdx.x / tiles;
+    const int nf = min(FR, frames - tile * FR);          // the tile's frames
+    const long long r0 = stream * frames + (long long)tile * FR;
 
     load_twiddles<N>(tw_s, twiddle);
 
-    // dp for the block's rows
+    // dp for the tile's rows
     float acc[FR][BPL];
 #pragma unroll
     for (int f = 0; f < FR; ++f)
@@ -364,8 +460,7 @@ dframes_fft_kernel(const float* __restrict__ dmel,
         for (int idx = tid; idx < FR * width; idx += FFT_THREADS) {
             const int f = idx / width;
             const int m = idx % width;
-            dm_s[m * FR + f] = r0 + f < rows
-                ? dmel[(r0 + f) * m_pad + mc + m] : 0.f;
+            dm_s[m * FR + f] = f < nf ? dmel[(r0 + f) * m_pad + mc + m] : 0.f;
         }
         __syncthreads();
         if (warp < TASKS) {
@@ -422,11 +517,14 @@ dframes_fft_kernel(const float* __restrict__ dmel,
 
     const int g = tid / TPF;
     const int j = tid % TPF;
-    for (int round = 0; round < FR / G; ++round) {
+    // OLA: the samples a round's frames cover, and where the ring starts
+    const int span = (G - 1) * hop + N;
+    int ring0 = 0;
+    float* dxt = out + stream * n_samples + (long long)tile * FR * hop;
+    for (int round = 0; round * G < nf; ++round) {
         const int f = round * G + g;
-        const long long row = r0 + f;
-        const bool ok = row < rows;
-        const float* re = reim + row * LDR;
+        const bool ok = f < nf;
+        const float* re = reim + (r0 + f) * LDR;
         const float* dp = dp_s + f * KP;
         float2 v[POINTS];
 #pragma unroll
@@ -445,34 +543,67 @@ dframes_fft_kernel(const float* __restrict__ dmel,
             }
             v[m] = hermitian_point(yk, yn, tw_s[k]);
         }
+        // OLA: the round before has read its staged frames; waiting here
+        // lets this round's residual loads overlap that
+        if (OLA && round > 0) __syncthreads();
         fft_block<M, true>(v, work, tw_s + M, g, j);
-        if (!ok) continue;
-        float* out = dframes + row * N;
+        if constexpr (!OLA) {
+            if (!ok) continue;
+            float* dst = out + (r0 + f) * N;
 #pragma unroll
-        for (int m = 0; m < POINTS; ++m) {
-            const int n = 2 * (j + m * TPF);
-            const float2 w = *reinterpret_cast<const float2*>(window + n);
-            *reinterpret_cast<float2*>(out + n) =
-                make_float2(w.x * v[m].x, w.y * v[m].y);
+            for (int m = 0; m < POINTS; ++m) {
+                const int n = 2 * (j + m * TPF);
+                const float2 w = *reinterpret_cast<const float2*>(window + n);
+                *reinterpret_cast<float2*>(dst + n) =
+                    make_float2(w.x * v[m].x, w.y * v[m].y);
+            }
+        } else {
+            // the transform's own part of `work` is free again: stage the
+            // windowed frame there, sample n at float 2 padded(g M + n / 2)
+            // + n % 2
+#pragma unroll
+            for (int m = 0; m < POINTS; ++m) {
+                const int n = 2 * (j + m * TPF);
+                const float2 w = *reinterpret_cast<const float2*>(window + n);
+                work[padded(g * M + n / 2)] =
+                    make_float2(w.x * v[m].x, w.y * v[m].y);
+            }
+            __syncthreads();                 // the round's frames are staged
+            const int base = round * G * hop;            // tile-local
+            const bool last = (round + 1) * G >= nf;
+            const OlaRound r = {ring0, span, round > 0 ? N - hop : 0,
+                                last ? span : G * hop,
+                                min(span, (nf - 1) * hop + N - base),
+                                min(G, nf - round * G), base, hop};
+            const float* staged = reinterpret_cast<const float*>(work);
+            if (hop % 2 == 0)
+                ola_round<N, 2>(staged, ring, dxt, r, tile > 0, tile + 1 < tiles);
+            else
+                ola_round<N, 1>(staged, ring, dxt, r, tile > 0, tile + 1 < tiles);
+            ring0 += G * hop;
+            if (ring0 >= span) ring0 -= span;
         }
     }
 }
 
-template <int N>
+template <int N, bool OLA>
 cudaError_t launch_dframes_fft(const float* dmel, const float* reim,
                                const float* fbt, const float* window,
-                               const float* twiddle, float* dframes, int rows,
-                               int m_pad, cudaStream_t st) {
-    const size_t smem = sizeof(float2) * (tacfft::WORK_POINTS + N)
-                        + sizeof(float) * FR * (N / 2 + FBT);
+                               const float* twiddle, float* out, int streams,
+                               int frames, int m_pad, int hop, int n_samples,
+                               cudaStream_t st) {
+    const int tiles = (frames + FR - 1) / FR;
+    size_t smem = sizeof(float2) * (tacfft::WORK_POINTS + N)
+                  + sizeof(float) * FR * (N / 2 + FBT);
+    if (OLA) smem += sizeof(float) * ((tacfft::ROUND_POINTS / (N / 2) - 1) * hop + N);
     cudaError_t err = cudaFuncSetAttribute(
-        dframes_fft_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        dframes_fft_kernel<N, OLA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
-    dframes_fft_kernel<N><<<(unsigned)((rows + FR - 1) / FR),
-                            tacfft::FFT_THREADS, smem, st>>>(
+    dframes_fft_kernel<N, OLA><<<(unsigned)((long long)streams * tiles),
+                                 tacfft::FFT_THREADS, smem, st>>>(
         dmel, reim, fbt, window, reinterpret_cast<const float2*>(twiddle),
-        dframes, rows, m_pad);
+        out, frames, tiles, m_pad, hop, n_samples);
     return cudaGetLastError();
 }
 
@@ -494,14 +625,22 @@ extern "C" {
 //     twiddle table, `fbt` (m_pad, f_pad) the transposed filterbank; `basis`
 //     and `dreim` are then not used.  Otherwise they are pass A and the
 //     product with `basis`.
+//   dx (streams, n_samples) or null, with dframes null and `twiddle` given:
+//     the waveform gradient, the frame gradient overlap-added in that
+//     kernel (dframes_fft_kernel<N, true>).  The rows are `streams` streams
+//     of n_frames = 1 + (n_samples - fft_length) / hop_length frames each,
+//     fft_length / (FR + 1) <= hop_length <= fft_length; dx is set to zero
+//     first (a memset on `stream`), so samples past the last frame are 0.
 int tac_fused_mel_bwd(const float* dmel, const float* reim, const float* fb,
                       const float* fbt, const float* basis,
                       const float* window, const float* twiddle, float* dreim,
-                      float* dframes, float* dfb, float* dfb_part, int rows,
-                      int fft_length, int k_pad, int ft_count, int m_pad,
-                      int n_splits, int rows_per_split, void* stream) {
+                      float* dframes, float* dx, float* dfb, float* dfb_part,
+                      int rows, int fft_length, int k_pad, int ft_count,
+                      int m_pad, int n_splits, int rows_per_split,
+                      int hop_length, int n_samples, void* stream) {
     if (rows <= 0) return 0;
-    if (m_pad <= 0 || m_pad % MC != 0 || ft_count <= 0 || fft_length < 2)
+    if (m_pad <= 0 || m_pad % MC != 0 || ft_count <= 0 || fft_length < 2
+        || (dx && dframes))
         return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
     const int ldr = ft_count * 2 * FBT;
@@ -523,15 +662,32 @@ int tac_fused_mel_bwd(const float* dmel, const float* reim, const float* fb,
             if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
         }
     }
-    if (dframes && twiddle) {
+    if ((dframes || dx) && twiddle) {
         if (!(fbt && window && fft_length % 2 == 0
               && tacfft::fft_size_ok(fft_length / 2)
               && ft_count == fft_length / (2 * FBT) + 1))
             return (int)cudaErrorInvalidValue;
+        int streams = 1, frames = rows;
+        if (dx) {
+            if (!(hop_length <= fft_length
+                  && (long long)(FR + 1) * hop_length >= fft_length
+                  && n_samples >= fft_length))
+                return (int)cudaErrorInvalidValue;
+            frames = 1 + (n_samples - fft_length) / hop_length;
+            streams = rows / frames;
+            if (rows % frames != 0) return (int)cudaErrorInvalidValue;
+            err = cudaMemsetAsync(dx, 0, sizeof(float) * streams * (size_t)n_samples, st);
+            if (err != cudaSuccess) return (int)err;
+        }
 #define TAC_FFT_CASE(n)                                                       \
     case n:                                                                   \
-        err = launch_dframes_fft<n>(dmel, reim, fbt, window, twiddle,         \
-                                    dframes, rows, m_pad, st);                \
+        err = dx ? launch_dframes_fft<n, true>(dmel, reim, fbt, window,       \
+                                               twiddle, dx, streams, frames,  \
+                                               m_pad, hop_length, n_samples,  \
+                                               st)                            \
+                 : launch_dframes_fft<n, false>(dmel, reim, fbt, window,      \
+                                                twiddle, dframes, 1, rows,    \
+                                                m_pad, 0, 0, st);             \
         break
         switch (fft_length) {
             TAC_FFT_CASE(256);
@@ -552,6 +708,8 @@ int tac_fused_mel_bwd(const float* dmel, const float* reim, const float* fb,
         dframes_kernel<<<dim3(row_blocks, (fft_length + NB - 1) / NB), THREADS, 0, st>>>(
             dreim, basis, dframes, rows, fft_length, k_pad, ldr);
         if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    } else if (dx) {
+        return (int)cudaErrorInvalidValue;
     }
     return 0;
 }
@@ -563,6 +721,7 @@ int tac_fused_mel_bwd_tile(int which) {
         case 1: return FBT;
         case 2: return KC;
         case 3: return MC;
+        case 4: return FR;
         default: return -1;
     }
 }

@@ -76,8 +76,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tac_fused_mel_fft_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
                                           i, i, f, f, p]
     lib.tac_fused_mel_fft_fwd.restype = i
-    lib.tac_fused_mel_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i,
-                                      i, i, i, i, i, p]
+    lib.tac_fused_mel_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i,
+                                      i, i, i, i, i, i, i, i, p]
     lib.tac_fused_mel_bwd.restype = i
     lib.tac_fused_gl_solve.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
                                        i, i, i, i, f, i, p]

@@ -23,6 +23,11 @@ re/im residual output and, in the backward, the dB gate, the backward
 kernels of ``csrc/fused_mel_bwd.cu`` (whose frame-gradient passes are one
 kernel around the inverse FFT on the first route, two passes around the
 transposed product on the second) and the overlap-add onto the waveform.
+On the first route, at a hop from ``fft_length/17`` to ``fft_length``
+(:func:`_dx_fusable`), the frame pass does the overlap-add itself and
+writes the waveform gradient: the frame gradient never reaches device
+memory.  Every other case overlap-adds the kernel's frame gradient with
+``stft._overlap_add``.
 On a CPU tensor it runs :func:`_reference`, the plain PyTorch chain the
 kernels compute, with autograd.  So does a call with ``power != 2`` on any
 device, as in the JAX package (its ``_kernel_eligible``): the rule is read
@@ -39,7 +44,9 @@ The kernels put the stream (clip) index on a grid dimension of at most
 backward launches that also ran the frame gradient passes;
 ``FFT_KERNEL_LAUNCHES`` and ``BWD_FFT_LAUNCHES`` count those of the
 forward and of the frame passes that took the FFT route (and nothing
-else), so a run can show which kernels it went through.
+else), and ``BWD_DX_FUSED_LAUNCHES`` those frame passes that wrote the
+waveform gradient themselves, so a run can show which kernels it went
+through.
 
 On a CUDA tensor the op marks its parts for a recording ``torch.profiler``
 (``tac::fused_mel``, ``tac::fused_mel.fwd``, ``tac::fused_mel.bwd`` with
@@ -74,6 +81,7 @@ BWD_KERNEL_LAUNCHES = 0
 BWD_DFRAMES_LAUNCHES = 0
 FFT_KERNEL_LAUNCHES = 0
 BWD_FFT_LAUNCHES = 0
+BWD_DX_FUSED_LAUNCHES = 0
 
 _PRECISIONS = ("fast", "split3", "split6")
 
@@ -94,6 +102,10 @@ _DFB_BLOCKS = 264   # the dFB pass splits the rows to fill ~2 waves of SMs
 _FFT_MIN = 256
 _FFT_MAX = 2048
 _FFT_RADIX = 8
+# frames per block of the backward's FFT frame pass: its overlap-add
+# epilogue needs a hop of at least fft_length / (_DX_FRAMES + 1), so that
+# a tile's edges are shared with its two neighbours and no other tile
+_DX_FRAMES = 16
 
 _LN10_INV_10 = 10.0 / math.log(10.0)   # d(dB)/d(mel) = this / mel
 _DB_TO_LIN = math.log(10.0) / 10.0     # mel = ref·exp(dB·this)
@@ -134,6 +146,15 @@ def _fft_kernel_supported(fft_length: int) -> bool:
     256 to 2048.  Every other size takes the DFT-product kernels."""
     return (_FFT_MIN <= fft_length <= _FFT_MAX
             and fft_length & (fft_length - 1) == 0)
+
+
+def _dx_fusable(fft_length: int, hop_length: int) -> bool:
+    """True when the backward's frame pass can overlap-add the frame
+    gradient itself: the FFT route, and ``fft_length/(_DX_FRAMES + 1) ≤
+    hop_length ≤ fft_length``."""
+    return (_fft_kernel_supported(fft_length)
+            and fft_length <= (_DX_FRAMES + 1) * hop_length
+            and hop_length <= fft_length)
 
 
 def _route_for(fft_length: int, route) -> str:
@@ -285,8 +306,9 @@ def _kernel_lib():
                         (lib.tac_fused_mel_fft_tile,
                          (_FFT_MIN, _FFT_MAX, _FREQ_TILE, _MEL_TILE)),
                         (lib.tac_fused_mel_bwd_tile,
-                         (_FRAME_TILE, _FREQ_TILE, _K_TILE, _MEL_TILE))):
-        tiles = tuple(query(i) for i in range(4))
+                         (_FRAME_TILE, _FREQ_TILE, _K_TILE, _MEL_TILE,
+                          _DX_FRAMES))):
+        tiles = tuple(query(i) for i in range(len(want)))
         if tiles != want:
             raise RuntimeError(f"kernel tiles {tiles} do not match the host "
                                f"layout {want}")
@@ -584,15 +606,24 @@ def _dfb_splits(rows: int, tiles: int):
 
 
 def _fused_mel_bwd_cuda(dmel, reim, filterbank, fft_length, window,
-                        win_length, need_dx, need_dfb, _route=None):
+                        win_length, need_dx, need_dfb, _route=None, dx=None,
+                        hop_length=None):
     """Launch the backward kernel; arguments and results as
     :func:`_bwd_plain`.  The frame-gradient passes run only when
     ``need_dx``: as one kernel around an inverse FFT when
     :func:`_fft_kernel_supported` (``dreim`` stays in registers), else as
     pass A and the product with the basis (``_route`` names one of the
     two).  The filterbank-gradient pass runs only when ``need_dfb``.
-    Raises on any input it does not take."""
+
+    With ``dx``, a contiguous float32 ``(streams, n_samples)`` tensor on
+    the card, and ``hop_length`` (:func:`_dx_fusable`, FFT route only), the
+    frame pass overlap-adds the frame gradient onto the waveform itself:
+    the rows are ``streams`` streams of ``1 + (n_samples − fft)//hop``
+    frames, ``dx`` is written whole (zero past the last frame) and
+    returned in place of ``dframes``.  Raises on any input it does not
+    take."""
     global BWD_KERNEL_LAUNCHES, BWD_DFRAMES_LAUNCHES, BWD_FFT_LAUNCHES
+    global BWD_DX_FUSED_LAUNCHES
     route = _route_for(fft_length, _route)
     for name, t in (("dmel", dmel), ("reim", reim)):
         if not (t.is_cuda and t.dtype == torch.float32 and t.ndim == 2
@@ -616,12 +647,33 @@ def _fused_mel_bwd_cuda(dmel, reim, filterbank, fft_length, window,
         raise ValueError(f"dmel {tuple(dmel.shape)} / reim "
                          f"{tuple(reim.shape)} do not fit {num_mels} mels "
                          f"and {ft_count} frequency tiles")
+    n_samples = hop = 0     # read by the library only with dx
+    if dx is not None:
+        if not (need_dx and route == "fft"
+                and _dx_fusable(fft_length, hop_length)):
+            raise ValueError(f"the frame pass overlap-adds in the kernel "
+                             f"only on the FFT route at a hop from "
+                             f"fft_length/{_DX_FRAMES + 1} to fft_length, "
+                             f"not fft_length={fft_length}, hop_length="
+                             f"{hop_length}, route {route!r}")
+        hop, n_samples = hop_length, dx.shape[-1] if dx.ndim else 0
+        if not (dx.ndim == 2 and dx.is_cuda and dx.device == dmel.device
+                and dx.dtype == torch.float32 and dx.is_contiguous()
+                and fft_length <= n_samples < 2 ** 31
+                and dx.shape[0] * (1 + (n_samples - fft_length) // hop)
+                == rows):
+            raise ValueError(f"dx {dx.dtype} {tuple(dx.shape)} on "
+                             f"{dx.device} is not a contiguous float32 "
+                             f"(streams, n_samples) tensor on {dmel.device} "
+                             f"whose frames at hop {hop} are the {rows} "
+                             f"rows")
     if not (need_dx or need_dfb):
         return None, None
     f_pad = ft_count * _FREQ_TILE
     fbp = _fb_padded(filterbank, ft_count, m_pad).contiguous()
     dev = dict(dtype=torch.float32, device=dmel.device)
-    dframes = torch.empty((rows, fft_length), **dev) if need_dx else None
+    dframes = (torch.empty((rows, fft_length), **dev)
+               if need_dx and dx is None else None)
     # the frame passes' operands: the transposed filterbank, the window and
     # the twiddles (one kernel), or the dreim scratch and the basis (two)
     fbt = w = tw = dreim = basis = None
@@ -647,14 +699,17 @@ def _fused_mel_bwd_cuda(dmel, reim, filterbank, fft_length, window,
         stream = torch.cuda.current_stream(dmel.device).cuda_stream
         rc = lib.tac_fused_mel_bwd(
             dmel.data_ptr(), reim.data_ptr(), fbp.data_ptr(), ptr(fbt),
-            ptr(basis), ptr(w), ptr(tw), ptr(dreim), ptr(dframes), ptr(dfb),
-            ptr(part),
-            rows, fft_length, k_pad, ft_count, m_pad, n_splits, per, stream)
+            ptr(basis), ptr(w), ptr(tw), ptr(dreim), ptr(dframes), ptr(dx),
+            ptr(dfb), ptr(part),
+            rows, fft_length, k_pad, ft_count, m_pad, n_splits, per, hop,
+            n_samples, stream)
     _launch_check(lib, rc, f"backward ({route})")
     BWD_KERNEL_LAUNCHES += 1
     BWD_DFRAMES_LAUNCHES += int(need_dx)
     BWD_FFT_LAUNCHES += int(need_dx and route == "fft")
-    return dframes, (dfb[:n_freqs, :num_mels] if need_dfb else None)
+    BWD_DX_FUSED_LAUNCHES += int(dx is not None)
+    return (dframes if dx is None else dx,
+            dfb[:n_freqs, :num_mels] if need_dfb else None)
 
 
 # ---- autograd --------------------------------------------------------------
@@ -681,6 +736,15 @@ def _dmel_from(g, y, to_db: bool, db_ref: float, amin: float):
     return g.reshape(streams * n_frames, m_pad).contiguous()
 
 
+def _dx_in_kernel(bwd, g, fft_length: int, hop_length: int) -> bool:
+    """True when :class:`_FusedMel`'s backward has the frame pass write the
+    waveform gradient: ``bwd`` is the CUDA wrapper itself, the cotangent
+    ``g`` is on the card and :func:`_dx_fusable` holds.  Everything else
+    overlap-adds ``bwd``'s frame gradient with ``_overlap_add``."""
+    return (bwd is _fused_mel_bwd_cuda and g.is_cuda
+            and _dx_fusable(fft_length, hop_length))
+
+
 class _FusedMel(torch.autograd.Function):
     """The fused op with its gradient, the counterpart of the JAX
     package's ``_fused_core`` custom VJP.
@@ -690,7 +754,8 @@ class _FusedMel(torch.autograd.Function):
     and the kernel callables ``fwd``/``bwd`` (the CUDA wrappers on the
     card; their plain versions in the CPU tests).  The forward saves the
     re/im residual; the backward runs the dB gate, ``bwd`` and the
-    overlap-add.  It asks ``bwd`` only for the gradients
+    overlap-add, which the CUDA wrapper's frame pass does itself where
+    :func:`_dx_in_kernel` holds.  It asks ``bwd`` only for the gradients
     ``ctx.needs_input_grad`` wants: with no waveform gradient the frame
     passes and the overlap-add are skipped, with no filterbank gradient
     the dFB pass."""
@@ -714,10 +779,17 @@ class _FusedMel(torch.autograd.Function):
             streams, _, n_frames = out.shape
             with span("fused_mel.dmel"):
                 dmel = _dmel_from(g, out, to_db, db_ref, amin)
-            with span("fused_mel.bwd_launch"):
-                dframes, dfb = ctx.bwd(
-                    dmel, reim.reshape(streams * n_frames, -1), filterbank,
+            args = (dmel, reim.reshape(streams * n_frames, -1), filterbank,
                     fft_length, window, win_length, need_dx, need_dfb)
+            if need_dx and _dx_in_kernel(ctx.bwd, g, fft_length, hop_length):
+                # the frame pass overlap-adds: what is left here is dx
+                with span("fused_mel.overlap_add"):
+                    dx = g.new_empty((streams, ctx.n_samples))
+                with span("fused_mel.bwd_launch"):
+                    dx, dfb = ctx.bwd(*args, dx=dx, hop_length=hop_length)
+                return dx, dfb, None, None, None
+            with span("fused_mel.bwd_launch"):
+                dframes, dfb = ctx.bwd(*args)
             dx = None
             if need_dx:
                 with span("fused_mel.overlap_add"):
