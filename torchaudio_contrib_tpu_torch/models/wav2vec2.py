@@ -34,6 +34,10 @@ order.
 Modules take ``device=`` (the card unless the caller asks for the CPU) and
 draw their weights from ``generator`` (Glorot-uniform kernels, zero
 biases, as the JAX ``init``).
+
+``forward`` marks its parts as ``tac::w2v2.*`` spans while a profiler
+records, and counts the encoder frames it computes (``utils.trace``:
+``W2V2_FRAMES``).
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.trace import encoded, span
 from ._common import _dense, _fp32_cudnn, _glorot_
 
 __all__ = ["Wav2Vec2", "Wav2Vec2Model", "WavLM", "wavlm_buckets",
@@ -183,11 +188,17 @@ class _EncoderLayer(nn.Module):
 
     def forward(self, x, pad_mask=None, pos_bias=None):
         if self.layer_norm_first:
-            x = x + self.attention(self.layer_norm(x), pad_mask, pos_bias)
-            x = x + self.feed_forward(self.final_layer_norm(x))
+            with span("w2v2.attention"):
+                x = x + self.attention(self.layer_norm(x), pad_mask,
+                                       pos_bias)
+            with span("w2v2.ffn"):
+                x = x + self.feed_forward(self.final_layer_norm(x))
         else:
-            x = self.layer_norm(x + self.attention(x, pad_mask, pos_bias))
-            x = self.final_layer_norm(x + self.feed_forward(x))
+            with span("w2v2.attention"):
+                x = self.layer_norm(x + self.attention(x, pad_mask,
+                                                       pos_bias))
+            with span("w2v2.ffn"):
+                x = self.final_layer_norm(x + self.feed_forward(x))
         if pad_mask is not None:
             x = torch.where(pad_mask[..., None], x, 0.0)
         return x
@@ -299,7 +310,8 @@ class Wav2Vec2(nn.Module):
     def _encode(self, x, pad_mask):
         pos_bias = self._pos_bias(x.shape[1], x.device)
         for layer in self.encoder.layers:
-            x = self.encoder_layer(layer, x, pad_mask, pos_bias)
+            with span("w2v2.layer"):
+                x = self.encoder_layer(layer, x, pad_mask, pos_bias)
         if self.layer_norm_first:
             x = self.encoder.layer_norm(x)
             if pad_mask is not None:
@@ -312,45 +324,57 @@ class Wav2Vec2(nn.Module):
                 frame_mask: Optional[torch.Tensor] = None,
                 mask_embedding: Optional[torch.Tensor] = None,
                 return_features: bool = False):
+        with span("w2v2.forward"):
+            return self._forward(waveforms, lengths, frame_mask,
+                                 mask_embedding, return_features)
+
+    def _forward(self, waveforms, lengths, frame_mask, mask_embedding,
+                 return_features):
         if waveforms.ndim != 2:
             raise ValueError("waveforms must be (batch, time)")
         dev = waveforms.device
-        feats = self._extract(waveforms)              # (B, T', C)
+        with span("w2v2.extract"):
+            feats = self._extract(waveforms)          # (B, T', C)
         t_out = feats.shape[1]
-        pad_mask = None
-        out_lengths = torch.full((waveforms.shape[0],), t_out,
-                                 dtype=torch.long, device=dev)
-        if lengths is not None:
-            out_lengths = self.output_length(
-                torch.as_tensor(lengths, device=dev).long())
-            pad_mask = torch.arange(t_out, device=dev)[None] \
-                < out_lengths[:, None]
-            feats = torch.where(pad_mask[..., None], feats, 0.0)
+        encoded(waveforms.shape[0] * t_out)
+        with span("w2v2.project"):
+            pad_mask = None
+            out_lengths = torch.full((waveforms.shape[0],), t_out,
+                                     dtype=torch.long, device=dev)
+            if lengths is not None:
+                out_lengths = self.output_length(
+                    torch.as_tensor(lengths, device=dev).long())
+                pad_mask = torch.arange(t_out, device=dev)[None] \
+                    < out_lengths[:, None]
+                feats = torch.where(pad_mask[..., None], feats, 0.0)
 
-        fp = self.feature_projection
-        x = fp.projection(fp.layer_norm(feats))
-        if frame_mask is not None:
-            if mask_embedding is None:
-                raise ValueError("frame_mask needs mask_embedding")
-            x = torch.where(frame_mask[..., None], mask_embedding, x)
-        # padded frames of x are not zero (layer_norm(0) is its bias):
-        # zero them so that the positional conv sees the zeros its own
-        # edge padding supplies
-        if pad_mask is not None:
-            x = torch.where(pad_mask[..., None], x, 0.0)
-        # taps span offsets [-k//2, (k-1)//2] (the published conv pads k//2
-        # on both sides and drops the last output for an even kernel)
-        k = self.pos_k
-        pos = self.encoder.pos_conv_embed.conv(
-            F.pad(x.transpose(1, 2), (k // 2, (k - 1) // 2)))
-        x = x + F.gelu(pos.transpose(1, 2))
-        if not self.layer_norm_first:
-            x = self.encoder.layer_norm(x)
-        if pad_mask is not None:
-            x = torch.where(pad_mask[..., None], x, 0.0)
+            fp = self.feature_projection
+            x = fp.projection(fp.layer_norm(feats))
+            if frame_mask is not None:
+                if mask_embedding is None:
+                    raise ValueError("frame_mask needs mask_embedding")
+                x = torch.where(frame_mask[..., None], mask_embedding, x)
+            # padded frames of x are not zero (layer_norm(0) is its bias):
+            # zero them so that the positional conv sees the zeros its own
+            # edge padding supplies
+            if pad_mask is not None:
+                x = torch.where(pad_mask[..., None], x, 0.0)
+        with span("w2v2.pos_conv"):
+            # taps span offsets [-k//2, (k-1)//2] (the published conv pads
+            # k//2 on both sides and drops the last output for an even
+            # kernel)
+            k = self.pos_k
+            pos = self.encoder.pos_conv_embed.conv(
+                F.pad(x.transpose(1, 2), (k // 2, (k - 1) // 2)))
+            x = x + F.gelu(pos.transpose(1, 2))
+            if not self.layer_norm_first:
+                x = self.encoder.layer_norm(x)
+            if pad_mask is not None:
+                x = torch.where(pad_mask[..., None], x, 0.0)
         x = self._encode(x, pad_mask)
         if self.aux_out is not None:
-            x = self.aux(x)
+            with span("w2v2.head"):
+                x = self.aux(x)
         if return_features:
             return x, out_lengths, feats
         return x, out_lengths

@@ -21,6 +21,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.trace import span
 from .ctcloss import _lengths
 
 __all__ = ["ctc_greedy_decode", "ctc_prefix_beam_search",
@@ -36,9 +37,15 @@ def ctc_greedy_decode(log_probs, input_lengths=None, blank: int = 0,
     scores)``: ``tokens`` ``(batch, time)`` int32 holds each clip's
     collapsed label sequence left-packed and padded with ``pad_value``;
     ``lengths`` ``(batch,)`` int32 the number of valid labels; ``scores``
-    ``(batch,)`` the summed frame log-probs of the best path.
+    ``(batch,)`` the summed frame log-probs of the best path.  Marked as
+    the span ``ctc.greedy`` (``utils.trace``).
     """
-    log_probs = torch.as_tensor(log_probs)
+    with span("ctc.greedy"):
+        return _greedy(torch.as_tensor(log_probs), input_lengths, blank,
+                       pad_value)
+
+
+def _greedy(log_probs, input_lengths, blank, pad_value):
     if log_probs.ndim != 3:
         raise ValueError("log_probs must be (batch, time, classes)")
     b, t_max, _ = log_probs.shape

@@ -13,7 +13,8 @@ function scope, so that:
   the operations alone, with spans on or off.
 
 Spans never synchronise and change no result or launch order.  The port
-marks the fused log-mel op and the classifier's training step:
+marks the fused log-mel op, the classifier's training step, the wav2vec2
+family's forward and the greedy CTC decode:
 
 =========================  ===================================================
 ``fused_mel``              ``ops.fused_melspectrogram`` on a CUDA tensor
@@ -31,7 +32,31 @@ marks the fused log-mel op and the classifier's training step:
                            ``classifier.frontend``, ``classifier.conv<i>``
                            (pad, convolution and ReLU of block ``i``) and
                            ``classifier.head``
+``w2v2.forward``           ``Wav2Vec2.forward`` (WavLM, HuBERT and the LARGE
+                           variants share it), with the children below; a
+                           pre-LN encoder's closing LayerNorm is its own time
+``w2v2.extract``           the strided convolutions, their norms and GELUs
+``w2v2.project``           the output lengths and pad mask, the LayerNorm
+                           and projection, the zeroing of padded frames
+``w2v2.pos_conv``          the pad, grouped convolution and GELU of the
+                           positional embedding, a post-LN encoder's
+                           LayerNorm
+``w2v2.layer``             one encoder layer, with ``w2v2.attention`` and
+                           ``w2v2.ffn``, each holding the LayerNorm that
+                           opens (pre-LN) or closes (post-LN) it; the
+                           padded frames' zeroing is the layer's own
+``w2v2.head``              the CTC head (``aux``), where there is one
+``ctc.greedy``             ``ops.ctc_greedy_decode``: argmax, collapse and
+                           compaction
 =========================  ===================================================
+
+Layers, as ``PERF.md`` names them: ``fused_mel``, ``classifier.step``,
+``classifier.forward`` and ``w2v2.forward`` are the entry and dispatch;
+``fused_mel.fwd`` and ``fused_mel.bwd*`` launch the fused kernels;
+``classifier.conv<i>``, ``classifier.grad``, ``w2v2.extract``,
+``w2v2.pos_conv`` and the encoder's spans (``w2v2.project``, ``.layer``,
+``.attention``, ``.ffn``, ``.head``) run the library kernels (cuDNN,
+cuBLAS); ``ctc.greedy`` is the decode, aten kernels only.
 
 The CPU path of the fused op takes no span.  A backward runs on autograd's
 own thread on the card, so ``fused_mel.bwd`` opens there, inside whatever
@@ -44,6 +69,16 @@ Counters are host integers, read as one by :func:`counts` and
   fused op's caches of constants (DFT basis, window, twiddles) copy from
   the host to a device.  They move only when a cache fills, so a move over
   a steady run means the caches thrash.
+
+A counter of work moves on every call, by the work done, and is read as the
+module's attribute (it is not one of :func:`counts`, whose moves over a
+steady run are faults):
+
+* ``W2V2_FRAMES``: the encoder frames a wav2vec2-family forward computed,
+  ``batch · T'`` a call, padded frames included; counted from the shapes
+  the host holds (:func:`encoded`), never from a device value.  Over the
+  valid frames of the requests it gives the share of the encoder's work
+  that padding took.
 """
 from __future__ import annotations
 
@@ -58,6 +93,7 @@ PREFIX = "tac::"
 CONST_UPLOADS = 0
 CONST_UPLOAD_BYTES = 0
 _COUNTERS = ("CONST_UPLOADS", "CONST_UPLOAD_BYTES")
+W2V2_FRAMES = 0
 
 _OFF = contextlib.nullcontext()
 _recording = torch._C._autograd._profiler_enabled
@@ -83,6 +119,12 @@ def uploaded(*tensors: torch.Tensor) -> None:
         if t.device.type != "cpu":
             CONST_UPLOADS += 1
             CONST_UPLOAD_BYTES += t.numel() * t.element_size()
+
+
+def encoded(frames: int) -> None:
+    """Count ``frames`` encoder frames computed (``W2V2_FRAMES``)."""
+    global W2V2_FRAMES
+    W2V2_FRAMES += int(frames)
 
 
 def counts() -> dict:
