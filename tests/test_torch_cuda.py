@@ -90,26 +90,44 @@ def _launches():
             tfused.BWD_DFRAMES_LAUNCHES)
 
 
+def _dfb_launches():
+    return tfused.BWD_DFB_LAUNCHES, tfused.BWD_DFB_ONE_READ_LAUNCHES
+
+
+def _one_read(mels):
+    """The dFB pass reads the residual once up to 128 padded mels."""
+    return int(-(-mels // 64) * 64 <= 128)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,fft,hop,mels,sr,kw", CASES)
 def test_backward_kernel_matches_plain(cuda_device, shape, fft, hop, mels,
                                        sr, kw):
     """Kernel gradients against autograd of the plain chain (on the CPU),
-    and two backward runs bitwise equal."""
+    the filterbank's also against the chain in float64; two backward runs
+    bitwise equal; each ran the dFB pass once, reading the residual once
+    up to 128 padded mels (the Nyquist bin folded at fft 256, 2048 and
+    4096; fft 400's 201 bins a tile and a partial one; 704 mels in 64-mel
+    tiles)."""
     x, fb = _inputs(len(shape) * fft + hop + 1, shape, mels, sr, fft)
     with torch.no_grad():
         out = tops.fused_melspectrogram(x, fb, fft, hop, **kw)
     g = torch.from_numpy(np.random.default_rng(hop).standard_normal(
         tuple(out.shape)).astype(np.float32))
     _, want_dx, want_dfb = _grads(x, fb, fft, hop, g, **kw)
+    _, _, dfb64 = _grads(x.double(), fb.double(), fft, hop, g.double(),
+                         need=(False, True), **kw)
     xd, fbd, gd = x.to(cuda_device), fb.to(cuda_device), g.to(cuda_device)
-    before = _launches()
+    before, dfb_before = _launches(), _dfb_launches()
     runs = [_grads(xd, fbd, fft, hop, gd, **kw) for _ in range(2)]
     torch.cuda.synchronize()
     assert _launches() == tuple(b + 2 for b in before)
+    assert _dfb_launches() == (dfb_before[0] + 2,
+                               dfb_before[1] + 2 * _one_read(mels))
     (_, dx, dfb), (_, dx2, dfb2) = runs
     assert torch.equal(dx, dx2) and torch.equal(dfb, dfb2)
-    for got, want in ((dx.cpu(), want_dx), (dfb.cpu(), want_dfb)):
+    for got, want in ((dx.cpu(), want_dx), (dfb.cpu(), want_dfb),
+                      (dfb.cpu().double(), dfb64)):
         assert got.shape == want.shape and bool(torch.isfinite(got).all())
         # relative to the peak; exact where the plain gradient is all zero
         # (fft 2 with one mel: the filter is empty, every mel is clamped)
@@ -123,13 +141,17 @@ def test_filterbank_only_skips_frame_passes(cuda_device):
     g = torch.from_numpy(np.random.default_rng(6).standard_normal(
         (2, 1, 64, 122)).astype(np.float32))
     _, _, want = _grads(x, fb, 512, 128, g, need=(False, True))
-    before = _launches()
+    _, _, want64 = _grads(x.double(), fb.double(), 512, 128, g.double(),
+                          need=(False, True))
+    before, dfb_before = _launches(), _dfb_launches()
     _, dx, got = _grads(x.to(cuda_device), fb.to(cuda_device), 512, 128,
                         g.to(cuda_device), need=(False, True))
     assert _launches() == (before[0] + 1, before[1] + 1, before[2])
+    assert _dfb_launches() == (dfb_before[0] + 1, dfb_before[1] + 1)
     assert dx is None
     err = ((got.cpu() - want).abs().max() / want.abs().max()).item()
     assert err <= GRAD_PARITY, err
+    assert _peak_err(got.cpu().double(), want64) <= GRAD_PARITY
 
 
 @pytest.mark.cuda
@@ -220,13 +242,18 @@ def _fft_counts():
 
 # fft, hop, samples, mels, window, win_length: every size the FFT kernels
 # are built for; odd and even frame counts, hop > fft/2, a shorter window,
-# another window, 64 / 128 / 192 padded mels (both mel tilings)
+# another window, 64 / 128 / 192 padded mels (both mel tilings); for the
+# dFB pass, 3 rows (below one chunk of 16), 318 rows in two splits and
+# 9 354 rows in 37 (neither a multiple of the chunk or the split), the
+# Nyquist bin folded at every size
 FFT_CASES = [
     (256, 64, 7000, 40, "hann", None),
     (512, 300, 9000, 64, "hamming", 300),
     (1024, 256, 11025, 80, "hann", None),
     (2048, 512, 44100, 128, "hann", None),
     (2048, 1100, 30000, 130, "hann", None),
+    (512, 128, 600, 64, "hann", None),
+    (512, 64, 200000, 40, "hann", None),
 ]
 
 
@@ -236,9 +263,11 @@ def test_fft_route_matches_dft_route_and_plain(cuda_device, fft, hop,
                                                samples, mels, window, wl):
     """Both forward kernels and both frame-gradient passes at one shape:
     each within 1e-5 (gradients 1e-4) of its plain version, the FFT
-    kernels also of their step-by-step plain version; the residual's
-    padded bins exactly zero on both routes; the output with the residual
-    bitwise equal to without; two backward runs bitwise equal."""
+    kernels also of their step-by-step plain version; the filterbank
+    gradient within 1e-5 of the plain dFB in float64 from the same
+    operands; the residual's padded bins exactly zero on both routes; the
+    output with the residual bitwise equal to without; two backward runs
+    bitwise equal, each one dFB pass."""
     x, fb = _inputs(fft + hop, (3, samples), mels, 16000, fft)
     x, fb = x.to(cuda_device), fb.to(cuda_device)
     args = (fft, hop, window, wl, True, 1.0, 1e-7)
@@ -253,6 +282,9 @@ def test_fft_route_matches_dft_route_and_plain(cuda_device, fft, hop,
     reim2 = want_reim.reshape(rows, -1)
     want_df, want_dfb = tfused._bwd_plain(dmel, reim2, *bargs)
     step_df, _ = tfused._bwd_fft_plain(dmel, reim2, *bargs)
+    _, dfb64 = tfused._dfb_dreim_plain(dmel.double(), reim2.double(),
+                                       fb.double(), False, True)
+    dfb_before = _dfb_launches()
     for route in ("fft", "dft"):
         out, reim = tfused._fused_mel_fwd_cuda(x, fb, *args, save_spec=True,
                                                _route=route)
@@ -271,10 +303,13 @@ def test_fft_route_matches_dft_route_and_plain(cuda_device, fft, hop,
         assert not bins[..., n_freqs:].any()
         assert _peak_err(df, want_df) <= GRAD_PARITY
         assert _peak_err(dfb, want_dfb) <= GRAD_PARITY
+        assert _peak_err(dfb.double(), dfb64) <= PARITY
         if route == "fft":
             assert _peak_err(out, step_out) <= PARITY
             assert _peak_err(reim, step_reim) <= PARITY
             assert _peak_err(df, step_df) <= GRAD_PARITY
+    assert _dfb_launches() == (dfb_before[0] + 4,
+                               dfb_before[1] + 4 * _one_read(mels))
 
 
 @pytest.mark.cuda

@@ -281,3 +281,23 @@ def test_dfb_splits_cover_the_rows():
         n, per = tfused._dfb_splits(rows, tiles)
         assert per % 16 == 0 and n * per >= rows > (n - 1) * per
         assert 1 <= n <= 264
+    # the dFB pass's grid, from the shapes alone: config 2 and config 3
+    # fill two blocks on each of 132 SMs; fft 256 / 512 / 2048 fold the
+    # Nyquist bin, fft 400 (201 bins) and fft 2 (2) keep a partial tile;
+    # the residual is read once up to 128 padded mels
+    cases = {(41216, 1025, 128): (8, True), (39904, 257, 64): (2, True),
+             (3, 257, 64): (2, True), (9354, 257, 64): (2, True),
+             (318, 129, 64): (1, True), (249, 1025, 192): (24, False),
+             (96000, 201, 128): (2, True), (100, 2, 64): (1, True),
+             (40, 2049, 704): (176, False), (5000, 513, 256): (8, False)}
+    for (rows, n_freqs, m_pad), (tiles, one_read) in cases.items():
+        grid = tfused._dfb_grid(rows, n_freqs, m_pad)
+        assert grid == tfused._dfb_grid(rows, n_freqs, m_pad)
+        n, per, got_tiles, got_one_read = grid
+        assert (got_tiles, got_one_read) == (tiles, one_read)
+        assert per % 16 == 0 and 1 <= n <= 65535
+        splits = [range(s * per, min(rows, (s + 1) * per)) for s in range(n)]
+        assert all(len(r) > 0 for r in splits)
+        assert [i for r in splits for i in r] == list(range(rows))
+        if (rows, n_freqs, m_pad) in ((41216, 1025, 128), (39904, 257, 64)):
+            assert n * tiles >= 264

@@ -51,10 +51,33 @@
 //     that product beats the plain chain (see fused_mel_fwd.cu).
 //
 // On both routes:
-//   * dFB is a pass of its own (dfb_kernel, 2 * rows * f_pad * m_pad
-//     FLOPs): each block owns a (64 bins, 64 mels) tile and one contiguous
-//     split of the rows, and writes its partial sum; dfb_reduce_kernel adds
-//     the splits in a fixed order.  No float atomics anywhere: the same
+//   * dFB is a pass of its own (dfb_kernel, 2 * rows * n_freqs * m_pad
+//     FLOPs, FP32 FMAs on CUDA cores), a product whose reduction runs over
+//     the rows.  What bounds it: at config 2 (41 216 rows, 1 025 bins, 128
+//     mels) the FLOPs, 10.8 GFLOP or 0.161 ms at 67 TFLOP/s, against 0.113
+//     ms for its bytes (the residual's 359 MB once, dmel's 21 MB); at
+//     config 3 (39 904 rows, 257 bins, 64 mels) the bytes, 102 MB or 0.030
+//     ms, against 1.31 GFLOP.  So a block owns 128 bins (two residual tiles)
+//     and every mel column up to 128 (m_pad 64 or 128: the residual is read
+//     from device memory once a pass; wider filterbanks take a grid of
+//     128- or 64-column tiles) for one contiguous split of the rows.  Each
+//     of its 256 threads sums 8 bins x 8 mels (8 x 4 at 64): per row 64
+//     FMAs for four 16-byte shared-memory loads.  The rows come in chunks
+//     of KC through a ring of DFB_STAGES stages filled by cp.async, two
+//     chunks in flight while a third is summed and the next has
+//     p = re^2 + im^2 formed in place, once per element, as it lands; one
+//     barrier a chunk.  Two blocks an SM, and the rows are split so that
+//     the grid is about two blocks on every SM in one wave (_dfb_splits).
+//   * Work past n_freqs is skipped: a tile's warps whose bins (32 a warp
+//     at 128 mels, 16 at 64) all lie past n_freqs neither sum nor store,
+//     and only the residual tiles that hold bins below n_freqs are loaded.  A lone last bin (the Nyquist bin
+//     of every FFT size from 256 on: 1 025 = 8 * 128 + 1) gets no tile of
+//     its own: the blocks of tile 0 also sum it, one chunk row a thread,
+//     and add their 16 row partial sums in a fixed order at the end.  dFB
+//     is written for bins below n_freqs only.
+//   * Bitwise repeatable: each block sums its rows in order, the splits
+//     (a function of the shapes alone) are added by dfb_reduce_kernel in
+//     split order, and there are no float atomics anywhere, so the same
 //     inputs give bitwise-equal gradients on every run.  dFB needs only p
 //     and dmel, so a caller that wants the filterbank gradient alone (a
 //     trainable front end on a waveform that needs no gradient) runs this
@@ -74,18 +97,23 @@ namespace {
 constexpr int TB = 64;          // rows per block (the forward's frame block)
 constexpr int FBT = 64;         // bins per frequency tile (the forward's)
 constexpr int KC = 16;          // depth of one K step
-constexpr int MC = 64;          // mel columns per dFB block
+constexpr int MC = 64;          // mel columns the filterbank pads to
 constexpr int NB = 128;         // dframes columns per block
 constexpr int THREADS = 256;    // 16 x 16 threads
 constexpr int LD = TB + 4;      // padded leading dims of the k-major tiles
 constexpr int NB_LD = NB + 4;   // (rows stay 16-byte aligned)
 constexpr int REDUCE_THREADS = 256;
+constexpr int DFB_BM = 2 * FBT;         // bins per dFB block: two residual tiles
+constexpr int DFB_BN = 128;             // most mel columns per dFB block
+constexpr int DFB_LDA = 2 * DFB_BM;     // a chunk row's residual: re|im|re|im
+constexpr int DFB_STAGES = 4;           // row chunks in the ring
 
 static_assert(TB == 16 * 4 && FBT == 16 * 4 && MC == 16 * 4 && NB == 16 * 8,
               "the 16 x 16 thread grid owns 4 x 4 (4 x 8 in pass B) tiles");
 static_assert(TB * KC == 4 * THREADS, "64-row operand chunk: one float4 per thread");
-static_assert(KC * FBT == 4 * THREADS && KC * MC == 4 * THREADS,
-              "dFB chunks: one float4 per thread");
+static_assert(KC * 16 == THREADS && KC * DFB_LDA % (4 * THREADS) == 0,
+              "dFB: the folded bin takes one chunk row per 16 threads; a "
+              "chunk's residual is whole float4s a thread");
 
 __device__ __forceinline__ float4 ld4(const float* p) {
     return *reinterpret_cast<const float4*>(p);
@@ -104,67 +132,246 @@ __device__ __forceinline__ void st_kmajor(float* tile, int ld, int k0, int col,
     tile[(k0 + 3) * ld + col] = v.w;
 }
 
-// grid (ft_count, m_pad / MC, n_splits): the (FBT bins, MC mels) tile of
-// the filterbank gradient summed over rows [split * rows_per_split, + that).
-// part (n_splits, f_pad, m_pad)
-__global__ void __launch_bounds__(THREADS)
+// `bytes` (16 or 4) from device to shared memory, asynchronously; zeros
+// where `ok` is false (nothing is read then).
+template <int BYTES>
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           bool ok) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    if constexpr (BYTES == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                     ::"r"(d), "l"(src), "r"(ok ? 16 : 0) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+                     ::"r"(d), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() {
+    asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void copy_wait() {
+    asm volatile("cp.async.wait_group %0;" ::"n"(PENDING) : "memory");
+}
+
+// A dFB stage: the residual of KC rows (KC, DFB_LDA), p formed in place over
+// the re columns; dmel (KC, BN); the folded bin's (re, im) of each row.
+template <int BN>
+constexpr int DFB_STAGE = KC * (DFB_LDA + BN) + 2 * KC;
+
+// grid (bin tiles, m_pad / BN, n_splits): the (DFB_BM bins, BN mels) tile
+// of the filterbank gradient summed over rows [split * rows_per_split, +
+// that).  part (n_splits, n_freqs, m_pad).  `nyq`: the lone last bin that
+// tile 0's blocks sum besides their own, or -1.  A thread sums 8 bins x 4 MH
+// mels.  A warp covers WB bins x 64 mels: LM lanes along the mels, 4 mels a
+// lane and, with BN = 128, 4 more LM * 4 further on, so that a warp's
+// shared-memory loads touch distinct banks (BN = 128: 4 x 2 warps of 32 bins
+// x 64 mels; BN = 64: 8 x 1 of 16 x 64).
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 2)
 dfb_kernel(const float* __restrict__ dmel, const float* __restrict__ reim,
            float* __restrict__ part, int rows, int rows_per_split, int ldr,
-           int m_pad, int f_pad) {
-    __shared__ __align__(16) float p_s[KC * FBT];   // p chunk   [k][bin]
-    __shared__ __align__(16) float d_s[KC * MC];    // dmel chunk [k][mel]
-    const int t = blockIdx.x;
-    const int mc = blockIdx.y * MC;
-    const int split = blockIdx.z;
+           int m_pad, int n_freqs, int nyq) {
+    constexpr int MH = BN / 64;                  // runs of 4 mels a thread
+    constexpr int LM = 16 / MH;                  // lanes along the mels
+    constexpr int WM = LM * 4 * MH;              // a warp's mels: 64
+    constexpr int WB = 8 * (32 / LM);            // a warp's bins: 32 or 16
+    constexpr int STAGE = DFB_STAGE<BN>;
+    constexpr int R4 = DFB_LDA / 4;              // residual float4s a chunk row
+    constexpr int D4 = BN / 4;                   // dmel float4s a chunk row
+    static_assert(WB * (THREADS / 32) / (BN / WM) == DFB_BM, "warps tile the block");
+    extern __shared__ __align__(16) float smem[];
     const int tid = threadIdx.x;
-    const int ty = tid / 16;
-    const int tx = tid % 16;
-    const int lk = tid / 16;          // loader: chunk row lk, columns lc..lc+3
-    const int lc = (tid % 16) * 4;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int b0 = blockIdx.x * DFB_BM;
+    const int mc = blockIdx.y * BN;
+    const int split = blockIdx.z;
+    const int nb = min(DFB_BM, n_freqs - b0);    // the tile's bins below n_freqs
+    const bool two = nb > FBT;                   // both residual tiles hold some
+    const bool fold = nyq >= 0 && blockIdx.x == 0;
     const int r_begin = split * rows_per_split;
-    const int r_end = min(rows, r_begin + rows_per_split);
+    const int n_rows = min(rows, r_begin + rows_per_split) - r_begin;
+    const int chunks = (n_rows + KC - 1) / KC;
 
-    float acc[4][4];
+    // loaders, a float4 a copy: the residual's row tid / R4 + i THREADS / R4,
+    // column tid % R4 (its second tile zero where no bin of it is below
+    // n_freqs); dmel's row tid / D4 + i THREADS / D4; the folded bin's re
+    // (even tid) and im (odd) of row tid / 2.  Rows past the split are
+    // zeros, copied from nothing (the address is the split's first row).
+    const int lc = tid % R4;
+    const bool col_ok = two || lc < R4 / 2;
+    const float* rsrc = reim + (long long)r_begin * ldr + blockIdx.x * DFB_LDA
+                        + lc * 4;
+    const float* dsrc = dmel + (long long)r_begin * m_pad + mc + (tid % D4) * 4;
+    const int nq = max(nyq, 0);
+    const float* nsrc = reim + (long long)r_begin * ldr
+                        + (nq / FBT) * 2 * FBT + nq % FBT + (tid & 1) * FBT;
+    auto load = [&](int c) {
+        if (c < chunks) {
+            float* st = smem + (c % DFB_STAGES) * STAGE;
+            const int r0 = c * KC;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+            for (int i = 0; i < KC * R4 / THREADS; ++i) {
+                const int k = tid / R4 + i * (THREADS / R4);
+                const bool ok = col_ok && r0 + k < n_rows;
+                copy_async<16>(st + k * DFB_LDA + lc * 4,
+                               rsrc + (ok ? (long long)(r0 + k) * ldr : 0), ok);
+            }
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+            for (int i = 0; i < KC * D4 / THREADS; ++i) {
+                const int k = tid / D4 + i * (THREADS / D4);
+                const bool ok = r0 + k < n_rows;
+                copy_async<16>(st + KC * DFB_LDA + k * BN + (tid % D4) * 4,
+                               dsrc + (ok ? (long long)(r0 + k) * m_pad : 0), ok);
+            }
+            if (fold && tid < 2 * KC) {
+                const bool ok = r0 + tid / 2 < n_rows;
+                copy_async<4>(st + KC * (DFB_LDA + BN) + tid,
+                              nsrc + (ok ? (long long)(r0 + tid / 2) * ldr : 0),
+                              ok);
+            }
+        }
+        copy_commit();
+    };
+    // p = re^2 + im^2 over the re columns of a landed chunk
+    auto convert = [&](int c) {
+        if (c >= chunks) return;
+        float* st = smem + (c % DFB_STAGES) * STAGE;
+#pragma unroll
+        for (int i = 0; i < KC * (R4 / 2) / THREADS; ++i) {
+            const int q = tid + i * THREADS;    // row q / 32, p float4 q % 32
+            float* a = st + (q / 32) * DFB_LDA + (q % 32) / 16 * 2 * FBT
+                       + (q % 16) * 4;
+            const float4 re = ld4(a);
+            const float4 im = ld4(a + FBT);
+            st4(a, make_float4(fmaf(re.x, re.x, im.x * im.x),
+                               fmaf(re.y, re.y, im.y * im.y),
+                               fmaf(re.z, re.z, im.z * im.z),
+                               fmaf(re.w, re.w, im.w * im.w)));
+        }
+        if (fold && tid < KC) {
+            float* t = st + KC * (DFB_LDA + BN) + 2 * tid;
+            t[0] = fmaf(t[0], t[0], t[1] * t[1]);
+        }
+    };
 
-    for (int r0 = r_begin; r0 < r_end; r0 += KC) {
-        const int row = r0 + lk;
-        float4 p = make_float4(0.f, 0.f, 0.f, 0.f);
-        float4 d = p;
-        if (row < r_end) {
-            const float* rp = reim + (long long)row * ldr + t * 2 * FBT + lc;
-            const float4 re = ld4(rp);
-            const float4 im = ld4(rp + FBT);
-            p = make_float4(re.x * re.x + im.x * im.x, re.y * re.y + im.y * im.y,
-                            re.z * re.z + im.z * im.z, re.w * re.w + im.w * im.w);
-            d = ld4(dmel + (long long)row * m_pad + mc + lc);
-        }
-        st4(&p_s[lk * FBT + lc], p);
-        st4(&d_s[lk * MC + lc], d);
-        __syncthreads();
+    const int wb = (warp / (BN / WM)) * WB;     // the warp's first bin
+    const bool active = wb < nb;                 // warp-uniform
+    const int bin = wb + (lane / LM) * 8;
+    const int apos = (bin / FBT) * 2 * FBT + bin % FBT;
+    const int mel = (warp % (BN / WM)) * WM + (lane % LM) * 4;
+    const int tk = tid >> 4;                     // the folded bin: chunk row tk,
+    const int tm = (tid & 15) * 4;               // mels tm.. + 3 (and 64 more)
+    float acc[8][4 * MH];
+    float nacc[4 * MH];
 #pragma unroll
-        for (int kk = 0; kk < KC; ++kk) {
-            const float4 a = ld4(&p_s[kk * FBT + ty * 4]);
-            const float4 b = ld4(&d_s[kk * MC + tx * 4]);
-            const float av[4] = {a.x, a.y, a.z, a.w};
-            const float bv[4] = {b.x, b.y, b.z, b.w};
+    for (int c = 0; c < 4 * MH; ++c) {
+        nacc[c] = 0.f;
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(av[i], bv[c], acc[i][c]);
-        }
-        __syncthreads();
+        for (int i = 0; i < 8; ++i) acc[i][c] = 0.f;
     }
 
-    float* dst = part + ((long long)split * f_pad + t * FBT + ty * 4) * m_pad
-                 + mc + tx * 4;
+    for (int c = 0; c < DFB_STAGES - 1; ++c) load(c);
+    copy_wait<DFB_STAGES - 2>();
+    __syncthreads();
+    convert(0);
+    for (int c = 0; c < chunks; ++c) {
+        // chunk c + 1 has landed, chunk c is converted, chunk c - 1's stage
+        // is free for chunk c + 3
+        copy_wait<DFB_STAGES - 3>();
+        __syncthreads();
+        load(c + DFB_STAGES - 1);
+        convert(c + 1);
+        const float* st = smem + (c % DFB_STAGES) * STAGE;
+        if (active) {
+            const float* a = st + apos;
+            const float* d = st + KC * DFB_LDA + mel;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-        st4(dst + (long long)i * m_pad,
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+            for (int k = 0; k < KC; ++k) {
+                const float4 a0 = ld4(a + k * DFB_LDA);
+                const float4 a1 = ld4(a + k * DFB_LDA + 4);
+                const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+                float bv[4 * MH];
+#pragma unroll
+                for (int h = 0; h < MH; ++h) {
+                    const float4 b = ld4(d + k * BN + h * LM * 4);
+                    bv[4 * h + 0] = b.x;
+                    bv[4 * h + 1] = b.y;
+                    bv[4 * h + 2] = b.z;
+                    bv[4 * h + 3] = b.w;
+                }
+#pragma unroll
+                for (int i = 0; i < 8; ++i)
+#pragma unroll
+                    for (int j = 0; j < 4 * MH; ++j)
+                        acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+            }
+        }
+        if (fold) {
+            const float pn = st[KC * (DFB_LDA + BN) + 2 * tk];
+            const float* d = st + KC * DFB_LDA + tk * BN + tm;
+#pragma unroll
+            for (int h = 0; h < MH; ++h) {
+                const float4 b = ld4(d + h * 64);
+                nacc[4 * h + 0] = fmaf(pn, b.x, nacc[4 * h + 0]);
+                nacc[4 * h + 1] = fmaf(pn, b.y, nacc[4 * h + 1]);
+                nacc[4 * h + 2] = fmaf(pn, b.z, nacc[4 * h + 2]);
+                nacc[4 * h + 3] = fmaf(pn, b.w, nacc[4 * h + 3]);
+            }
+        }
+    }
+
+    float* out = part + (long long)split * n_freqs * m_pad + mc;
+    if (active) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const int k = b0 + bin + i;
+            if (k >= n_freqs) break;
+#pragma unroll
+            for (int h = 0; h < MH; ++h)
+                st4(out + (long long)k * m_pad + mel + h * LM * 4,
+                    make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                                acc[i][4 * h + 2], acc[i][4 * h + 3]));
+        }
+    }
+    if (fold) {
+        // the folded bin: the 16 chunk rows' partial sums, in row order
+        copy_wait<0>();
+        __syncthreads();
+        float* red = smem;                       // (KC, BN)
+#pragma unroll
+        for (int h = 0; h < MH; ++h)
+            st4(red + tk * BN + tm + h * 64,
+                make_float4(nacc[4 * h], nacc[4 * h + 1], nacc[4 * h + 2],
+                            nacc[4 * h + 3]));
+        __syncthreads();
+        if (tid < BN) {
+            float s = 0.f;
+#pragma unroll
+            for (int k = 0; k < KC; ++k) s += red[k * BN + tid];
+            out[(long long)nyq * m_pad + tid] = s;
+        }
+    }
+}
+
+template <int BN>
+cudaError_t launch_dfb(const float* dmel, const float* reim, float* out,
+                       int tiles, int rows, int n_splits, int rows_per_split,
+                       int ldr, int m_pad, int n_freqs, int nyq,
+                       cudaStream_t st) {
+    const int smem = (int)sizeof(float) * DFB_STAGES * DFB_STAGE<BN>;
+    cudaError_t err = cudaFuncSetAttribute(
+        dfb_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(dfb_kernel<BN>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    dfb_kernel<BN><<<dim3(tiles, m_pad / BN, n_splits), THREADS, smem, st>>>(
+        dmel, reim, out, rows, rows_per_split, ldr, m_pad, n_freqs, nyq);
+    return cudaGetLastError();
 }
 
 // dfb[i] = sum over splits, in split order, of part[split, i]
@@ -615,8 +822,10 @@ extern "C" {
 // (0 on success).  Does not synchronise and allocates nothing.
 //   dmel (rows, m_pad), reim (rows, ldr), fb (f_pad, m_pad),
 //   basis (k_pad, ldr) with ldr = ft_count * 2 * FBT, f_pad = ft_count * FBT.
-//   dfb (f_pad, m_pad) or null: the filterbank gradient; with n_splits > 1
-//     dfb_part (n_splits, f_pad, m_pad) holds the per-split sums.
+//   dfb (n_freqs, m_pad) or null, n_freqs = fft_length / 2 + 1: the
+//     filterbank gradient; n_splits contiguous splits of rows_per_split
+//     rows (a multiple of KC), each but the last full; with n_splits > 1
+//     dfb_part (n_splits, n_freqs, m_pad) holds the per-split sums.
 //   dframes (rows, fft_length) or null: the frame gradient; dreim (rows,
 //     ldr) is its scratch.
 //   The frame passes run as one kernel around an inverse FFT when `twiddle`
@@ -644,19 +853,27 @@ int tac_fused_mel_bwd(const float* dmel, const float* reim, const float* fb,
         return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
     const int ldr = ft_count * 2 * FBT;
-    const int f_pad = ft_count * FBT;
     cudaError_t err;
     if (dfb) {
+        // 128-bin tiles; a lone last bin is folded into tile 0's blocks
+        const int n_freqs = fft_length / 2 + 1;
+        const int nyq = n_freqs % DFB_BM == 1 && n_freqs > DFB_BM ? n_freqs - 1 : -1;
+        const int tiles = n_freqs / DFB_BM + (n_freqs % DFB_BM != 0 && nyq < 0);
         if (n_splits < 1 || n_splits > 65535 || rows_per_split % KC != 0
             || (long long)n_splits * rows_per_split < rows
+            || (long long)(n_splits - 1) * rows_per_split >= rows
+            || ft_count != (n_freqs + FBT - 1) / FBT
             || (n_splits > 1 && !dfb_part))
             return (int)cudaErrorInvalidValue;
         float* out = n_splits > 1 ? dfb_part : dfb;
-        dfb_kernel<<<dim3(ft_count, m_pad / MC, n_splits), THREADS, 0, st>>>(
-            dmel, reim, out, rows, rows_per_split, ldr, m_pad, f_pad);
-        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+        err = m_pad % DFB_BN == 0
+                  ? launch_dfb<DFB_BN>(dmel, reim, out, tiles, rows, n_splits,
+                                       rows_per_split, ldr, m_pad, n_freqs, nyq, st)
+                  : launch_dfb<MC>(dmel, reim, out, tiles, rows, n_splits,
+                                   rows_per_split, ldr, m_pad, n_freqs, nyq, st);
+        if (err != cudaSuccess) return (int)err;
         if (n_splits > 1) {
-            const int n = f_pad * m_pad;
+            const int n = n_freqs * m_pad;
             dfb_reduce_kernel<<<(n + REDUCE_THREADS - 1) / REDUCE_THREADS,
                                 REDUCE_THREADS, 0, st>>>(dfb_part, dfb, n_splits, n);
             if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -722,6 +939,8 @@ int tac_fused_mel_bwd_tile(int which) {
         case 2: return KC;
         case 3: return MC;
         case 4: return FR;
+        case 5: return DFB_BM;
+        case 6: return DFB_BN;
         default: return -1;
     }
 }

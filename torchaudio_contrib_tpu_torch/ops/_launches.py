@@ -15,7 +15,8 @@ from . import fused, fused_griffinlim
 _COUNTERS = {
     fused: ("KERNEL_LAUNCHES", "BWD_KERNEL_LAUNCHES", "BWD_DFRAMES_LAUNCHES",
             "FFT_KERNEL_LAUNCHES", "BWD_FFT_LAUNCHES",
-            "BWD_DX_FUSED_LAUNCHES"),
+            "BWD_DX_FUSED_LAUNCHES", "BWD_DFB_LAUNCHES",
+            "BWD_DFB_ONE_READ_LAUNCHES"),
     fused_griffinlim: ("GL_KERNEL_LAUNCHES", "GL_TILE_MAJOR_LAUNCHES",
                        "GL_FFT_LAUNCHES"),
 }

@@ -45,8 +45,10 @@ backward launches that also ran the frame gradient passes;
 ``FFT_KERNEL_LAUNCHES`` and ``BWD_FFT_LAUNCHES`` count those of the
 forward and of the frame passes that took the FFT route (and nothing
 else), and ``BWD_DX_FUSED_LAUNCHES`` those frame passes that wrote the
-waveform gradient themselves, so a run can show which kernels it went
-through.
+waveform gradient themselves; ``BWD_DFB_LAUNCHES`` counts the
+filterbank-gradient passes and ``BWD_DFB_ONE_READ_LAUNCHES`` those whose
+blocks covered every mel column, so that they read the residual once.  So
+a run can show which kernels it went through.
 
 On a CUDA tensor the op marks its parts for a recording ``torch.profiler``
 (``tac::fused_mel``, ``tac::fused_mel.fwd``, ``tac::fused_mel.bwd`` with
@@ -82,6 +84,8 @@ BWD_DFRAMES_LAUNCHES = 0
 FFT_KERNEL_LAUNCHES = 0
 BWD_FFT_LAUNCHES = 0
 BWD_DX_FUSED_LAUNCHES = 0
+BWD_DFB_LAUNCHES = 0
+BWD_DFB_ONE_READ_LAUNCHES = 0
 
 _PRECISIONS = ("fast", "split3", "split6")
 
@@ -94,7 +98,9 @@ _K_TILE = 16        # fft samples per K step (basis rows pad to this)
 _MEL_TILE = 64      # mel columns per step (filterbank columns pad to this)
 _MAX_MELS = 704     # the (frames, mels) accumulator must fit shared memory
 _MAX_GRID_Y = 65535  # streams (clips) per launch: grid.y (grid.z)
-_DFB_BLOCKS = 264   # the dFB pass splits the rows to fill ~2 waves of SMs
+_DFB_BLOCKS = 264   # the dFB pass splits the rows to fill two blocks an SM
+_DFB_BINS = 128     # bins per dFB block (two frequency tiles)
+_DFB_MELS = 128     # mel columns per dFB block where m_pad is a multiple
 # csrc/fft_smem.cuh: the frame lengths the FFT kernels are built for
 # (powers of two; the complex transform has half the length), and the
 # radix of a pass: radix-8 passes, then one radix-2 or radix-4 pass where
@@ -307,7 +313,7 @@ def _kernel_lib():
                          (_FFT_MIN, _FFT_MAX, _FREQ_TILE, _MEL_TILE)),
                         (lib.tac_fused_mel_bwd_tile,
                          (_FRAME_TILE, _FREQ_TILE, _K_TILE, _MEL_TILE,
-                          _DX_FRAMES))):
+                          _DX_FRAMES, _DFB_BINS, _DFB_MELS))):
         tiles = tuple(query(i) for i in range(len(want)))
         if tiles != want:
             raise RuntimeError(f"kernel tiles {tiles} do not match the host "
@@ -605,6 +611,21 @@ def _dfb_splits(rows: int, tiles: int):
     return _cdiv(rows, per), per
 
 
+def _dfb_grid(rows: int, n_freqs: int, m_pad: int):
+    """``(n_splits, rows_per_split, tiles, one_read)`` for the dFB pass,
+    as ``csrc/fused_mel_bwd.cu`` lays it out: ``_DFB_BINS``-bin tiles, a
+    lone last bin (the Nyquist bin of the FFT sizes) folded into tile 0;
+    all ``m_pad`` mel columns in one tile up to ``_DFB_MELS``, else tiles
+    of ``_DFB_MELS`` (``_MEL_TILE`` where ``m_pad`` is no multiple of
+    it); ``tiles`` output tiles a split, and ``one_read`` when every
+    block covers all the mel columns, so that the residual is read once."""
+    full, rem = divmod(n_freqs, _DFB_BINS)
+    bin_tiles = full + int(rem > 1 or (rem == 1 and full == 0))
+    mel_tiles = m_pad // (_DFB_MELS if m_pad % _DFB_MELS == 0 else _MEL_TILE)
+    n_splits, per = _dfb_splits(rows, bin_tiles * mel_tiles)
+    return n_splits, per, bin_tiles * mel_tiles, mel_tiles == 1
+
+
 def _fused_mel_bwd_cuda(dmel, reim, filterbank, fft_length, window,
                         win_length, need_dx, need_dfb, _route=None, dx=None,
                         hop_length=None):
@@ -623,7 +644,7 @@ def _fused_mel_bwd_cuda(dmel, reim, filterbank, fft_length, window,
     returned in place of ``dframes``.  Raises on any input it does not
     take."""
     global BWD_KERNEL_LAUNCHES, BWD_DFRAMES_LAUNCHES, BWD_FFT_LAUNCHES
-    global BWD_DX_FUSED_LAUNCHES
+    global BWD_DX_FUSED_LAUNCHES, BWD_DFB_LAUNCHES, BWD_DFB_ONE_READ_LAUNCHES
     route = _route_for(fft_length, _route)
     for name, t in (("dmel", dmel), ("reim", reim)):
         if not (t.is_cuda and t.dtype == torch.float32 and t.ndim == 2
@@ -669,7 +690,6 @@ def _fused_mel_bwd_cuda(dmel, reim, filterbank, fft_length, window,
                              f"rows")
     if not (need_dx or need_dfb):
         return None, None
-    f_pad = ft_count * _FREQ_TILE
     fbp = _fb_padded(filterbank, ft_count, m_pad).contiguous()
     dev = dict(dtype=torch.float32, device=dmel.device)
     dframes = (torch.empty((rows, fft_length), **dev)
@@ -688,11 +708,12 @@ def _fused_mel_bwd_cuda(dmel, reim, filterbank, fft_length, window,
         k_pad = basis.shape[0]
     dfb = part = None
     n_splits = per = 0      # read by the library only with dfb
+    one_read = False
     if need_dfb:
-        n_splits, per = _dfb_splits(rows, ft_count * (m_pad // _MEL_TILE))
-        dfb = torch.empty((f_pad, m_pad), **dev)
+        n_splits, per, _, one_read = _dfb_grid(rows, n_freqs, m_pad)
+        dfb = torch.empty((n_freqs, m_pad), **dev)
         if n_splits > 1:
-            part = torch.empty((n_splits, f_pad, m_pad), **dev)
+            part = torch.empty((n_splits, n_freqs, m_pad), **dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _kernel_lib()
     with torch.cuda.device(dmel.device):
@@ -708,8 +729,10 @@ def _fused_mel_bwd_cuda(dmel, reim, filterbank, fft_length, window,
     BWD_DFRAMES_LAUNCHES += int(need_dx)
     BWD_FFT_LAUNCHES += int(need_dx and route == "fft")
     BWD_DX_FUSED_LAUNCHES += int(dx is not None)
+    BWD_DFB_LAUNCHES += int(need_dfb)
+    BWD_DFB_ONE_READ_LAUNCHES += int(one_read)
     return (dframes if dx is None else dx,
-            dfb[:n_freqs, :num_mels] if need_dfb else None)
+            dfb[:, :num_mels] if need_dfb else None)
 
 
 # ---- autograd --------------------------------------------------------------
