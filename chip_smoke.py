@@ -685,7 +685,7 @@ def _dft_route(xs, fb, n_fft, hop, wl, to_db):
     return fused._fused_apply(
         xs, fb, n_fft, hop, "hann", wl, to_db, 1.0, 1e-7,
         partial(fused._fused_mel_fwd_cuda, _route="dft"),
-        partial(fused._fused_mel_bwd_cuda, _route="dft"))
+        partial(fused._op_bwd_cuda, _route="dft"))
 
 
 def _gl_counts() -> tuple:
@@ -1205,8 +1205,8 @@ def phase_config2_train(layer, x, g, y, dx, dfb, card: str) -> tuple:
         want_dx[:, :full] = _overlap_add(
             dframes_p.view(streams, n_frames, n_fft), n_fft, hop, full)
         dx_runs = [fused._fused_mel_bwd_cuda(
-            dmel, reim2, *bargs, True, False, dx=torch.empty_like(x2),
-            hop_length=hop)[0] for _ in range(2)]
+            dmel, reim2, *bargs, True, False, hop_length=hop,
+            n_samples=x2.shape[-1])[0] for _ in range(2)]
         torch.cuda.synchronize()
         dx_err = _rel(dx_runs[0], want_dx)
         dx_twice = torch.equal(dx_runs[0], dx_runs[1])

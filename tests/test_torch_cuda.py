@@ -348,13 +348,14 @@ DX_CASES += [(1024, 300), (2048, 121)]
 @pytest.mark.cuda
 @pytest.mark.parametrize("streams", [1, 33])
 @pytest.mark.parametrize("fft,hop", DX_CASES)
-def test_frame_pass_overlap_adds_dx(cuda_device, fft, hop, streams):
-    """The frame pass with ``dx`` against ``_overlap_add`` of the plain
+def test_frame_pass_overlap_adds_dx(cuda_device, monkeypatch, fft, hop,
+                                    streams):
+    """The frame pass writing ``dx`` against ``_overlap_add`` of the plain
     frame gradient (1e-4 of peak) and of the kernel's own (1e-5): 37
     frames a stream, so two tiles of 16 and a partial one; samples past
-    the last full frame, exactly zero; ``dx`` written whole (it starts as
-    NaN) and bitwise equal over two runs; ``BWD_DX_FUSED_LAUNCHES`` one a
-    launch."""
+    the last full frame, exactly zero; ``dx`` written whole (every buffer
+    the wrapper allocates starts as NaN) and bitwise equal over two runs;
+    ``BWD_DX_FUSED_LAUNCHES`` one a launch."""
     from torchaudio_contrib_tpu_torch.ops.stft import _overlap_add
     n_frames, mels = 37, 40
     full = (n_frames - 1) * hop + fft
@@ -373,16 +374,19 @@ def test_frame_pass_overlap_adds_dx(cuda_device, fft, hop, streams):
              for frames in (tfused._bwd_plain(dmel, reim2, *bargs)[0],
                             tfused._fused_mel_bwd_cuda(dmel, reim2,
                                                        *bargs)[0])]
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty",
+                        lambda *a, **k: empty(*a, **k).fill_(float("nan")))
     before = tfused.BWD_DX_FUSED_LAUNCHES
     runs = []
     for _ in range(2):
-        dx = torch.full((streams, n_samples), float("nan"),
-                        device=cuda_device)
-        got, dfb = tfused._fused_mel_bwd_cuda(dmel, reim2, *bargs, dx=dx,
-                                              hop_length=hop)
-        assert got is dx and dfb is None
+        got, dfb = tfused._fused_mel_bwd_cuda(dmel, reim2, *bargs,
+                                              hop_length=hop,
+                                              n_samples=n_samples)
+        assert got.shape == (streams, n_samples) and dfb is None
         runs.append(got)
     torch.cuda.synchronize()
+    monkeypatch.undo()
     assert tfused.BWD_DX_FUSED_LAUNCHES == before + 2
     dx, dx2 = runs
     assert torch.equal(dx, dx2)
@@ -393,14 +397,13 @@ def test_frame_pass_overlap_adds_dx(cuda_device, fft, hop, streams):
 
 @pytest.mark.cuda
 def test_frame_pass_refuses_dx_outside_its_rule(cuda_device):
-    """``dx`` is taken only on the FFT route at a hop from fft / 17 to
-    fft, for frames that are the rows, and with the waveform gradient
-    asked for."""
+    """The frame pass writes ``dx`` only on the FFT route at a hop from
+    fft / 17 to fft, for frames that are the rows, and with the waveform
+    gradient asked for."""
     fb = tops.create_mel_filter(32, 16000, 0.0, None, 513,
                                 device=cuda_device)
     dmel = torch.zeros((10, 64), device=cuda_device)
     reim = torch.zeros((10, 9 * 128), device=cuda_device)
-    dx = torch.empty((2, 1024 + 4 * 256), device=cuda_device)
     bargs = (fb, 1024, "hann", None)
     for hop, route, need_dx, what in ((60, None, True, "overlap-adds"),
                                       (1025, None, True, "overlap-adds"),
@@ -409,7 +412,8 @@ def test_frame_pass_refuses_dx_outside_its_rule(cuda_device):
                                       (200, None, True, "rows")):
         with pytest.raises(ValueError, match=what):
             tfused._fused_mel_bwd_cuda(dmel, reim, *bargs, need_dx, True,
-                                       _route=route, dx=dx, hop_length=hop)
+                                       _route=route, hop_length=hop,
+                                       n_samples=1024 + 4 * 256)
 
 
 # fft, hop, whether the frame pass writes dx: both edges of the hop rule,
@@ -443,6 +447,35 @@ def test_dx_epilogue_where_the_rule_says(cuda_device, fft, hop, fused, need):
         assert (got is None) == (want is None)
         if got is not None:
             assert _peak_err(got.cpu(), want) <= GRAD_PARITY
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,fused", [(None, True), ("fft", True),
+                                         ("dft", False)])
+def test_dx_epilogue_follows_the_route_taken(cuda_device, route, fused):
+    """The op's backward on the card with a route named (as
+    ``chip_smoke.py`` names one) at a size and hop the rule takes: the
+    frame pass writes ``dx`` on the FFT route and the host overlap-adds on
+    the DFT route, and both give the plain chain's gradients."""
+    fft, hop = 1024, 256
+    x, fb = _inputs(fft + hop, (2, 20 * hop + fft + 7), 48, 16000, fft)
+    with torch.no_grad():
+        out = tops.fused_melspectrogram(x, fb, fft, hop)
+    g = torch.from_numpy(np.random.default_rng(fft).standard_normal(
+        tuple(out.shape)).astype(np.float32))
+    _, want_dx, want_dfb = _grads(x, fb, fft, hop, g)
+    xd = x.to(cuda_device).requires_grad_()
+    fbd = fb.to(cuda_device).requires_grad_()
+    before = tfused.BWD_DX_FUSED_LAUNCHES
+    got = tfused._fused_apply(
+        xd, fbd, fft, hop, "hann", None, True, 1.0, 1e-7,
+        functools.partial(tfused._fused_mel_fwd_cuda, _route=route),
+        functools.partial(tfused._op_bwd_cuda, _route=route))
+    (got * g.to(cuda_device)).sum().backward()
+    torch.cuda.synchronize()
+    assert tfused.BWD_DX_FUSED_LAUNCHES - before == int(fused)
+    assert _peak_err(xd.grad.cpu(), want_dx) <= GRAD_PARITY
+    assert _peak_err(fbd.grad.cpu(), want_dfb) <= GRAD_PARITY
 
 
 # ---- fused Griffin-Lim: the solve's kernels vs their plain version ---------

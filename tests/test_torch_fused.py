@@ -156,8 +156,8 @@ def test_basis_layout():
 def test_import_pulls_in_no_jax():
     code = ("import sys, torchaudio_contrib_tpu_torch\n"
             "from torchaudio_contrib_tpu_torch.benchmarks import "
-            "gl_bisect, gl_probe, gl_profile, mel_ab, mel_bisect, "
-            "mel_profile, asr_profile, transducer_profile\n"
+            "gl_bisect, gl_probe, gl_profile, asr_profile, "
+            "transducer_profile\n"
             "from torchaudio_contrib_tpu_torch.ops import (griffinlim, "
             "fused_griffinlim, melinv, pitch, resample, phase_vocoder, "
             "mulaw, features, augment, spectral, effects, convolve, "

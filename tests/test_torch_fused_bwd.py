@@ -6,9 +6,10 @@ JAX op (its chain and custom VJP on the CPU) and through the port:
 * the public op on CPU tensors, whose gradient is autograd of the plain
   chain;
 * ``_FusedMel``, the autograd function the GPU runs, driven here with the
-  plain PyTorch versions of the two kernels (``_fwd_res_plain``,
-  ``_bwd_plain``) in the kernels' layouts: the dB gate, the residual
-  layout, the overlap-add and leading dims are all on this path;
+  plain PyTorch versions of the two kernels (``_fwd_res_plain``, and
+  ``_bwd_plain`` inside the op's backward ``_op_bwd_plain``) in the
+  kernels' layouts: the dB gate, the residual layout, the overlap-add and
+  leading dims are all on this path;
 * the JAX package's own Pallas forward (``save_spec``) and backward
   kernels through the Pallas interpreter, at a hop that is not a multiple
   of 128 (128-aligned hops take 40 s or more interpreted).
@@ -83,7 +84,7 @@ def _kernel_path(x, fb, fft, hop, center=False, pad_mode="reflect",
         x = _pad_center(x, fft // 2, pad_mode)
     return tfused._fused_apply(x, fb, fft, hop, window, win_length, to_db,
                                db_ref, amin, tfused._fwd_res_plain,
-                               tfused._bwd_plain)
+                               tfused._op_bwd_plain)
 
 
 def _torch_grads(fn, x, fb, g, fft, hop, kw, need=(True, True)):
@@ -112,14 +113,19 @@ def test_grads_match_jax(rng, path, shape, fft, hop, mels, sr, kw):
 @pytest.mark.parametrize("need", [(False, True), (True, False)],
                          ids=["filterbank_only", "waveform_only"])
 def test_backward_runs_only_what_is_needed(rng, monkeypatch, need):
-    """The backward kernel is asked only for the gradients
-    ``needs_input_grad`` wants; with no waveform gradient there is no
-    overlap-add either."""
-    calls = []
+    """The backward is asked only for the gradients ``needs_input_grad``
+    wants, and so is the kernel inside it; with no waveform gradient there
+    is no overlap-add either."""
+    calls, kernel_calls = [], []
+    plain_kernel = tfused._bwd_plain
 
     def spy(*args):
         calls.append(args[-2:])
-        return tfused._bwd_plain(*args)
+        return tfused._op_bwd_plain(*args)
+
+    def kernel_spy(*args):
+        kernel_calls.append(args[-2:])
+        return plain_kernel(*args)
 
     def no_ola(*args):
         raise AssertionError("overlap-add without a waveform gradient")
@@ -128,12 +134,13 @@ def test_backward_runs_only_what_is_needed(rng, monkeypatch, need):
         return tfused._fused_apply(xv, fbv, fft, hop, "hann", None, True,
                                    1.0, 1e-7, tfused._fwd_res_plain, spy)
 
+    monkeypatch.setattr(tfused, "_bwd_plain", kernel_spy)
     if not need[0]:
         monkeypatch.setattr(tfused, "_overlap_add", no_ola)
     x, fb, g = _inputs(rng, (2, 1, 16000), 512, 128, 64, 16000, {})
     want = _jax_grads(x, fb, g, 512, 128, {})
     _, *got = _torch_grads(fn, x, fb, g, 512, 128, {}, need)
-    assert calls == [need]
+    assert calls == kernel_calls == [need]
     for grad, w, needed in zip(got, want, need):
         if needed:
             assert _rel(grad, w) <= GRAD_TOL
@@ -166,7 +173,7 @@ def test_gradcheck_float64():
     def fn(xv, fbv):
         return tfused._fused_apply(xv, fbv, 16, 5, "hann", None, True, 1.0,
                                    1e-7, tfused._fwd_res_plain,
-                                   tfused._bwd_plain)
+                                   tfused._op_bwd_plain)
 
     assert torch.autograd.gradcheck(
         fn, (x.requires_grad_(), fb.requires_grad_()), eps=1e-6, atol=1e-6)

@@ -13,15 +13,13 @@ transform, the residual in the same tile layout.  Here they are held
   (``_fwd_res_plain``, ``_bwd_plain``), whose float32 basis bounds the
   agreement in float64 at ~1e-7;
 * against the JAX package: ``_FusedMel`` driven with the step-by-step
-  versions against ``jax`` values and gradients of the JAX op, at the bars
+  versions (``_op_bwd_fft_plain``) against ``jax`` values and gradients of the JAX op, at the bars
   of ``tests/test_torch_fused.py`` and ``tests/test_torch_fused_bwd.py``;
 * and the routing rule: which ``fft_length`` takes which kernels.
 
 The kernels themselves are held against these versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
-import functools
-
 import numpy as np
 import pytest
 import torch
@@ -267,7 +265,7 @@ def _fft_path(x, fb, fft, hop, center=False, pad_mode="reflect",
         x = _pad_center(x, fft // 2, pad_mode)
     return tfused._fused_apply(x, fb, fft, hop, window, win_length, to_db,
                                db_ref, amin, tfused._fwd_fft_plain,
-                               tfused._bwd_fft_plain)
+                               tfused._op_bwd_fft_plain)
 
 
 JAX_CASES = [
@@ -329,7 +327,7 @@ def test_gradcheck_float64_on_the_fft_route():
     def fn(xv, fbv):
         return tfused._fused_apply(xv, fbv, 256, 40, "hann", None, True, 1.0,
                                    1e-7, tfused._fwd_fft_plain,
-                                   tfused._bwd_fft_plain)
+                                   tfused._op_bwd_fft_plain)
 
     assert torch.autograd.gradcheck(
         fn, (x.requires_grad_(), fb.requires_grad_()), eps=1e-6, atol=1e-6)
@@ -371,70 +369,49 @@ def test_routing_rule(fft, takes_fft):
 def test_dx_rule(fft, hop, fusable):
     """The frame pass overlap-adds itself on the FFT route at a hop from
     fft / 17 to fft; the DFT route and every other hop keep
-    ``_overlap_add``.  Only the CUDA wrapper on a card's tensor takes it:
-    never a plain version, the wrapper bound to a route, or a CPU
-    tensor."""
+    ``_overlap_add``."""
     assert tfused._dx_fusable(fft, hop) is fusable
-    cpu = torch.zeros(1)
-    for bwd in (tfused._fused_mel_bwd_cuda, tfused._bwd_plain,
-                tfused._bwd_fft_plain,
-                functools.partial(tfused._fused_mel_bwd_cuda, _route="fft")):
-        assert not tfused._dx_in_kernel(bwd, cpu, fft, hop)
+
+
+# each plain backward of the op, with the forward of the same route
+PLAIN_PATHS = {"dft": (tfused._fwd_res_plain, tfused._op_bwd_plain),
+               "fft": (tfused._fwd_fft_plain, tfused._op_bwd_fft_plain)}
 
 
 @pytest.mark.parametrize("fft,hop,fused", [
     (512, 128, True), (2048, 512, True), (256, 100, True),
     (400, 160, False), (512, 600, False), (2048, 100, False)])
-def test_backward_hands_the_overlap_add_to_the_frame_pass(rng, monkeypatch,
-                                                          fft, hop, fused):
-    """Where :func:`_dx_in_kernel` holds, ``_FusedMel``'s backward asks
-    ``bwd`` for ``dx`` (and the hop) and runs no ``_overlap_add``; else it
-    asks for the frame gradient and overlap-adds it.  Here the rule is
-    taken from the shape alone (a CPU tensor never takes it), and a stand-in
-    for the CUDA wrapper fills ``dx`` from the plain frame gradient: both
-    paths give the chain's gradients, for a waveform with samples past the
-    last full frame."""
-    asked, added = [], []
-    plain_ola = tfused._overlap_add
-
-    def ola(*args):
-        added.append(args[1:3])
-        return plain_ola(*args)
-
-    def bwd(*args, dx=None, hop_length=None):
-        asked.append(hop_length)
-        frames, dfb = tfused._bwd_plain(*args)
-        if dx is not None:
-            streams, n = dx.shape
-            full = n - (n - fft) % hop_length
-            dx.zero_()[:, :full] = plain_ola(frames.view(streams, -1, fft),
-                                             fft, hop_length, full)
-            frames = dx
-        return frames, dfb
-
-    monkeypatch.setattr(tfused, "_overlap_add", ola)
-    monkeypatch.setattr(tfused, "_dx_in_kernel",
-                        lambda b, g, f, h: b is bwd and tfused._dx_fusable(f, h))
+def test_backward_hands_the_overlap_add_to_the_frame_pass(rng, fft, hop,
+                                                          fused):
+    """Every plain backward of the op that the size takes, driven by
+    ``_FusedMel`` under its one contract, gives the chain's gradients for
+    a waveform with samples past the last full frame, whether or not the
+    card's frame pass would overlap-add there (:func:`_dx_fusable`); those
+    samples get exactly zero."""
+    assert tfused._dx_fusable(fft, hop) is fused
     mels, n = 32, 3 * fft + 5 * hop + hop // 3
+    full = n - (n - fft) % hop
     x = rng.standard_normal((2, n)).astype(np.float32)
     fb = tops.create_mel_filter(mels, 16000, 0.0, None, fft // 2 + 1)
     g = torch.from_numpy(rng.standard_normal(
         (2, mels, 1 + (n - fft) // hop)).astype(np.float32))
-    grads = []
-    for path in ("kernel", "chain"):
+
+    def grads(fn):
         xt = torch.from_numpy(x).requires_grad_()
         fbt = fb.clone().requires_grad_()
-        out = (tfused._fused_apply(xt, fbt, fft, hop, "hann", None, True, 1.0,
-                                   1e-7, tfused._fwd_res_plain, bwd)
-               if path == "kernel" else
-               tfused._reference(xt, fbt, fft, hop, "hann", 2.0, True, 1.0,
-                                 1e-7))
-        (out * g).sum().backward()
-        grads.append((xt.grad, fbt.grad))
-    assert asked == [hop if fused else None]
-    assert added == ([] if fused else [(fft, hop)])
-    for got, want in zip(*grads):
-        assert _rel(got, want) <= GRAD_TOL
+        (fn(xt, fbt) * g).sum().backward()
+        return xt.grad, fbt.grad
+
+    want = grads(lambda xt, fbt: tfused._reference(
+        xt, fbt, fft, hop, "hann", 2.0, True, 1.0, 1e-7))
+    routes = ("dft", "fft") if tfused._fft_kernel_supported(fft) else ("dft",)
+    for route in routes:
+        got = grads(lambda xt, fbt: tfused._fused_apply(
+            xt, fbt, fft, hop, "hann", None, True, 1.0, 1e-7,
+            *PLAIN_PATHS[route]))
+        assert not got[0][:, full:].any(), route
+        for a, b in zip(got, want):
+            assert _rel(a, b) <= GRAD_TOL, route
 
 
 def test_dx_counter_is_a_launch_counter():

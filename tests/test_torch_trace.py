@@ -45,7 +45,8 @@ def _inputs(rng, need=(True, True)):
 def _fused(x, fb):
     """The op's CUDA route with the kernels' plain versions."""
     return tfused._fused_apply(x, fb, FFT, HOP, "hann", None, True, 1.0,
-                               1e-7, tfused._fwd_res_plain, tfused._bwd_plain)
+                               1e-7, tfused._fwd_res_plain,
+                               tfused._op_bwd_plain)
 
 
 def _grads(x, fb, g):

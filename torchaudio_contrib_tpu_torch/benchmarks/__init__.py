@@ -3,14 +3,13 @@
 ``gl_bisect`` times the fused Griffin-Lim solve with single stages switched
 off; ``gl_probe`` times its two state layouts against each other;
 ``gl_profile`` traces one call and lists the card's time by kernel;
-``mel_profile`` does the same for the fused mel front end (config 2 forward
-and forward + backward, a config 3 train step); ``mel_bisect`` times the
-fused mel kernels at config 2 over the number of mels, which separates the
-transform from the mel products; ``mel_ab`` prints those kernels' times for
-whichever tree ``PYTHONPATH`` names, to compare a change with its parent
-on one card, and ``gl_ab`` does so for the fused Griffin-Lim solve (both
-routes, the rounds a block takes, the stage switches).  The ``gl_*``
-benchmarks run the route the size takes and print it.  ``corpus_run``
+``gl_ab`` prints the solve's times for whichever tree ``PYTHONPATH`` names,
+to compare a change with its parent on one card (both routes, the rounds a
+block takes, the stage switches).  The ``gl_*`` benchmarks run the route
+the size takes and print it.  The fused mel front end is measured by the
+repository's benchmark: ``cudabench/run.py`` times a cell (run it on both
+trees to compare them) and ``cudabench/progtrace.py`` puts each kernel row
+of a traced stretch down to the op's spans.  ``corpus_run``
 times BASELINE config 5; ``asr_profile`` traces the ASR path's training
 step, RNN-T loss and beam search at ``chip_smoke.py`` phase 20's shapes and
 holds the step's gradient against a float64 step; ``transducer_profile``

@@ -19,15 +19,19 @@ to device memory.  Which kernel is a function of ``fft_length`` alone
   windowed DFT basis, ~160 x an FFT's operations, which bounds them.
 
 When a gradient is needed, :class:`_FusedMel` runs the forward with its
-re/im residual output and, in the backward, the dB gate, the backward
-kernels of ``csrc/fused_mel_bwd.cu`` (whose frame-gradient passes are one
-kernel around the inverse FFT on the first route, two passes around the
+re/im residual output and hands the whole backward to one callable of a
+fixed contract (see :class:`_FusedMel`); on the card that is
+:func:`_op_bwd_cuda`: the dB gate, the backward kernels of
+``csrc/fused_mel_bwd.cu`` (whose frame-gradient passes are one kernel
+around the inverse FFT on the first route, two passes around the
 transposed product on the second) and the overlap-add onto the waveform.
 On the first route, at a hop from ``fft_length/17`` to ``fft_length``
 (:func:`_dx_fusable`), the frame pass does the overlap-add itself and
 writes the waveform gradient: the frame gradient never reaches device
 memory.  Every other case overlap-adds the kernel's frame gradient with
-``stft._overlap_add``.
+``stft._overlap_add``.  :func:`_op_bwd_plain` and
+:func:`_op_bwd_fft_plain` keep the same contract around the kernels'
+plain versions, for the CPU tests.
 On a CPU tensor it runs :func:`_reference`, the plain PyTorch chain the
 kernels compute, with autograd.  So does a call with ``power != 2`` on any
 device, as in the JAX package (its ``_kernel_eligible``): the rule is read
@@ -52,7 +56,8 @@ a run can show which kernels it went through.
 
 On a CUDA tensor the op marks its parts for a recording ``torch.profiler``
 (``tac::fused_mel``, ``tac::fused_mel.fwd``, ``tac::fused_mel.bwd`` with
-``.dmel``, ``.bwd_launch`` and ``.overlap_add``), and the caches of
+``.dmel``, ``.bwd_launch`` and, where the host overlap-adds,
+``.overlap_add``), and the caches of
 constants count what they copy to the card (``CONST_UPLOADS``,
 ``CONST_UPLOAD_BYTES``): see :mod:`..utils.trace`.
 """
@@ -627,8 +632,8 @@ def _dfb_grid(rows: int, n_freqs: int, m_pad: int):
 
 
 def _fused_mel_bwd_cuda(dmel, reim, filterbank, fft_length, window,
-                        win_length, need_dx, need_dfb, _route=None, dx=None,
-                        hop_length=None):
+                        win_length, need_dx, need_dfb, _route=None,
+                        hop_length=None, n_samples=None):
     """Launch the backward kernel; arguments and results as
     :func:`_bwd_plain`.  The frame-gradient passes run only when
     ``need_dx``: as one kernel around an inverse FFT when
@@ -636,13 +641,12 @@ def _fused_mel_bwd_cuda(dmel, reim, filterbank, fft_length, window,
     pass A and the product with the basis (``_route`` names one of the
     two).  The filterbank-gradient pass runs only when ``need_dfb``.
 
-    With ``dx``, a contiguous float32 ``(streams, n_samples)`` tensor on
-    the card, and ``hop_length`` (:func:`_dx_fusable`, FFT route only), the
-    frame pass overlap-adds the frame gradient onto the waveform itself:
-    the rows are ``streams`` streams of ``1 + (n_samples − fft)//hop``
-    frames, ``dx`` is written whole (zero past the last frame) and
-    returned in place of ``dframes``.  Raises on any input it does not
-    take."""
+    Given ``hop_length`` and ``n_samples`` (:func:`_dx_fusable`, FFT route
+    only), the frame pass overlap-adds the frame gradient onto the waveform
+    itself: the rows are streams of ``1 + (n_samples − fft)//hop`` frames,
+    and the waveform gradient ``(streams, n_samples)``, zero past the last
+    frame, is returned in place of ``dframes``.  Raises on any input it
+    does not take."""
     global BWD_KERNEL_LAUNCHES, BWD_DFRAMES_LAUNCHES, BWD_FFT_LAUNCHES
     global BWD_DX_FUSED_LAUNCHES, BWD_DFB_LAUNCHES, BWD_DFB_ONE_READ_LAUNCHES
     route = _route_for(fft_length, _route)
@@ -668,8 +672,8 @@ def _fused_mel_bwd_cuda(dmel, reim, filterbank, fft_length, window,
         raise ValueError(f"dmel {tuple(dmel.shape)} / reim "
                          f"{tuple(reim.shape)} do not fit {num_mels} mels "
                          f"and {ft_count} frequency tiles")
-    n_samples = hop = 0     # read by the library only with dx
-    if dx is not None:
+    fuse_dx = hop_length is not None
+    if fuse_dx:
         if not (need_dx and route == "fft"
                 and _dx_fusable(fft_length, hop_length)):
             raise ValueError(f"the frame pass overlap-adds in the kernel "
@@ -677,23 +681,20 @@ def _fused_mel_bwd_cuda(dmel, reim, filterbank, fft_length, window,
                              f"fft_length/{_DX_FRAMES + 1} to fft_length, "
                              f"not fft_length={fft_length}, hop_length="
                              f"{hop_length}, route {route!r}")
-        hop, n_samples = hop_length, dx.shape[-1] if dx.ndim else 0
-        if not (dx.ndim == 2 and dx.is_cuda and dx.device == dmel.device
-                and dx.dtype == torch.float32 and dx.is_contiguous()
-                and fft_length <= n_samples < 2 ** 31
-                and dx.shape[0] * (1 + (n_samples - fft_length) // hop)
-                == rows):
-            raise ValueError(f"dx {dx.dtype} {tuple(dx.shape)} on "
-                             f"{dx.device} is not a contiguous float32 "
-                             f"(streams, n_samples) tensor on {dmel.device} "
-                             f"whose frames at hop {hop} are the {rows} "
-                             f"rows")
+        n_frames = 1 + (n_samples - fft_length) // hop_length
+        if not (fft_length <= n_samples < 2 ** 31 and rows % n_frames == 0):
+            raise ValueError(f"the {rows} rows are no whole number of "
+                             f"streams of {n_samples} samples at hop "
+                             f"{hop_length}")
     if not (need_dx or need_dfb):
         return None, None
     fbp = _fb_padded(filterbank, ft_count, m_pad).contiguous()
     dev = dict(dtype=torch.float32, device=dmel.device)
-    dframes = (torch.empty((rows, fft_length), **dev)
-               if need_dx and dx is None else None)
+    dframes = dx = None
+    if need_dx and fuse_dx:
+        dx = torch.empty((rows // n_frames, n_samples), **dev)
+    elif need_dx:
+        dframes = torch.empty((rows, fft_length), **dev)
     # the frame passes' operands: the transposed filterbank, the window and
     # the twiddles (one kernel), or the dreim scratch and the basis (two)
     fbt = w = tw = dreim = basis = None
@@ -722,16 +723,17 @@ def _fused_mel_bwd_cuda(dmel, reim, filterbank, fft_length, window,
             dmel.data_ptr(), reim.data_ptr(), fbp.data_ptr(), ptr(fbt),
             ptr(basis), ptr(w), ptr(tw), ptr(dreim), ptr(dframes), ptr(dx),
             ptr(dfb), ptr(part),
-            rows, fft_length, k_pad, ft_count, m_pad, n_splits, per, hop,
-            n_samples, stream)
+            rows, fft_length, k_pad, ft_count, m_pad, n_splits, per,
+            hop_length if fuse_dx else 0, n_samples if fuse_dx else 0,
+            stream)
     _launch_check(lib, rc, f"backward ({route})")
     BWD_KERNEL_LAUNCHES += 1
     BWD_DFRAMES_LAUNCHES += int(need_dx)
     BWD_FFT_LAUNCHES += int(need_dx and route == "fft")
-    BWD_DX_FUSED_LAUNCHES += int(dx is not None)
+    BWD_DX_FUSED_LAUNCHES += int(fuse_dx)
     BWD_DFB_LAUNCHES += int(need_dfb)
     BWD_DFB_ONE_READ_LAUNCHES += int(one_read)
-    return (dframes if dx is None else dx,
+    return (dx if fuse_dx else dframes,
             dfb[:, :num_mels] if need_dfb else None)
 
 
@@ -759,13 +761,75 @@ def _dmel_from(g, y, to_db: bool, db_ref: float, amin: float):
     return g.reshape(streams * n_frames, m_pad).contiguous()
 
 
-def _dx_in_kernel(bwd, g, fft_length: int, hop_length: int) -> bool:
-    """True when :class:`_FusedMel`'s backward has the frame pass write the
-    waveform gradient: ``bwd`` is the CUDA wrapper itself, the cotangent
-    ``g`` is on the card and :func:`_dx_fusable` holds.  Everything else
-    overlap-adds ``bwd``'s frame gradient with ``_overlap_add``."""
-    return (bwd is _fused_mel_bwd_cuda and g.is_cuda
-            and _dx_fusable(fft_length, hop_length))
+def _dx_from_frames(dframes, streams: int, fft_length: int,
+                    hop_length: int, n_samples: int):
+    """``dframes (streams·n_frames, fft)`` overlap-added onto the waveform
+    with ``stft._overlap_add``: ``dx (streams, n_samples)``, zero past the
+    last full frame."""
+    with span("fused_mel.overlap_add"):
+        n_frames = dframes.shape[0] // streams
+        full = (n_frames - 1) * hop_length + fft_length
+        dx = _overlap_add(dframes.view(streams, n_frames, fft_length),
+                          fft_length, hop_length, full)
+        return F.pad(dx, (0, n_samples - full))
+
+
+def _op_bwd_cuda(g, y, reim, filterbank, cfg, n_samples, need_dx, need_dfb,
+                 _route=None):
+    """The op's backward on the card (:class:`_FusedMel`'s contract): the
+    dB gate (:func:`_dmel_from`), the backward kernel
+    (:func:`_fused_mel_bwd_cuda`, ``_route`` as there) and the overlap-add.
+    The frame pass does the overlap-add itself where the launch takes the
+    FFT route and the hop allows it (:func:`_dx_fusable`); elsewhere it is
+    done here, on the kernel's frame gradient."""
+    fft_length, hop_length, window, win_length, to_db, db_ref, amin = cfg
+    streams, _, n_frames = y.shape
+    with span("fused_mel.dmel"):
+        dmel = _dmel_from(g, y, to_db, db_ref, amin)
+    fuse_dx = (need_dx and _route_for(fft_length, _route) == "fft"
+               and _dx_fusable(fft_length, hop_length))
+    with span("fused_mel.bwd_launch"):
+        frames, dfb = _fused_mel_bwd_cuda(
+            dmel, reim.reshape(streams * n_frames, -1), filterbank,
+            fft_length, window, win_length, need_dx, need_dfb,
+            _route=_route, hop_length=hop_length if fuse_dx else None,
+            n_samples=n_samples)
+    if fuse_dx or not need_dx:
+        return frames, dfb
+    return (_dx_from_frames(frames, streams, fft_length, hop_length,
+                            n_samples), dfb)
+
+
+def _op_bwd_steps(kernel_bwd, g, y, reim, filterbank, cfg, n_samples,
+                  need_dx, need_dfb):
+    """:class:`_FusedMel`'s contract around a plain version of the backward
+    kernel (``kernel_bwd``, as :func:`_bwd_plain`): the dB gate, the
+    kernel's frame gradient and the overlap-add, under the card's spans."""
+    fft_length, hop_length, window, win_length, to_db, db_ref, amin = cfg
+    streams, _, n_frames = y.shape
+    with span("fused_mel.dmel"):
+        dmel = _dmel_from(g, y, to_db, db_ref, amin)
+    with span("fused_mel.bwd_launch"):
+        dframes, dfb = kernel_bwd(
+            dmel, reim.reshape(streams * n_frames, -1), filterbank,
+            fft_length, window, win_length, need_dx, need_dfb)
+    dx = (_dx_from_frames(dframes, streams, fft_length, hop_length,
+                          n_samples) if need_dx else None)
+    return dx, dfb
+
+
+def _op_bwd_plain(*args):
+    """The op's backward with the DFT-product kernel's plain version
+    (:func:`_bwd_plain`); arguments and results as :class:`_FusedMel`'s
+    contract."""
+    return _op_bwd_steps(_bwd_plain, *args)
+
+
+def _op_bwd_fft_plain(*args):
+    """The op's backward with the FFT kernel's step-by-step plain version
+    (:func:`_bwd_fft_plain`); arguments and results as
+    :class:`_FusedMel`'s contract."""
+    return _op_bwd_steps(_bwd_fft_plain, *args)
 
 
 class _FusedMel(torch.autograd.Function):
@@ -773,15 +837,23 @@ class _FusedMel(torch.autograd.Function):
     package's ``_fused_core`` custom VJP.
 
     ``apply(x2 (streams, T), filterbank, cfg, fwd, bwd)`` with ``cfg =
-    (fft_length, hop_length, window, win_length, to_db, db_ref, amin)``
-    and the kernel callables ``fwd``/``bwd`` (the CUDA wrappers on the
-    card; their plain versions in the CPU tests).  The forward saves the
-    re/im residual; the backward runs the dB gate, ``bwd`` and the
-    overlap-add, which the CUDA wrapper's frame pass does itself where
-    :func:`_dx_in_kernel` holds.  It asks ``bwd`` only for the gradients
-    ``ctx.needs_input_grad`` wants: with no waveform gradient the frame
-    passes and the overlap-add are skipped, with no filterbank gradient
-    the dFB pass."""
+    (fft_length, hop_length, window, win_length, to_db, db_ref, amin)``,
+    the forward callable ``fwd`` (:func:`_fused_mel_fwd_cuda` on the card,
+    a plain version in the CPU tests) and the backward ``bwd``, which does
+    the whole backward under one contract::
+
+        bwd(g, y, reim, filterbank, cfg, n_samples, need_dx, need_dfb)
+            -> (dx (streams, n_samples) or None,
+                dfb (n_freqs, num_mels) or None)
+
+    ``g`` is the output's cotangent and ``y`` the saved output, both
+    ``(streams, num_mels, n_frames)``, ``reim`` the forward's residual;
+    ``dx`` is zero past the last full frame.  ``bwd`` is
+    :func:`_op_bwd_cuda` on the card, :func:`_op_bwd_plain` or
+    :func:`_op_bwd_fft_plain` in the CPU tests.  It is asked only for the
+    gradients ``ctx.needs_input_grad`` wants: with no waveform gradient
+    the frame passes and the overlap-add are skipped, with no filterbank
+    gradient the dFB pass."""
 
     @staticmethod
     def forward(ctx, x2, filterbank, cfg, fwd, bwd):
@@ -795,33 +867,9 @@ class _FusedMel(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         with span("fused_mel.bwd"):
-            need_dx, need_dfb = ctx.needs_input_grad[:2]
             filterbank, out, reim = ctx.saved_tensors
-            (fft_length, hop_length, window, win_length, to_db, db_ref,
-             amin) = ctx.cfg
-            streams, _, n_frames = out.shape
-            with span("fused_mel.dmel"):
-                dmel = _dmel_from(g, out, to_db, db_ref, amin)
-            args = (dmel, reim.reshape(streams * n_frames, -1), filterbank,
-                    fft_length, window, win_length, need_dx, need_dfb)
-            if need_dx and _dx_in_kernel(ctx.bwd, g, fft_length, hop_length):
-                # the frame pass overlap-adds: what is left here is dx
-                with span("fused_mel.overlap_add"):
-                    dx = g.new_empty((streams, ctx.n_samples))
-                with span("fused_mel.bwd_launch"):
-                    dx, dfb = ctx.bwd(*args, dx=dx, hop_length=hop_length)
-                return dx, dfb, None, None, None
-            with span("fused_mel.bwd_launch"):
-                dframes, dfb = ctx.bwd(*args)
-            dx = None
-            if need_dx:
-                with span("fused_mel.overlap_add"):
-                    # samples past the last full frame get zero gradient
-                    full = (n_frames - 1) * hop_length + fft_length
-                    dx = _overlap_add(
-                        dframes.view(streams, n_frames, fft_length),
-                        fft_length, hop_length, full)
-                    dx = F.pad(dx, (0, ctx.n_samples - full))
+            dx, dfb = ctx.bwd(g, out, reim, filterbank, ctx.cfg,
+                              ctx.n_samples, *ctx.needs_input_grad[:2])
         return dx, dfb, None, None, None
 
 
@@ -914,4 +962,4 @@ def fused_melspectrogram(waveform: torch.Tensor,
         return _fused_apply(waveform.to(torch.float32),
                             filterbank.to(torch.float32), fft_length,
                             hop_length, window, win_length, to_db, db_ref,
-                            amin, _fused_mel_fwd_cuda, _fused_mel_bwd_cuda)
+                            amin, _fused_mel_fwd_cuda, _op_bwd_cuda)

@@ -23,7 +23,11 @@ family's forward and the greedy CTC decode:
 ``fused_mel.bwd``          the backward of the fused op, with three children:
 ``fused_mel.dmel``         the dB gate and the cotangent laid out in rows
 ``fused_mel.bwd_launch``   the backward kernel's launch, with its operands
-``fused_mel.overlap_add``  the frame gradients added onto the waveform
+                           and outputs (the waveform gradient where the
+                           frame pass writes it)
+``fused_mel.overlap_add``  the frame gradients added onto the waveform on
+                           the host; it does not open where the frame
+                           pass writes the waveform gradient itself
 ``classifier.step``        ``MelFrontendClassifier.train_step``, with
                            ``classifier.forward``, ``classifier.loss``,
                            ``classifier.grad`` (``torch.autograd.grad``) and
