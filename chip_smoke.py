@@ -335,6 +335,19 @@ imports no JAX.  Phases, each printing its lines:
     1e-4 of its autograd; B1 (and B2) = 1 + k x replays on the FFT route,
     (c) and (d) no launch.  B1's and B2's launches are added to their
     ``launches`` as ``devloop_launches``.
+28. the banded mel products (``phase_banded``): at configs 2 and 3 at
+    full width, B1 (serving and with its residual) and B2's frame pass
+    (writing ``dx``) forced banded and forced dense, in turns dense,
+    banded, banded, dense, each by CUDA events around 20 calls queued back
+    to back (the card's time), each band pass included; the two
+    paths within 1e-5 of peak of each other (``dx`` bitwise) and the op's
+    own choice bitwise the banded run, the card's counters moving as the
+    choice says; a dense learned filterbank at config 2 through the op's
+    own choice (the dense products) beside the forced dense times; then the
+    sweep that set the crossover shares: config 2's and config 3's mel
+    filterbanks with every band widened to a share of the bins, banded
+    against dense at each share.  The banded times and the banded design
+    count go into B1's and B2's entries of the kernels line.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -762,6 +775,34 @@ def _time_ms(fn, warmup: int = 3, iters: int = 15) -> float:
     """Median over ``iters`` runs of one call, by CUDA events."""
     from torchaudio_contrib_tpu_torch.benchmarks import time_cuda_ms
     return time_cuda_ms(fn, warmup, iters)
+
+
+def _queued_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Median over ``reps`` of the ms a call of ``fn`` takes when ``calls``
+    of them are queued back to back between two CUDA events: the card's
+    time, with no host gap before each call."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / calls)
+    return sorted(times)[reps // 2]
+
+
+def _queued_turns(dense, banded, calls: int = 20) -> tuple:
+    """(banded ms, dense ms) by :func:`_queued_ms`, in turns dense,
+    banded, banded, dense; the better of each."""
+    a, b, c, d = (_queued_ms(dense, calls), _queued_ms(banded, calls),
+                  _queued_ms(banded, calls), _queued_ms(dense, calls))
+    return min(b, c), min(a, d)
 
 
 def _turns(plain, kern, warmup: int = 2, iters: int = 10) -> tuple:
@@ -5505,8 +5546,143 @@ def phase_device_loop(card: str) -> tuple:
     return b1 + n, n
 
 
-def _mel_bounds(x, mels: int, n_fft: int, hop: int) -> tuple:
-    """The bounds of the fused mel forward and backward at ``x (B, 1, T)``.
+def _band_widened(base: torch.Tensor, share: float) -> torch.Tensor:
+    """``base`` (a mel filterbank) with every mel's band widened to
+    ``share`` of the bins around its peak by a small positive weight: the
+    bands then cover about ``share`` of either dense product."""
+    n_freqs = base.shape[0]
+    w = max(2, int(share * n_freqs))
+    k = torch.arange(n_freqs, device=base.device)[:, None]
+    lo = (base.argmax(0) - w // 2).clamp(min=0)[None, :]
+    return base + ((k >= lo) & (k < lo + w)) * 1e-3
+
+
+def _band_shares(fb: torch.Tensor, n_fft: int) -> tuple:
+    """What the banded products cover of the dense ones at ``fb``, as the
+    kernels count it (``ops.fused._band_work``): (forward, frame pass)."""
+    from torchaudio_contrib_tpu_torch.ops import fused
+    m_pad = -(-fb.shape[1] // 64) * 64
+    work = fused._band_work(*fused._fb_bands(fb, m_pad), n_fft, m_pad)
+    return tuple(banded / dense for banded, dense in work)
+
+
+def phase_banded(gen: torch.Generator, card: str) -> tuple:
+    """Phase 28: banded against dense at configs 2 and 3, a dense learned
+    filterbank, and the crossover sweep.  Returns B1's and B2's banded
+    stats at config 2 for the kernels line."""
+    from torchaudio_contrib_tpu_torch import ops as tops
+    from torchaudio_contrib_tpu_torch.ops import _launches, fused
+    t0 = time.perf_counter()
+    shapes = {"config 2": (CFG2["batch"], CFG2["seconds"] * CFG2["sr"],
+                           CFG2["fft"], CFG2["hop"], CFG2["mels"],
+                           CFG2["sr"]),
+              "config 3": (CFG3["batch"], CFG3["samples"], CFG3["fft"],
+                           CFG3["hop"], CFG3["mels"], CFG3["sr"])}
+    stats = {}
+    for name, (batch, samples, n_fft, hop, mels, sr) in shapes.items():
+        x = (0.1 * torch.randn((batch, samples), generator=gen)).cuda()
+        fb = tops.create_mel_filter(mels, sr, 0.0, None, n_fft // 2 + 1,
+                                    device="cuda")
+        args = (n_fft, hop, "hann", None, True, 1.0, 1e-7)
+        with torch.no_grad():
+            out, reim = fused._fused_mel_fwd_cuda(x, fb, *args,
+                                                  save_spec=True)
+            reim2 = reim.reshape(-1, reim.shape[-1])
+            g = torch.randn(out.shape, generator=gen).cuda()
+            dmel = fused._dmel_from(g, out, True, 1.0, 1e-7)
+            del g
+
+            def fwd(banded, fbank=fb, residual=False):
+                return fused._fused_mel_fwd_cuda(
+                    x, fbank, *args, save_spec=residual, _banded=banded)[0]
+
+            def frames(banded, fbank=fb):
+                return fused._fused_mel_bwd_cuda(
+                    dmel, reim2, fbank, n_fft, "hann", None, True, False,
+                    hop_length=hop, n_samples=samples, _banded=banded)[0]
+
+            before = _launches.counts()
+            runs = {b: (fwd(b), frames(b)) for b in (None, True, False)}
+            torch.cuda.synchronize()
+            moved = _launches.delta(before)
+            fwd_gap = _rel(runs[True][0], runs[False][0])
+            dx_same = torch.equal(runs[True][1], runs[False][1])
+            chosen = (torch.equal(runs[None][0], runs[True][0])
+                      and torch.equal(runs[None][1], runs[True][1]))
+            card_moves = (moved["fused.B1_BANDED_LAUNCHES"],
+                          moved["fused.BWD_DP_BANDED_LAUNCHES"])
+            _check(fwd_gap <= F32_PARITY and dx_same and chosen
+                   and card_moves == (2, 2)
+                   and moved["fused.MEL_BAND_LAUNCHES"] == 6,
+                   f"{name}: banded vs dense {fwd_gap}, dx equal {dx_same}, "
+                   f"the choice banded {chosen}, card counts {card_moves}, "
+                   f"band passes {moved['fused.MEL_BAND_LAUNCHES']}")
+            del runs
+            ms = {}
+            for what, fn in (("b1", fwd),
+                             ("b1_residual",
+                              lambda b: fwd(b, residual=True)),
+                             ("frame_pass", frames)):
+                ms[what] = _queued_turns(lambda: fn(False), lambda: fn(True))
+            shares = _band_shares(fb, n_fft)
+            line = ", ".join(f"{k} {b:.4f} banded / {d:.4f} dense ms"
+                             for k, (b, d) in ms.items())
+            print(f"banded [{card}] {name}: {line}; the bands cover "
+                  f"{100 * shares[0]:.2f} % / {100 * shares[1]:.2f} % of the "
+                  f"dense products; banded vs dense out {fwd_gap:.3e}, dx "
+                  f"bitwise {dx_same}", flush=True)
+            stats[name] = ms
+            if name == "config 2":
+                learned = torch.rand(fb.shape, generator=gen).cuda() + 0.01
+                before = _launches.counts()
+                fwd(None, learned)
+                frames(None, learned)
+                torch.cuda.synchronize()
+                moved = _launches.delta(before)
+                _check(moved["fused.B1_BANDED_LAUNCHES"] == 0
+                       and moved["fused.BWD_DP_BANDED_LAUNCHES"] == 0,
+                       f"a dense learned filterbank took a banded product: "
+                       f"{moved}")
+                dense = {"b1": _queued_turns(lambda: fwd(False),
+                                             lambda: fwd(None, learned)),
+                         "frame_pass": _queued_turns(
+                             lambda: frames(False),
+                             lambda: frames(None, learned))}
+                print(f"banded [{card}] config 2, a dense learned filterbank "
+                      f"through the op's choice (dense): " + ", ".join(
+                          f"{k} {a:.4f} ms (the mel filterbank forced dense "
+                          f"{b:.4f})" for k, (a, b) in dense.items()),
+                      flush=True)
+            # the sweep that set the crossover shares
+            base = fb
+            for share in (0.1, 0.15, 0.2, 0.3, 0.5, 0.75, 1.0):
+                wide = _band_widened(base, share)
+                sw = {"b1": _queued_turns(lambda: fwd(False, wide),
+                                          lambda: fwd(True, wide), 8),
+                      "frame_pass": _queued_turns(
+                          lambda: frames(False, wide),
+                          lambda: frames(True, wide), 8)}
+                covers = _band_shares(wide, n_fft)
+                print(f"band sweep [{card}] {name}: the bands cover "
+                      f"{100 * covers[0]:.1f} % / {100 * covers[1]:.1f} %: "
+                      + ", ".join(f"{k} {b:.4f} banded / {d:.4f} dense ms"
+                                  for k, (b, d) in sw.items()), flush=True)
+        del x, out, reim, reim2, dmel
+        torch.cuda.empty_cache()
+    print(f"banded: phase 28 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    ms = stats["config 2"]
+    return ({"banded_ms": ms["b1_residual"][0],
+             "banded_serve_ms": ms["b1"][0],
+             "dense_ms": ms["b1_residual"][1],
+             "dense_serve_ms": ms["b1"][1]},
+            {"frame_pass_banded_ms": ms["frame_pass"][0],
+             "frame_pass_dense_ms": ms["frame_pass"][1]})
+
+
+def _mel_bounds(x, fb, n_fft: int, hop: int) -> tuple:
+    """The bounds of the fused mel forward and backward at ``x (B, 1, T)``
+    and the filterbank ``fb (bins, mels)``.
     The function: one real transform per frame (an FFT's operations) plus
     the mel products over the ``n_fft//2 + 1`` bins there are, in FP32;
     each input read once and each output written once.  ``design_flop_ms``
@@ -5515,8 +5691,13 @@ def _mel_bounds(x, mels: int, n_fft: int, hop: int) -> tuple:
     over the bins padded to groups of 4 (forward) or to the 64-bin tiles
     (backward) and the mels padded to 64.  ``dft_design_flop_ms`` is for
     the DFT-product kernels: the transform as a matrix product over their
-    padded 64-bin tiles."""
+    padded 64-bin tiles.  ``banded_design_flop_ms`` is for the FFT
+    kernels' banded products at the layer's mel filterbank: each mel's
+    band rounded out to groups of 4 bins (forward), each lane's bins over
+    their bands' mels joined (the frame pass's dp; the dFB pass is
+    dense)."""
     rows = x.shape[0] * (1 + (x.shape[-1] - n_fft) // hop)
+    mels = fb.shape[1]
     n_freqs = n_fft // 2 + 1
     ft = -(-n_freqs // 64)
     m_pad = -(-mels // 64) * 64
@@ -5525,14 +5706,20 @@ def _mel_bounds(x, mels: int, n_fft: int, hop: int) -> tuple:
     mel_quads = 2.0 * rows * 4 * -(-n_freqs // 4) * m_pad
     dft = 2.0 * rows * n_fft * ft * 128
     mel_pad = 2.0 * rows * ft * 64 * m_pad
-    fb = n_freqs * mels
-    fwd = _bound(fft + mel, 4 * (x.numel() + fb + rows * mels),
+    fb_size = n_freqs * mels
+    fwd = _bound(fft + mel, 4 * (x.numel() + fb_size + rows * mels),
                  fft + split + mel_quads)
-    bwd = _bound(fft + 2 * mel, 4 * (rows * mels + rows * 2 * n_freqs + fb
-                                     + rows * n_fft + fb),
+    bwd = _bound(fft + 2 * mel, 4 * (rows * mels + rows * 2 * n_freqs
+                                     + fb_size + rows * n_fft + fb_size),
                  fft + split + 2 * mel_pad)
     fwd["dft_design_flop_ms"] = (dft + mel_pad) / PEAK_FP32 * 1e3
     bwd["dft_design_flop_ms"] = (dft + 2 * mel_pad) / PEAK_FP32 * 1e3
+    b1_share, dp_share = _band_shares(fb.detach(), n_fft)
+    fwd["banded_design_flop_ms"] = (fft + split + b1_share * mel_quads) \
+        / PEAK_FP32 * 1e3
+    bwd["banded_design_flop_ms"] = (fft + split + mel_pad + dp_share * 2.0
+                                    * rows * (n_fft // 2) * m_pad) \
+        / PEAK_FP32 * 1e3
     return fwd, bwd
 
 
@@ -5548,8 +5735,11 @@ def main() -> None:
     train_counts, cfg2_train, cfg3_train = phase_train_path(gen)
     _, bwd_stats = phase_config2_train(*cfg2_train, card)
     phase_config3(*cfg3_train, card)
-    fwd_bound, bwd_bound = _mel_bounds(cfg2_run[1], CFG2["mels"], CFG2["fft"],
-                                       CFG2["hop"])
+    # its own generator: the phases after it draw the inputs they always had
+    b1_banded, b2_banded = phase_banded(torch.Generator().manual_seed(28),
+                                        card)
+    fwd_bound, bwd_bound = _mel_bounds(cfg2_run[1], cfg2_run[0].filterbank,
+                                       CFG2["fft"], CFG2["hop"])
     del cfg2_run, serving_run, cfg2_train, cfg3_train
     torch.cuda.empty_cache()
     phase_gl_parity(gen)
@@ -5586,7 +5776,7 @@ def main() -> None:
     kernels = [
         {"name": "fused_mel_fwd", "route": "cuda",
          "source": source + "fused_mel_fwd.cu",
-         "headers": [source + "fft_smem.cuh"],
+         "headers": [source + "fft_smem.cuh", source + "mel_band.cuh"],
          "replaces": "torchaudio_contrib_tpu/ops/fused.py:440",
          "launches": launches + train_counts[0] + corpus["launches"]
          + iir_launches + asr_launches + files_launches + multi_launches
@@ -5600,13 +5790,14 @@ def main() -> None:
          "multidevice_launches": multi_launches,
          "devloop_launches": loop_b1,
          "corpus_ms_per_batch": corpus["b1_ms_per_batch"],
-         **stats, **fwd_bound},
+         **stats, **fwd_bound, **b1_banded},
         {"name": "fused_mel_bwd", "route": "cuda",
          "source": source + "fused_mel_bwd.cu",
-         "headers": [source + "fft_smem.cuh"],
+         "headers": [source + "fft_smem.cuh", source + "mel_band.cuh"],
          "replaces": "torchaudio_contrib_tpu/ops/fused.py:604",
          "launches": train_counts[1] + loop_b2,
-         "devloop_launches": loop_b2, **bwd_stats, **bwd_bound},
+         "devloop_launches": loop_b2, **bwd_stats, **bwd_bound,
+         **b2_banded},
     ] + [
         {"name": name, "route": "cuda", "source": source + "fused_gl.cu",
          "headers": [source + "fft_smem.cuh"], "replaces": replaces,

@@ -478,6 +478,207 @@ def test_dx_epilogue_follows_the_route_taken(cuda_device, route, fused):
     assert _peak_err(fbd.grad.cpu(), want_dfb) <= GRAD_PARITY
 
 
+# ---- the banded mel products: band pass, both products, the card's counts ---
+
+# config 2's and config 3's fft, hop, mels and rate on fewer streams: the
+# kernels' blocks are 16 frames whatever the batch
+BAND_CASES = [(4, 5 * 22050, 2048, 512, 128, 22050),
+              (8, 2 * 16000, 512, 128, 64, 16000)]
+BAND_IDS = ["config2", "config3"]
+
+
+def _card_moves(before):
+    """What the band counters moved since ``before`` (``_launches``)."""
+    from torchaudio_contrib_tpu_torch.ops import _launches
+    torch.cuda.synchronize()
+    moved = _launches.delta(before)
+    return tuple(moved["fused." + n] for n in ("MEL_BAND_LAUNCHES",
+                                               *tfused.CARD_COUNTERS))
+
+
+def _counts_now():
+    from torchaudio_contrib_tpu_torch.ops import _launches
+    torch.cuda.synchronize()
+    return _launches.counts()
+
+
+def _band_inputs(case, seed):
+    streams, samples, fft, hop, mels, sr = case
+    x, fb = _inputs(seed, (streams, samples), mels, sr, fft)
+    return x.cuda(), fb.cuda(), (fft, hop, "hann", None, True, 1.0, 1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BAND_CASES, ids=BAND_IDS)
+@pytest.mark.parametrize("layout", ["contiguous", "transposed"])
+def test_band_pass_writes_the_plain_tables(cuda_device, case, layout):
+    """``mel_band_kernel`` against ``_fb_bands`` and the padded copies, for
+    a filterbank in either memory layout: every table and copy equal."""
+    _, _, fft, _, mels, sr = case
+    fb = tops.create_mel_filter(mels, sr, 0.0, None, fft // 2 + 1,
+                                device=cuda_device)
+    if layout == "transposed":
+        fb = fb.t().contiguous().t()
+    ft, m_pad = fft // 128 + 1, -(-mels // 64) * 64
+    padded = tfused._fb_padded(fb, ft, m_pad)
+    for with_fbp in (True, False):
+        buf, ptrs = tfused._mel_bands(
+            fb, ft, m_pad, with_fbp, torch.cuda.current_stream().cuda_stream)
+        fbp, fbt, mel_band, bin_band = tfused._band_parts(buf, ft, m_pad,
+                                                          with_fbp)
+        torch.cuda.synchronize()
+        assert (ptrs[0] is None) is not with_fbp
+        want = tfused._fb_bands(fb, m_pad)
+        assert torch.equal(mel_band, want[0]) and torch.equal(bin_band,
+                                                              want[1])
+        assert torch.equal(fbt, padded.t())
+        assert fbp is None or torch.equal(fbp, padded)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BAND_CASES, ids=BAND_IDS)
+def test_banded_and_dense_products_agree(cuda_device, case):
+    """Forced banded, forced dense and the tables' choice: the forward's
+    output and the waveform and filterbank gradients each within 1e-5
+    (gradients 1e-4) of the plain versions and of each other, the choice
+    bitwise the banded run; the banded dp leaves out only exact zero
+    terms of the dense one's sums, so ``dx`` is bitwise the dense run's;
+    every run bitwise repeatable."""
+    from torchaudio_contrib_tpu_torch.ops.stft import _overlap_add
+    x, fb, args = _band_inputs(case, 11)
+    streams, samples, fft, hop = case[:4]
+    want, reim = tfused._fwd_res_plain(x, fb, *args, save_spec=True)
+    n_frames = want.shape[-1]
+    rows = streams * n_frames
+    g = torch.randn(want.shape, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(2))
+    dmel = tfused._dmel_from(g, want, True, 1.0, 1e-7)
+    reim2 = reim.reshape(rows, -1)
+    bargs = (fb, fft, "hann", None, True, True)
+    dframes, want_dfb = tfused._bwd_plain(dmel, reim2, *bargs)
+    full = (n_frames - 1) * hop + fft
+    want_dx = torch.zeros_like(x)
+    want_dx[:, :full] = _overlap_add(dframes.view(streams, n_frames, fft),
+                                     fft, hop, full)
+    runs = {}
+    for banded in (None, True, False, None, True, False):
+        out, _ = tfused._fused_mel_fwd_cuda(x, fb, *args, save_spec=True,
+                                            _banded=banded)
+        dx, dfb = tfused._fused_mel_bwd_cuda(dmel, reim2, *bargs,
+                                             hop_length=hop,
+                                             n_samples=samples,
+                                             _banded=banded)
+        torch.cuda.synchronize()
+        if banded in runs:
+            assert all(torch.equal(a, b) for a, b in zip(runs[banded],
+                                                         (out, dx, dfb)))
+        runs[banded] = (out, dx, dfb)
+    for out, dx, dfb in runs.values():
+        assert _peak_err(out, want) <= PARITY
+        assert _peak_err(dx, want_dx) <= GRAD_PARITY
+        assert _peak_err(dfb, want_dfb) <= GRAD_PARITY
+    assert all(torch.equal(a, b) for a, b in zip(runs[None], runs[True]))
+    assert _peak_err(runs[True][0], runs[False][0]) <= PARITY
+    assert torch.equal(runs[True][1], runs[False][1])
+    assert torch.equal(runs[True][2], runs[False][2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BAND_CASES, ids=BAND_IDS)
+def test_bands_follow_a_filterbank_changed_in_place(cuda_device, case):
+    """Nothing is kept from one call to the next: a mel filterbank
+    overwritten in place by a dense one (an optimizer step, ``copy_``)
+    takes the dense products at the next call, and the mel one again the
+    banded ones; each call matches the plain version of the filterbank it
+    saw."""
+    x, fb, args = _band_inputs(case, 12)
+    mel_fb = fb.clone()
+    dense = torch.rand(fb.shape, device=cuda_device,
+                       generator=torch.Generator(cuda_device).manual_seed(3))
+    for now, banded in ((mel_fb, 1), (dense, 0), (mel_fb, 1)):
+        fb.copy_(now)
+        before = _counts_now()
+        with torch.no_grad():
+            out, _ = tfused._fused_mel_fwd_cuda(x, fb, *args)
+        assert _card_moves(before) == (1, banded, 0)
+        want, _ = tfused._fwd_res_plain(x, now, *args)
+        assert _peak_err(out, want) <= PARITY
+
+
+@pytest.mark.cuda
+def test_banded_call_replays_from_a_cuda_graph(cuda_device):
+    """The band pass and both banded products capture into a CUDA graph;
+    each replay runs the band pass again, so it sees the filterbank as it
+    is then (changed in place between replays), the card counts each
+    replay's banded launches, and a replay equals the eager call."""
+    case = BAND_CASES[0]
+    x, fb, args = _band_inputs(case, 13)
+    streams, samples, fft, hop = case[:4]
+    mel_fb = fb.clone()
+    dense = torch.rand(fb.shape, device=cuda_device,
+                       generator=torch.Generator(cuda_device).manual_seed(4))
+    with torch.no_grad():
+        _, reim = tfused._fused_mel_fwd_cuda(x, fb, *args, save_spec=True)
+    rows = reim.shape[0] * reim.shape[1]
+    reim2 = reim.reshape(rows, -1)
+    dmel = torch.randn((rows, 128), device=cuda_device)
+
+    def call():
+        out, _ = tfused._fused_mel_fwd_cuda(x, fb, *args)
+        dx, _ = tfused._fused_mel_bwd_cuda(dmel, reim2, fb, fft, "hann",
+                                           None, True, False,
+                                           hop_length=hop, n_samples=samples)
+        return out, dx
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.no_grad():
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph), torch.no_grad():
+        got = call()
+    for now, banded in ((mel_fb, 1), (dense, 0), (mel_fb, 1)):
+        fb.copy_(now)
+        before = _counts_now()
+        graph.replay()
+        assert _card_moves(before) == (0, banded, banded)
+        with torch.no_grad():
+            want = call()
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_band_counters_move_with_the_products(cuda_device):
+    """Through the op: fwd + both gradients run two band passes and both
+    banded products; the filterbank gradient alone runs the forward's
+    band pass only (the dFB pass reads no filterbank); serving runs one
+    band pass and the banded forward; a dense learned filterbank runs the
+    band passes and neither banded product."""
+    x, fb, _ = _band_inputs(BAND_CASES[1], 14)
+    fft, hop = BAND_CASES[1][2:4]
+
+    def moves(fn):
+        before = _counts_now()
+        fn()
+        return _card_moves(before)
+
+    def grads(filterbank, need):
+        xg = x.clone().requires_grad_(need[0])
+        fg = filterbank.clone().requires_grad_(need[1])
+        tops.fused_melspectrogram(xg, fg, fft, hop).sum().backward()
+
+    dense = torch.rand(fb.shape, device=cuda_device,
+                       generator=torch.Generator(cuda_device).manual_seed(5))
+    assert moves(lambda: grads(fb, (True, True))) == (2, 1, 1)
+    assert moves(lambda: grads(fb, (False, True))) == (1, 1, 0)
+    with torch.inference_mode():
+        assert moves(lambda: tops.fused_melspectrogram(x, fb, fft, hop)) == (
+            1, 1, 0)
+    assert moves(lambda: grads(dense, (True, True))) == (2, 0, 0)
+
+
 # ---- fused Griffin-Lim: the solve's kernels vs their plain version ---------
 
 # fft, hop, samples, window, center: the JAX package's four eligible
@@ -1583,8 +1784,9 @@ def test_device_loop_counters_count_replays(cuda_device):
     n = 1 + 4 * 3           # the warm-up application, then 3 replays of 4
     for name in ("KERNEL_LAUNCHES", "FFT_KERNEL_LAUNCHES",
                  "BWD_KERNEL_LAUNCHES", "BWD_DFRAMES_LAUNCHES",
-                 "BWD_FFT_LAUNCHES"):
+                 "BWD_FFT_LAUNCHES", *tfused.CARD_COUNTERS):
         assert moved["fused." + name] == n, (name, moved)
+    assert moved["fused.MEL_BAND_LAUNCHES"] == 2 * n, moved
     assert not any(v for k, v in moved.items()
                    if k.startswith("fused_griffinlim."))
 

@@ -452,3 +452,242 @@ def test_cpu_path_reaches_no_kernel_constants(rng, monkeypatch):
         fb = tops.create_mel_filter(32, 16000, 0.0, None, fft // 2 + 1)
         out = tops.fused_melspectrogram(x, fb, fft, 128)
         assert out.shape == (2, 32, 1 + (4096 - fft) // 128)
+
+
+# ---- the filterbank's bands: the tables, the banded products, the choice -----
+
+def _fb(kind):
+    """``(filterbank (n_freqs, mels) float64, fft_length)`` of a kind: the
+    mel filterbanks of configs 2 and 3, of 40 and 80 mels at 16 kHz, htk
+    and slaney, with ``f_min > 0`` and ``f_max`` below Nyquist; a linear
+    one; a zero column, an all-zero filterbank, a dense learned one, one
+    stray nonzero far from its band."""
+    mel = tops.create_mel_filter
+    if kind == "config2":
+        return mel(128, 22050, 0.0, None, 1025).double(), 2048
+    if kind == "config3":
+        return mel(64, 16000, 0.0, None, 257).double(), 512
+    if kind == "mels40_htk":
+        return mel(40, 16000, 0.0, None, 257).double(), 512
+    if kind == "mels80_slaney":
+        return mel(80, 16000, 0.0, None, 513, mel_scale="slaney",
+                   norm="slaney").double(), 1024
+    if kind == "fmin_fmax":
+        return mel(64, 16000, 300.0, 6000.0, 257).double(), 512
+    if kind == "slaney_fmin":
+        return mel(40, 22050, 50.0, 8000.0, 1025, mel_scale="slaney",
+                   norm="slaney").double(), 2048
+    if kind == "linear":
+        return tops.create_linear_filter(48, 16000, 0.0, None,
+                                         257).double(), 512
+    fb = mel(64, 16000, 0.0, None, 257).double()
+    if kind == "zero_column":
+        fb[:, 10] = 0.0
+    elif kind == "all_zero":
+        fb.zero_()
+    elif kind == "dense":
+        fb = torch.from_numpy(np.random.default_rng(3).uniform(
+            0.01, 1.0, (257, 64)))
+    elif kind == "stray":
+        fb[230, 3] = 1e-3        # mel 3's band lies below bin 10
+    return fb, 512
+
+
+FB_KINDS = ["config2", "config3", "mels40_htk", "mels80_slaney",
+            "fmin_fmax", "slaney_fmin", "linear", "zero_column", "all_zero",
+            "dense", "stray"]
+
+
+@pytest.mark.parametrize("kind", FB_KINDS)
+def test_band_tables_hold_every_nonzero(kind):
+    """Each mel's band runs from its first to its last nonzero bin and each
+    bin's from its first to its last nonzero mel; everything outside is
+    exactly zero; the padding is empty."""
+    fb, _ = _fb(kind)
+    n_freqs, mels = fb.shape
+    m_pad = -(-mels // 64) * 64
+    mel_band, bin_band = tfused._fb_bands(fb, m_pad)
+    f_pad = -(-n_freqs // 64) * 64
+    assert mel_band.shape == (m_pad, 2) and bin_band.shape == (f_pad, 2)
+    assert mel_band.dtype == bin_band.dtype == torch.int32
+    empty = [tfused._BAND_EMPTY, 0]
+    for m in range(m_pad):
+        rows = (fb[:, m] != 0).nonzero().ravel().tolist() if m < mels else []
+        assert mel_band[m].tolist() == ([rows[0], rows[-1] + 1] if rows
+                                        else empty), m
+    for k in range(f_pad):
+        cols = (fb[k] != 0).nonzero().ravel().tolist() if k < n_freqs else []
+        assert bin_band[k].tolist() == ([cols[0], cols[-1] + 1] if cols
+                                        else empty), k
+    inside = torch.zeros(fb.shape, dtype=torch.bool)
+    for m in range(mels):
+        lo, hi = mel_band[m].tolist()
+        inside[lo:hi, m] = hi > lo
+    assert not fb[~inside].any()
+
+
+def test_band_tables_put_nan_and_inf_inside():
+    """``!= 0``: NaN, inf and denormal entries are nonzero, -0.0 is zero."""
+    fb = torch.zeros((129, 3))
+    fb[5, 0], fb[40, 0] = float("nan"), 1e-40
+    fb[7, 1], fb[9, 1] = float("inf"), -0.0
+    mel_band, bin_band = tfused._fb_bands(fb, 64)
+    assert mel_band[:3].tolist() == [
+        [5, 41], [7, 8], [tfused._BAND_EMPTY, 0]]
+    assert bin_band[40].tolist() == [0, 1] and bin_band[9].tolist() == [
+        tfused._BAND_EMPTY, 0]
+
+
+@pytest.mark.parametrize("kind", FB_KINDS)
+def test_banded_products_equal_the_dense_ones(rng, kind):
+    """The forward's mel product and the frame pass's dp over the bands
+    leave out exact zero terms only: in float64 both equal the dense
+    products to rounding, and in float32 to float32 rounding."""
+    fb, _ = _fb(kind)
+    n_freqs, mels = fb.shape
+    m_pad = -(-mels // 64) * 64
+    mel_band, bin_band = tfused._fb_bands(fb, m_pad)
+    p = torch.from_numpy(rng.uniform(0.0, 2.0, (2, 9, n_freqs)))
+    dmel = torch.from_numpy(rng.standard_normal((11, m_pad)))
+    dmel[:, mels:] = 0.0
+    for dt, tol in ((torch.float64, 1e-13), (torch.float32, 2e-6)):
+        f, pp, dm = fb.to(dt), p.to(dt), dmel.to(dt)
+        got = tfused._mel_product_banded(pp, f, mel_band)
+        want = pp @ f
+        assert got.dtype == dt and got.shape == want.shape
+        got_dp = tfused._dp_banded(dm, f, bin_band)
+        want_dp = dm[:, :mels] @ f.T
+        assert got_dp.shape == want_dp.shape
+        if kind == "all_zero":
+            assert not got.any() and not got_dp.any()
+            continue
+        assert _rel(got, want) <= tol and _rel(got_dp, want_dp) <= tol
+
+
+def _striped(rows_of, n_freqs, mels):
+    """A filterbank of ones where ``rows_of(m)`` (a range of bins) says."""
+    fb = torch.zeros((n_freqs, mels), dtype=torch.float64)
+    for m in range(mels):
+        fb[rows_of(m), m] = 1.0
+    return fb
+
+
+@pytest.mark.parametrize("width,banded", [(40, True), (44, False)])
+def test_forward_takes_the_banded_product_below_its_share(rng, width,
+                                                          banded):
+    """fft 512, 64 mels: the dense product covers 260 bins (65 groups of 4)
+    x 64 mels; bands of ``width`` bins aligned to 4 cover ``64·width``, on
+    the banded side of ``_B1_BAND_SHARE`` (160 / 1024: 2 600) at 40 bins
+    and past it at 44.  The plain forward takes the product the kernel
+    would, and forcing either gives the other's values to rounding."""
+    assert tfused._B1_BAND_SHARE == 160
+    fb = _striped(lambda m: slice(4 * (m * (256 - width) // 252),
+                                  4 * (m * (256 - width) // 252) + width),
+                  257, 64)
+    mel_band, bin_band = tfused._fb_bands(fb, 64)
+    assert tfused._band_choice(mel_band, bin_band, 512, 64)[0] is banded
+    x = torch.from_numpy(rng.standard_normal((2, 512 + 4 * 128)))
+    args = (512, 128, "hann", None, False, 1.0, 1e-7)
+    auto, _ = tfused._fwd_fft_plain(x, fb, *args)
+    forced = {b: tfused._fwd_fft_plain(x, fb, *args, _banded=b)[0]
+              for b in (True, False)}
+    assert torch.equal(auto, forced[banded])
+    assert _rel(forced[True], forced[False]) <= F64_TOL
+
+
+@pytest.mark.parametrize("width,banded", [(32, True), (33, False)])
+def test_frame_pass_takes_the_banded_dp_below_its_share(rng, width, banded):
+    """fft 512, 64 mels: 256 lanes of one bin below Nyquist, 64 mels each
+    dense; every bin's band of ``width`` mels sums to ``256·width``, on the
+    banded side of ``_DP_BAND_SHARE`` (512 / 1024: 8 192) at 32 mels and
+    past it at 33.  The plain backward takes the dp the kernel would, and
+    forcing either gives the other's values to rounding."""
+    assert tfused._DP_BAND_SHARE == 512
+    fb = torch.zeros((257, 64), dtype=torch.float64)
+    for k in range(257):
+        lo = k * (64 - width) // 256
+        fb[k, lo:lo + width] = 1.0 + k / 257
+    mel_band, bin_band = tfused._fb_bands(fb, 64)
+    assert tfused._band_choice(mel_band, bin_band, 512, 64)[1] is banded
+    rows = 6
+    dmel = torch.from_numpy(rng.standard_normal((rows, 64)))
+    reim = torch.from_numpy(rng.standard_normal((rows, 5 * 128)))
+    bargs = (fb, 512, "hann", None, True, False)
+    auto, _ = tfused._bwd_fft_plain(dmel, reim, *bargs)
+    forced = {b: tfused._bwd_fft_plain(dmel, reim, *bargs, _banded=b)[0]
+              for b in (True, False)}
+    assert torch.equal(auto, forced[banded])
+    assert _rel(forced[True], forced[False]) <= F64_TOL
+
+
+@pytest.mark.parametrize("kind,choice", [("config2", (True, True)),
+                                         ("config3", (True, True)),
+                                         ("linear", (True, True)),
+                                         ("dense", (False, False)),
+                                         ("all_zero", (True, True))])
+def test_band_choice_of_the_cells_filterbanks(kind, choice):
+    """The standard filterbanks take both banded products (config 2's
+    bands cover 1.9 % of either dense product), a dense learned one takes
+    neither, and an all-zero one sums nothing."""
+    fb, fft = _fb(kind)
+    m_pad = -(-fb.shape[1] // 64) * 64
+    assert tfused._band_choice(*tfused._fb_bands(fb, m_pad), fft,
+                               m_pad) == choice
+
+
+@pytest.mark.parametrize("fft,hop,samples,mels,window,wl", CASES[::2])
+def test_fft_plain_versions_agree_on_both_products(rng, fft, hop, samples,
+                                                   mels, window, wl):
+    """The step-by-step forward and backward, banded and dense: the same
+    values to float64 rounding, and the op's rule takes the banded ones at
+    these mel filterbanks."""
+    x, fb, dmel = _inputs(rng, fft, hop, samples, mels, torch.float64)
+    args = (fft, hop, window, wl, True, 1.0, 1e-7)
+    outs = [tfused._fwd_fft_plain(x, fb, *args, save_spec=True, _banded=b)
+            for b in (None, True, False)]
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert _rel(outs[1][0], outs[2][0]) <= F64_TOL
+    reim = outs[0][1].reshape(dmel.shape[0], -1)
+    bargs = (fb, fft, window, wl, True, True)
+    grads = [tfused._bwd_fft_plain(dmel, reim, *bargs, _banded=b)
+             for b in (None, True, False)]
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert _rel(grads[1][0], grads[2][0]) <= F64_TOL
+    assert torch.equal(grads[1][1], grads[2][1])     # dFB is dense
+
+
+def test_band_counters_are_launch_counters():
+    """``MEL_BAND_LAUNCHES`` is a host counter that a graph replay moves;
+    the card's own (``B1_BANDED_LAUNCHES``, ``BWD_DP_BANDED_LAUNCHES``)
+    are read with the rest and never moved by the host."""
+    from torchaudio_contrib_tpu_torch.ops import _launches
+    names = ["fused." + n for n in ("MEL_BAND_LAUNCHES",
+                                    *tfused.CARD_COUNTERS)]
+    before = _launches.counts()
+    assert all(n in before for n in names)
+    assert tfused.CARD_COUNTERS == ("B1_BANDED_LAUNCHES",
+                                    "BWD_DP_BANDED_LAUNCHES")
+    _launches.add({n: 3 for n in names}, 2)
+    moved = _launches.delta(before)
+    _launches.add({n: 3 for n in names}, -2)
+    assert moved[names[0]] == 6 and moved[names[1]] == moved[names[2]] == 0
+
+
+def test_wrappers_refuse_a_bad_banded_argument():
+    """``_banded`` is None, True or False, and only on the FFT route; it is
+    checked before anything else of the call."""
+    fb = tops.create_mel_filter(32, 16000, 0.0, None, 257)
+    x, dmel, reim = torch.zeros(2, 4096), torch.zeros(10, 64), torch.zeros(
+        10, 640)
+    for route, banded, what in ((None, 1, "_banded must be"),
+                                ("fft", "yes", "_banded must be"),
+                                ("dft", True, "FFT kernels'"),
+                                ("dft", False, "FFT kernels'")):
+        with pytest.raises(ValueError, match=what):
+            tfused._fused_mel_fwd_cuda(x, fb, 512, 128, "hann", None, True,
+                                       1.0, 1e-7, _route=route,
+                                       _banded=banded)
+        with pytest.raises(ValueError, match=what):
+            tfused._fused_mel_bwd_cuda(dmel, reim, fb, 512, "hann", None,
+                                       True, True, _route=route,
+                                       _banded=banded)

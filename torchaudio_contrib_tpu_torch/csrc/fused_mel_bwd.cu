@@ -31,9 +31,16 @@
 //     registers, so dreim is never written, and runs the inverse FFT in
 //     shared memory (fft_smem.cuh), a row as one complex transform of N / 2
 //     points whose output is z[m] = y[2m] + i y[2m+1].  What bounds it: the
-//     dp product (2 * bins * mels FLOPs a row, 10.8 GFLOP at 32 x 30 s, fft
-//     2048, 128 mels) and the FFT's shared-memory traffic; its bytes (the
-//     residual read and dframes written once, 0.70 GB) are below both.
+//     FFT's shared-memory traffic, wherever the filterbank is banded (as
+//     every mel or linear filterbank is): each lane sums dp over its bins'
+//     nonzero mels only (mel_band_kernel's tables, about 2 to 5 of 128 at
+//     config 2), which leaves out only exact zero weights, so dp is the
+//     dense sum with its zero terms skipped.  The dense dp product (2 *
+//     bins * mels FLOPs a row, 10.8 GFLOP at 32 x 30 s, fft 2048, 128
+//     mels) only where the bands cover more than DP_BAND_SHARE of it (a
+//     learned filterbank); every block decides from the tables alone.  Its
+//     bytes (the residual read and dframes written once, 0.70 GB) are
+//     below both.
 //     The last pass leaves each thread with sample pairs, which go
 //     straight to device memory, coalesced, or (the waveform-gradient
 //     epilogue) are overlap-added in shared memory into dx, so that the
@@ -91,6 +98,7 @@
 #include <cuda_runtime.h>
 
 #include "fft_smem.cuh"
+#include "mel_band.cuh"
 
 namespace {
 
@@ -516,9 +524,13 @@ dframes_kernel(const float* __restrict__ dreim, const float* __restrict__ basis,
 //   * dp[f, k] = sum_m dmel[f, m] * fbt[m, k] for the tile's rows stays in
 //     shared memory, (FR, bins padded).  Each warp owns 32 * BPL of the N / 2
 //     bins below Nyquist and a lane BPL of them for all FR rows in registers;
-//     it reads the transposed filterbank as one coalesced row per mel and
-//     dmel, staged mel-major in shared memory, as broadcast 16-byte loads.
-//     The Nyquist bin is summed by all threads, 1 / 16 of the mels each, and
+//     it reads the transposed filterbank as one row per mel and dmel, staged
+//     mel-major in shared memory, as 16-byte loads.  Banded (bin_band's
+//     bands cover at most DP_BAND_SHARE / 1024 of the dense product), a lane
+//     sums the mels of its bins' bands joined, in the dense order, and one
+//     thread a row sums the Nyquist bin's band; dense, every lane sums all
+//     the mels (the filterbank rows coalesced, dmel broadcast) and the
+//     Nyquist bin is summed by all threads, 1 / 16 of the mels each, and
 //     added up in a fixed order.
 //   * Then, FR rows in rounds of G = 4096 / N: Y_k = (re_k, im_k) * dp_k from
 //     the residual (G_k / 2 with G = [2 re dp, 2 im dp]; Re G_k at k = 0 and
@@ -541,10 +553,22 @@ dframes_kernel(const float* __restrict__ dreim, const float* __restrict__ basis,
 //     the result is the same whichever lands first; every other sample is
 //     stored once.  Samples past the last frame are not written.
 // dmel (rows, m_pad); reim (rows, ldr) with ldr = 2 * (N / 2 + FBT); fbt
-// (m_pad, N / 2 + FBT) the filterbank transposed, zero padded; window (N);
-// twiddle: the N pairs of fft_smem.cuh's twiddle table.
+// (m_pad, N / 2 + FBT) the filterbank transposed, zero padded; bin_band
+// (N / 2 + FBT) each bin's mel band (mel_band.cuh); window (N); twiddle: the
+// N pairs of fft_smem.cuh's twiddle table; banded: 1 or 0 forces the
+// banded or the dense dp product, -1 lets the bands decide; counter
+// (mapped host memory, or null) gains one if the launch took the banded one.
 constexpr int FR = 16;          // frames per block of the fused frame passes
 constexpr int DM = 128;         // mels staged per step
+// dp is summed over the bands where the lanes' joined bands are at most
+// DP_BAND_SHARE / 1024 of the dense product's mels.  The frame pass is
+// bound by its transform, so the banded dp stays the faster up to wide
+// bands.  On an H100 (chip_smoke.py's band sweep, the band pass included)
+// at config 2's shape 0.850 ms against the dense 0.878 at a 72 % share,
+// 0.902 against 0.869 at 95 %; at config 3's (one bin a lane) 0.217
+// against 0.223 at 49 %, 0.219 against 0.215 at 72 %.  The crossover lies
+// near 80 % and 60 %; 50 % keeps to the banded side of both.
+constexpr int DP_BAND_SHARE = 512;
 
 // Loads W consecutive floats (W = 2: 8-byte aligned).
 template <int W>
@@ -619,10 +643,11 @@ __global__ void __launch_bounds__(tacfft::FFT_THREADS, 2)
 dframes_fft_kernel(const float* __restrict__ dmel,
                    const float* __restrict__ reim,
                    const float* __restrict__ fbt,
+                   const int2* __restrict__ bin_band,
                    const float* __restrict__ window,
                    const float2* __restrict__ twiddle,
                    float* __restrict__ out, int frames, int tiles, int m_pad,
-                   int hop, int n_samples) {
+                   int hop, int n_samples, int banded, int* counter) {
     using namespace tacfft;
     constexpr int M = N / 2;
     constexpr int TPF = M / POINTS;
@@ -653,6 +678,28 @@ dframes_fft_kernel(const float* __restrict__ dmel,
 
     load_twiddles<N>(tw_s, twiddle);
 
+    // the mels of the lane's bins' bands, of the Nyquist bin's, and the
+    // lanes' joined bands summed over the block
+    const int k0 = (warp * 32 + lane) * BPL;
+    int2 band = make_int2(tacband::EMPTY, 0);
+    if (warp < TASKS)
+#pragma unroll
+        for (int c = 0; c < BPL; ++c) band = tacband::join(band, bin_band[k0 + c]);
+    const int2 nband = bin_band[M];
+    int mels = max(band.y - band.x, 0);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mels += __shfl_xor_sync(0xffffffffu, mels, o);
+    __shared__ int work_s[WARPS];
+    if (lane == 0) work_s[warp] = mels;
+    __syncthreads();
+    if (banded < 0) {
+        long long total = 0;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) total += work_s[w];
+        banded = total * 1024 <= (long long)DP_BAND_SHARE * TASKS * 32 * m_pad;
+    }
+    if (!banded) band = make_int2(0, m_pad);
+
     // dp for the tile's rows
     float acc[FR][BPL];
 #pragma unroll
@@ -660,7 +707,6 @@ dframes_fft_kernel(const float* __restrict__ dmel,
 #pragma unroll
         for (int c = 0; c < BPL; ++c) acc[f][c] = 0.f;
     float nyq = 0.f;
-    const int k0 = (warp * 32 + lane) * BPL;
     for (int mc = 0; mc < m_pad; mc += DM) {
         const int width = min(DM, m_pad - mc);
         __syncthreads();                 // the staged chunk before is consumed
@@ -671,8 +717,9 @@ dframes_fft_kernel(const float* __restrict__ dmel,
         }
         __syncthreads();
         if (warp < TASKS) {
+            const int m_end = min(band.y - mc, width);
 #pragma unroll 2
-            for (int m = 0; m < width; ++m) {
+            for (int m = max(band.x - mc, 0); m < m_end; ++m) {
                 const float* row = fbt + (long long)(mc + m) * KP + k0;
                 float w[BPL];
                 if constexpr (BPL == 4) {
@@ -701,10 +748,20 @@ dframes_fft_kernel(const float* __restrict__ dmel,
                 }
             }
         }
-        // bin M: thread (part, f) sums mels part, part + 16, ...
-        for (int m = tid / FR; m < width; m += FFT_THREADS / FR)
-            nyq = fmaf(dm_s[m * FR + tid % FR],
-                       fbt[(long long)(mc + m) * KP + M], nyq);
+        if (banded) {
+            // bin M: thread f sums row f over the bin's band
+            if (tid < FR) {
+                const int m_end = min(nband.y - mc, width);
+                for (int m = max(nband.x - mc, 0); m < m_end; ++m)
+                    nyq = fmaf(dm_s[m * FR + tid],
+                               fbt[(long long)(mc + m) * KP + M], nyq);
+            }
+        } else {
+            // bin M: thread (part, f) sums mels part, part + 16, ...
+            for (int m = tid / FR; m < width; m += FFT_THREADS / FR)
+                nyq = fmaf(dm_s[m * FR + tid % FR],
+                           fbt[(long long)(mc + m) * KP + M], nyq);
+        }
     }
     ny_s[tid] = nyq;
     if (warp < TASKS) {
@@ -715,9 +772,12 @@ dframes_fft_kernel(const float* __restrict__ dmel,
     }
     __syncthreads();
     if (tid < FR) {
-        float sum = 0.f;
-        for (int part = 0; part < FFT_THREADS / FR; ++part)
-            sum += ny_s[part * FR + tid];
+        float sum = nyq;
+        if (!banded) {
+            sum = 0.f;
+            for (int part = 0; part < FFT_THREADS / FR; ++part)
+                sum += ny_s[part * FR + tid];
+        }
         dp_s[tid * KP + M] = sum;
     }
     __syncthreads();                     // dp_s complete; `work` is free
@@ -791,14 +851,18 @@ dframes_fft_kernel(const float* __restrict__ dmel,
             if (ring0 >= span) ring0 -= span;
         }
     }
+    // last, so that no thread of the block waits on the host's memory
+    if (banded && counter && blockIdx.x == 0 && tid == 0)
+        tacband::count_launch(counter);
 }
 
 template <int N, bool OLA>
 cudaError_t launch_dframes_fft(const float* dmel, const float* reim,
-                               const float* fbt, const float* window,
-                               const float* twiddle, float* out, int streams,
-                               int frames, int m_pad, int hop, int n_samples,
-                               cudaStream_t st) {
+                               const float* fbt, const int* bin_band,
+                               const float* window, const float* twiddle,
+                               float* out, int streams, int frames, int m_pad,
+                               int hop, int n_samples, int banded,
+                               int* counter, cudaStream_t st) {
     const int tiles = (frames + FR - 1) / FR;
     size_t smem = sizeof(float2) * (tacfft::WORK_POINTS + N)
                   + sizeof(float) * FR * (N / 2 + FBT);
@@ -809,8 +873,9 @@ cudaError_t launch_dframes_fft(const float* dmel, const float* reim,
     if (err != cudaSuccess) return err;
     dframes_fft_kernel<N, OLA><<<(unsigned)((long long)streams * tiles),
                                  tacfft::FFT_THREADS, smem, st>>>(
-        dmel, reim, fbt, window, reinterpret_cast<const float2*>(twiddle),
-        out, frames, tiles, m_pad, hop, n_samples);
+        dmel, reim, fbt, reinterpret_cast<const int2*>(bin_band), window,
+        reinterpret_cast<const float2*>(twiddle), out, frames, tiles, m_pad,
+        hop, n_samples, banded, counter);
     return cudaGetLastError();
 }
 
@@ -820,8 +885,9 @@ extern "C" {
 
 // Launches the backward passes on `stream`; returns the first cudaError_t
 // (0 on success).  Does not synchronise and allocates nothing.
-//   dmel (rows, m_pad), reim (rows, ldr), fb (f_pad, m_pad),
-//   basis (k_pad, ldr) with ldr = ft_count * 2 * FBT, f_pad = ft_count * FBT.
+//   dmel (rows, m_pad), reim (rows, ldr), fb (f_pad, m_pad) (the
+//   DFT-route frame passes only), basis (k_pad, ldr) with ldr = ft_count *
+//   2 * FBT, f_pad = ft_count * FBT.
 //   dfb (n_freqs, m_pad) or null, n_freqs = fft_length / 2 + 1: the
 //     filterbank gradient; n_splits contiguous splits of rows_per_split
 //     rows (a multiple of KC), each but the last full; with n_splits > 1
@@ -831,9 +897,13 @@ extern "C" {
 //   The frame passes run as one kernel around an inverse FFT when `twiddle`
 //     is given: fft_length a power of two in [256, 2048], `window` its
 //     fft_length samples, `twiddle` the fft_length pairs of fft_smem.cuh's
-//     twiddle table, `fbt` (m_pad, f_pad) the transposed filterbank; `basis`
-//     and `dreim` are then not used.  Otherwise they are pass A and the
-//     product with `basis`.
+//     twiddle table, `fbt` (m_pad, f_pad) the transposed filterbank and
+//     `bin_band` (f_pad, 2) its bins' mel bands, as tac_mel_bands writes
+//     them; `banded` 1 or 0 forces the banded or the dense dp product, -1
+//     lets the bands decide, and `counter` (mapped host memory, or null)
+//     gains one if the launch took the banded one; `fb`, `basis` and `dreim`
+//     are then not used.  Otherwise they are pass A and the product with
+//     `basis`.
 //   dx (streams, n_samples) or null, with dframes null and `twiddle` given:
 //     the waveform gradient, the frame gradient overlap-added in that
 //     kernel (dframes_fft_kernel<N, true>).  The rows are `streams` streams
@@ -841,15 +911,16 @@ extern "C" {
 //     fft_length / (FR + 1) <= hop_length <= fft_length; dx is set to zero
 //     first (a memset on `stream`), so samples past the last frame are 0.
 int tac_fused_mel_bwd(const float* dmel, const float* reim, const float* fb,
-                      const float* fbt, const float* basis,
-                      const float* window, const float* twiddle, float* dreim,
-                      float* dframes, float* dx, float* dfb, float* dfb_part,
-                      int rows, int fft_length, int k_pad, int ft_count,
-                      int m_pad, int n_splits, int rows_per_split,
-                      int hop_length, int n_samples, void* stream) {
+                      const float* fbt, const int* bin_band,
+                      const float* basis, const float* window,
+                      const float* twiddle, float* dreim, float* dframes,
+                      float* dx, float* dfb, float* dfb_part, int rows,
+                      int fft_length, int k_pad, int ft_count, int m_pad,
+                      int n_splits, int rows_per_split, int hop_length,
+                      int n_samples, int banded, int* counter, void* stream) {
     if (rows <= 0) return 0;
     if (m_pad <= 0 || m_pad % MC != 0 || ft_count <= 0 || fft_length < 2
-        || (dx && dframes))
+        || (dx && dframes) || banded < -1 || banded > 1)
         return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
     const int ldr = ft_count * 2 * FBT;
@@ -880,7 +951,7 @@ int tac_fused_mel_bwd(const float* dmel, const float* reim, const float* fb,
         }
     }
     if ((dframes || dx) && twiddle) {
-        if (!(fbt && window && fft_length % 2 == 0
+        if (!(fbt && bin_band && window && fft_length % 2 == 0
               && tacfft::fft_size_ok(fft_length / 2)
               && ft_count == fft_length / (2 * FBT) + 1))
             return (int)cudaErrorInvalidValue;
@@ -898,13 +969,13 @@ int tac_fused_mel_bwd(const float* dmel, const float* reim, const float* fb,
         }
 #define TAC_FFT_CASE(n)                                                       \
     case n:                                                                   \
-        err = dx ? launch_dframes_fft<n, true>(dmel, reim, fbt, window,       \
-                                               twiddle, dx, streams, frames,  \
-                                               m_pad, hop_length, n_samples,  \
-                                               st)                            \
-                 : launch_dframes_fft<n, false>(dmel, reim, fbt, window,      \
-                                                twiddle, dframes, 1, rows,    \
-                                                m_pad, 0, 0, st);             \
+        err = dx ? launch_dframes_fft<n, true>(                               \
+                       dmel, reim, fbt, bin_band, window, twiddle, dx,        \
+                       streams, frames, m_pad, hop_length, n_samples, banded, \
+                       counter, st)                                           \
+                 : launch_dframes_fft<n, false>(                              \
+                       dmel, reim, fbt, bin_band, window, twiddle, dframes,   \
+                       1, rows, m_pad, 0, 0, banded, counter, st);            \
         break
         switch (fft_length) {
             TAC_FFT_CASE(256);
@@ -916,7 +987,7 @@ int tac_fused_mel_bwd(const float* dmel, const float* reim, const float* fb,
 #undef TAC_FFT_CASE
         if (err != cudaSuccess) return (int)err;
     } else if (dframes) {
-        if (!(dreim && basis && k_pad >= fft_length))
+        if (!(fb && dreim && basis && k_pad >= fft_length))
             return (int)cudaErrorInvalidValue;
         const int row_blocks = (rows + TB - 1) / TB;
         dreim_kernel<<<dim3(row_blocks, ft_count), THREADS, 0, st>>>(
@@ -941,6 +1012,7 @@ int tac_fused_mel_bwd_tile(int which) {
         case 4: return FR;
         case 5: return DFB_BM;
         case 6: return DFB_BN;
+        case 7: return DP_BAND_SHARE;
         default: return -1;
     }
 }

@@ -73,11 +73,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tac_fused_mel_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
                                       i, f, f, p]
     lib.tac_fused_mel_fwd.restype = i
-    lib.tac_fused_mel_fft_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                                          i, i, f, f, p]
+    lib.tac_fused_mel_fft_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
+                                          i, i, i, i, i, f, f, i, p, p]
     lib.tac_fused_mel_fft_fwd.restype = i
-    lib.tac_fused_mel_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i,
-                                      i, i, i, i, i, i, i, i, p]
+    lib.tac_mel_bands.argtypes = [p, ctypes.c_longlong, ctypes.c_longlong, i,
+                                  i, i, i, p, p, p, p, p]
+    lib.tac_mel_bands.restype = i
+    lib.tac_fused_mel_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p,
+                                      i, i, i, i, i, i, i, i, i, i, p, p]
     lib.tac_fused_mel_bwd.restype = i
     lib.tac_fused_gl_solve.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
                                        i, i, i, i, f, i, p]

@@ -43,6 +43,16 @@ The kernels put the stream (clip) index on a grid dimension of at most
 65 535 blocks; the wrappers launch larger batches as slabs of that many
 (:func:`_slabs`), one launch counted per call.
 
+On the FFT route both filterbank products, the forward's mel product and
+the frame pass's ``dp``, run over the filterbank's nonzero bands wherever
+those cover a small share of the dense product (every mel or linear
+filterbank does): :func:`_mel_bands` launches ``mel_band_kernel`` on every
+call, which writes the padded filterbank, its transpose and the band
+tables, and every block of the product's kernel decides from the tables
+alone.  Nothing is cached from one call to the next, so a filterbank changed
+in place is always seen.  :func:`_fb_bands` and :func:`_band_choice` are
+the tables and the decision in plain PyTorch.
+
 ``KERNEL_LAUNCHES`` counts the forward kernels' launches,
 ``BWD_KERNEL_LAUNCHES`` the backward's, and ``BWD_DFRAMES_LAUNCHES`` those
 backward launches that also ran the frame gradient passes;
@@ -51,8 +61,12 @@ forward and of the frame passes that took the FFT route (and nothing
 else), and ``BWD_DX_FUSED_LAUNCHES`` those frame passes that wrote the
 waveform gradient themselves; ``BWD_DFB_LAUNCHES`` counts the
 filterbank-gradient passes and ``BWD_DFB_ONE_READ_LAUNCHES`` those whose
-blocks covered every mel column, so that they read the residual once.  So
-a run can show which kernels it went through.
+blocks covered every mel column, so that they read the residual once;
+``MEL_BAND_LAUNCHES`` the band passes.  The card counts the launches that
+took a banded product itself (``B1_BANDED_LAUNCHES``,
+``BWD_DP_BANDED_LAUNCHES``: :func:`card_counts`), one thread of the launch
+adding one in mapped host memory, since only the card knows what its
+blocks decided.  So a run can show which kernels it went through.
 
 On a CUDA tensor the op marks its parts for a recording ``torch.profiler``
 (``tac::fused_mel``, ``tac::fused_mel.fwd``, ``tac::fused_mel.bwd`` with
@@ -66,6 +80,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
+import threading
 
 import numpy as np
 import torch
@@ -91,6 +106,11 @@ BWD_FFT_LAUNCHES = 0
 BWD_DX_FUSED_LAUNCHES = 0
 BWD_DFB_LAUNCHES = 0
 BWD_DFB_ONE_READ_LAUNCHES = 0
+MEL_BAND_LAUNCHES = 0
+# counted on the card, in _CARD_COUNTS (see card_counts)
+CARD_COUNTERS = ("B1_BANDED_LAUNCHES", "BWD_DP_BANDED_LAUNCHES")
+_CARD_COUNTS = None
+_CARD_COUNTS_LOCK = threading.Lock()
 
 _PRECISIONS = ("fast", "split3", "split6")
 
@@ -106,6 +126,12 @@ _MAX_GRID_Y = 65535  # streams (clips) per launch: grid.y (grid.z)
 _DFB_BLOCKS = 264   # the dFB pass splits the rows to fill two blocks an SM
 _DFB_BINS = 128     # bins per dFB block (two frequency tiles)
 _DFB_MELS = 128     # mel columns per dFB block where m_pad is a multiple
+# the FFT kernels take their banded product where its work is at most this
+# share, in 1/1024, of the dense product's: the forward's mel product and
+# the frame pass's dp (see csrc/fused_mel_fwd.cu, csrc/fused_mel_bwd.cu)
+_B1_BAND_SHARE = 160
+_DP_BAND_SHARE = 512
+_BAND_EMPTY = 0x3fffffff   # an empty band's low end (csrc/mel_band.cuh)
 # csrc/fft_smem.cuh: the frame lengths the FFT kernels are built for
 # (powers of two; the complex transform has half the length), and the
 # radix of a pass: radix-8 passes, then one radix-2 or radix-4 pass where
@@ -309,16 +335,168 @@ def _fb_padded(filterbank, ft_count: int, m_pad: int):
                               0, ft_count * _FREQ_TILE - n_freqs))
 
 
+# ---- the filterbank's bands ---------------------------------------------------
+
+def _fb_bands(filterbank, m_pad: int):
+    """The band tables that ``mel_band_kernel`` writes, in plain PyTorch and
+    in its layout: ``(mel_band (m_pad, 2), bin_band (FT·FREQ_TILE, 2))``
+    int32.  ``mel_band[m]`` is ``[lo, hi)``, the bins from mel ``m``'s
+    first nonzero entry to its last, ``bin_band[k]`` the mels from bin
+    ``k``'s first to its last; an empty range is ``(_BAND_EMPTY, 0)``.
+    Nonzero means ``!= 0``: NaN and inf lie in a band.  The padding rows
+    and columns are empty."""
+    n_freqs, num_mels = filterbank.shape
+    f_pad = _cdiv(n_freqs, _FREQ_TILE) * _FREQ_TILE
+    nz = F.pad(filterbank != 0, (0, m_pad - num_mels, 0, f_pad - n_freqs))
+    dev = filterbank.device
+
+    def bands(mask, along):
+        i = torch.arange(mask.shape[along], device=dev).view(
+            (-1, 1) if along == 0 else (1, -1))
+        return torch.stack([torch.where(mask, i, _BAND_EMPTY).amin(along),
+                            torch.where(mask, i + 1, 0).amax(along)],
+                           -1).to(torch.int32)
+
+    return bands(nz, 0), bands(nz, 1)
+
+
+def _band_work(mel_band, bin_band, fft_length: int, m_pad: int):
+    """``((b1, b1_dense), (dp, dp_dense))``: the work of the forward's
+    banded mel product and of the frame pass's banded dp against their
+    dense products, as every block of the FFT kernels counts it from the
+    tables.  The forward counts each mel's band rounded out to groups of 4
+    bins against ``4·ceil((N/2+1)/4)`` bins a mel; the frame pass counts,
+    for each lane of ``max(N/512, 1)`` consecutive bins below ``N/2``, the
+    mels of their bands joined, against ``m_pad`` a lane."""
+    band = mel_band.long()
+    lo, hi = band[:, 0], band[:, 1]
+    bins = int(torch.where(hi > lo, (hi + 3) // 4 * 4 - lo // 4 * 4, 0).sum())
+    half = fft_length // 2
+    lanes = bin_band[:half].long().view(-1, max(half // 256, 1), 2)
+    mels = int((lanes[..., 1].amax(1) - lanes[..., 0].amin(1))
+               .clamp(min=0).sum())
+    return ((bins, 4 * ((half + 4) // 4) * m_pad),
+            (mels, lanes.shape[0] * m_pad))
+
+
+def _band_choice(mel_band, bin_band, fft_length: int, m_pad: int):
+    """``(b1, dp)``: whether the forward's mel product and the frame pass's
+    dp take their banded loops at these tables (:func:`_band_work`): where
+    the banded work is at most its share (``_B1_BAND_SHARE``,
+    ``_DP_BAND_SHARE``, in 1/1024) of the dense product's."""
+    (b1, b1_dense), (dp, dp_dense) = _band_work(mel_band, bin_band,
+                                                fft_length, m_pad)
+    return (b1 * 1024 <= _B1_BAND_SHARE * b1_dense,
+            dp * 1024 <= _DP_BAND_SHARE * dp_dense)
+
+
+def _mel_product_banded(p, filterbank, mel_band):
+    """``p (..., n_freqs) @ filterbank`` summed over each mel's band only."""
+    band = mel_band.tolist()
+    out = p.new_zeros(p.shape[:-1] + (filterbank.shape[1],))
+    for m, (lo, hi) in enumerate(band[:filterbank.shape[1]]):
+        if hi > lo:
+            out[..., m] = p[..., lo:hi] @ filterbank[lo:hi, m]
+    return out
+
+
+def _dp_banded(dmel, filterbank, bin_band):
+    """``dmel (rows, ≥ num_mels) @ filterbank.T`` summed over each bin's
+    band only: ``(rows, n_freqs)``."""
+    out = dmel.new_zeros((dmel.shape[0], filterbank.shape[0]))
+    for k, (lo, hi) in enumerate(bin_band[:filterbank.shape[0]].tolist()):
+        if hi > lo:
+            out[:, k] = dmel[:, lo:hi] @ filterbank[k, lo:hi]
+    return out
+
+
+def _banded_flag(banded) -> int:
+    """The kernels' ``banded`` argument: -1 (the tables decide), 1, 0."""
+    if not (banded is None or banded is True or banded is False):
+        raise ValueError(f"_banded must be None, True or False, not "
+                         f"{banded!r}")
+    return -1 if banded is None else int(banded)
+
+
+def _card_counter(i: int) -> int:
+    """The card's address of counter ``i`` of ``CARD_COUNTERS``: pinned host
+    memory, which the card reaches through unified addressing."""
+    global _CARD_COUNTS
+    if _CARD_COUNTS is None:
+        # once: a second buffer would leave launches writing to a freed one
+        with _CARD_COUNTS_LOCK:
+            if _CARD_COUNTS is None:
+                _CARD_COUNTS = torch.zeros(len(CARD_COUNTERS),
+                                           dtype=torch.int32, pin_memory=True)
+    return _CARD_COUNTS.data_ptr() + i * _CARD_COUNTS.element_size()
+
+
+def card_counts() -> dict:
+    """``{name: launches}`` of ``CARD_COUNTERS``, as the card has counted
+    them so far: read with no synchronise, so exact once the card has
+    finished the launches (after a ``torch.cuda.synchronize()``)."""
+    values = ([0] * len(CARD_COUNTERS) if _CARD_COUNTS is None
+              else _CARD_COUNTS.tolist())
+    return dict(zip(CARD_COUNTERS, values))
+
+
+def _band_sizes(ft_count: int, m_pad: int, padded: bool):
+    """Floats of ``fbp`` (0 unless ``padded``), ``fbt``, ``mel_band`` and
+    ``bin_band`` in :func:`_mel_bands`' buffer, in that order."""
+    size = ft_count * _FREQ_TILE * m_pad
+    return (size if padded else 0, size, m_pad * 2, ft_count * _FREQ_TILE * 2)
+
+
+def _mel_bands(filterbank, ft_count: int, m_pad: int, padded: bool,
+               stream: int):
+    """Launch ``mel_band_kernel`` on the filterbank, on ``stream`` (the
+    caller holds its device): returns the buffer it writes, one allocation
+    that holds ``fbp`` (the padded filterbank, which the forward's dense
+    product reads; only when ``padded``), ``fbt``, ``mel_band`` and
+    ``bin_band`` as :func:`_fb_bands` lays them out, and their addresses
+    (None for a missing ``fbp``); :func:`_band_parts` views it.  No
+    synchronise, and no tensor but the buffer, to keep the host's part of
+    a call small."""
+    global MEL_BAND_LAUNCHES
+    n_freqs, num_mels = filterbank.shape
+    sizes = _band_sizes(ft_count, m_pad, padded)
+    buf = torch.empty(sum(sizes), dtype=torch.float32,
+                      device=filterbank.device)
+    ptrs, at = [], buf.data_ptr()
+    for n in sizes:
+        ptrs.append(at if n else None)
+        at += 4 * n
+    lib = _kernel_lib()
+    rc = lib.tac_mel_bands(filterbank.data_ptr(), *filterbank.stride(),
+                           n_freqs, num_mels, m_pad, ft_count, *ptrs, stream)
+    _launch_check(lib, rc, "band")
+    MEL_BAND_LAUNCHES += 1
+    return buf, ptrs
+
+
+def _band_parts(buf, ft_count: int, m_pad: int, padded: bool):
+    """:func:`_mel_bands`' buffer as ``(fbp or None, fbt, mel_band,
+    bin_band)`` tensors."""
+    fbp, fbt, mel_band, bin_band = buf.split(_band_sizes(ft_count, m_pad,
+                                                         padded))
+    f_pad = ft_count * _FREQ_TILE
+    return (fbp.view(f_pad, m_pad) if padded else None,
+            fbt.view(m_pad, f_pad), mel_band.view(torch.int32).view(m_pad, 2),
+            bin_band.view(torch.int32).view(f_pad, 2))
+
+
 @functools.lru_cache(maxsize=1)
 def _kernel_lib():
     lib = _cuda.load()
     for query, want in ((lib.tac_fused_mel_fwd_tile,
                          (_FRAME_TILE, _FREQ_TILE, _K_TILE, _MEL_TILE)),
                         (lib.tac_fused_mel_fft_tile,
-                         (_FFT_MIN, _FFT_MAX, _FREQ_TILE, _MEL_TILE)),
+                         (_FFT_MIN, _FFT_MAX, _FREQ_TILE, _MEL_TILE,
+                          _B1_BAND_SHARE)),
                         (lib.tac_fused_mel_bwd_tile,
                          (_FRAME_TILE, _FREQ_TILE, _K_TILE, _MEL_TILE,
-                          _DX_FRAMES, _DFB_BINS, _DFB_MELS))):
+                          _DX_FRAMES, _DFB_BINS, _DFB_MELS,
+                          _DP_BAND_SHARE))):
         tiles = tuple(query(i) for i in range(len(want)))
         if tiles != want:
             raise RuntimeError(f"kernel tiles {tiles} do not match the host "
@@ -377,9 +555,11 @@ def _fwd_res_plain(x2, filterbank, fft_length, hop_length, window,
     return mel.transpose(1, 2).contiguous(), (reim if save_spec else None)
 
 
-def _dfb_dreim_plain(dmel, reim, filterbank, need_dx, need_dfb):
+def _dfb_dreim_plain(dmel, reim, filterbank, need_dx, need_dfb,
+                     bin_band=None):
     """The backward's dFB pass and pass A in plain PyTorch: ``(dreim (rows,
-    FT·2·FREQ_TILE) or None, dfb (n_freqs, num_mels) or None)``."""
+    FT·2·FREQ_TILE) or None, dfb (n_freqs, num_mels) or None)``; given
+    ``bin_band`` (:func:`_fb_bands`), dp is summed over each bin's band."""
     n_freqs, num_mels = filterbank.shape
     rows = dmel.shape[0]
     ri = reim.view(rows, -1, 2, _FREQ_TILE)
@@ -389,7 +569,8 @@ def _dfb_dreim_plain(dmel, reim, filterbank, need_dx, need_dfb):
         p = (re * re + im * im).reshape(rows, -1)
         dfb = p[:, :n_freqs].T @ dmel[:, :num_mels]
     if need_dx:
-        dp = dmel[:, :num_mels] @ filterbank.T
+        dp = (dmel[:, :num_mels] @ filterbank.T if bin_band is None
+              else _dp_banded(dmel, filterbank, bin_band))
         dp = F.pad(dp, (0, ri.shape[1] * _FREQ_TILE - n_freqs)).view(
             rows, -1, _FREQ_TILE)
         dreim = torch.stack([2.0 * re * dp, 2.0 * im * dp],
@@ -476,14 +657,17 @@ def _to_tiles(re, im, ft_count: int):
 
 
 def _fwd_fft_plain(x2, filterbank, fft_length, hop_length, window,
-                   win_length, to_db, db_ref, amin, save_spec=False):
+                   win_length, to_db, db_ref, amin, save_spec=False,
+                   _banded=None):
     """Plain PyTorch version of the FFT forward kernel, step by step;
     arguments and results as :func:`_fwd_res_plain`.  A windowed frame of
     ``N = 2M`` samples is packed as ``z[m] = x[2m] + i·x[2m+1]``,
     transformed by :func:`_stockham_fft` (``M`` points, the kernel's twiddle
     table, whose first ``M`` entries are ``W``) and split into its bins: with
     ``E_k = (Z_k + conj Z_{M−k})/2`` and ``O_k = (Z_k − conj Z_{M−k})/(2i)``,
-    ``X_k = E_k + W_k·O_k`` for ``k < M`` and ``X_M = E_0 − O_0``."""
+    ``X_k = E_k + W_k·O_k`` for ``k < M`` and ``X_M = E_0 − O_0``.  The mel
+    product runs over each mel's band where :func:`_band_choice` says the
+    kernel's does (``_banded`` forces either)."""
     n = fft_length
     m = n // 2
     ft_count = _cdiv(m + 1, _FREQ_TILE)
@@ -497,7 +681,13 @@ def _fwd_fft_plain(x2, filterbank, fft_length, hop_length, window,
     o = torch.complex(0.5 * (zk.imag + zn.imag), 0.5 * (zn.real - zk.real))
     spec = e + torch.cat([tw[:m], -tw[:1]]) * o
     re, im = spec.real, spec.imag
-    mel = (re * re + im * im) @ filterbank
+    m_pad = _round_up(filterbank.shape[1], _MEL_TILE)
+    mel_band, bin_band = _fb_bands(filterbank, m_pad)
+    if _banded is None:
+        _banded = _band_choice(mel_band, bin_band, n, m_pad)[0]
+    p = re * re + im * im
+    mel = (_mel_product_banded(p, filterbank, mel_band) if _banded
+           else p @ filterbank)
     if to_db:
         mel = amplitude_to_db(mel, ref=db_ref, amin=amin, power=2.0)
     reim = _to_tiles(re, im, ft_count) if save_spec else None
@@ -533,10 +723,20 @@ def _dframes_fft_plain(dreim, fft_length, window, win_length):
 
 
 def _bwd_fft_plain(dmel, reim, filterbank, fft_length, window, win_length,
-                   need_dx, need_dfb):
+                   need_dx, need_dfb, _banded=None):
     """Plain PyTorch version of the backward kernel on the FFT route;
-    arguments and results as :func:`_bwd_plain`."""
-    dreim, dfb = _dfb_dreim_plain(dmel, reim, filterbank, need_dx, need_dfb)
+    arguments and results as :func:`_bwd_plain`.  dp runs over each bin's
+    band where :func:`_band_choice` says the frame pass's does (``_banded``
+    forces either)."""
+    bands = None
+    if need_dx:
+        mel_band, bin_band = _fb_bands(filterbank, dmel.shape[1])
+        if _banded is None:
+            _banded = _band_choice(mel_band, bin_band, fft_length,
+                                   dmel.shape[1])[1]
+        bands = bin_band if _banded else None
+    dreim, dfb = _dfb_dreim_plain(dmel, reim, filterbank, need_dx, need_dfb,
+                                  bands)
     dframes = (_dframes_fft_plain(dreim, fft_length, window, win_length)
                if need_dx else None)
     return dframes, dfb
@@ -546,15 +746,21 @@ def _bwd_fft_plain(dmel, reim, filterbank, fft_length, window, win_length,
 
 def _fused_mel_fwd_cuda(x2, filterbank, fft_length, hop_length, window,
                         win_length, to_db, db_ref, amin, save_spec=False,
-                        _route=None):
+                        _route=None, _banded=None):
     """Launch a forward kernel on ``x2 (streams, T)``; returns ``(out
     (streams, num_mels, n_frames), reim or None)`` as
     :func:`_fwd_res_plain`.  The FFT kernel when
     :func:`_fft_kernel_supported`, else the DFT-product kernel (``_route``
-    names one of them to compare both at one shape).  Raises on any input
+    names one of them to compare both at one shape).  The FFT kernel runs
+    after the band pass (:func:`_mel_bands`) and takes its banded mel
+    product where the bands decide so (:func:`_band_choice`); ``_banded``
+    True or False forces one product, for the tests.  Raises on any input
     it does not take; never computes the result another way."""
     global KERNEL_LAUNCHES, FFT_KERNEL_LAUNCHES
     route = _route_for(fft_length, _route)
+    banded = _banded_flag(_banded)
+    if route == "dft" and _banded is not None:
+        raise ValueError("the banded products are the FFT kernels'")
     if not (x2.is_cuda and x2.dtype == torch.float32 and x2.ndim == 2
             and x2.is_contiguous()):
         raise ValueError("kernel input must be a contiguous float32 CUDA "
@@ -577,7 +783,6 @@ def _fused_mel_fwd_cuda(x2, filterbank, fft_length, hop_length, window,
     win_key = _hashable_window(window)
     ft_count = _cdiv(fft_length // 2 + 1, _FREQ_TILE)
     m_pad = _round_up(num_mels, _MEL_TILE)
-    fbp = _fb_padded(filterbank, ft_count, m_pad).contiguous()
     out = torch.empty((streams, num_mels, n_frames), dtype=torch.float32,
                       device=x2.device)
     reim = (torch.empty((streams, n_frames, ft_count * 2 * _FREQ_TILE),
@@ -586,20 +791,31 @@ def _fused_mel_fwd_cuda(x2, filterbank, fft_length, hop_length, window,
     db_off = _LN10_INV_10 * math.log(max(amin, db_ref)) if to_db else 0.0
     lib = _kernel_lib()
     tail = (num_mels, m_pad, int(to_db), float(amin), float(db_off))
-    if route == "fft":
-        ops = _fft_consts_on(x2.device, fft_length, win_key, win_length)
-        entry, mid = lib.tac_fused_mel_fft_fwd, ()
-    else:
-        ops = _basis_on(x2.device, fft_length, win_key, win_length)[:1]
-        entry, mid = lib.tac_fused_mel_fwd, (ft_count,)
+    slabs = _slabs(streams)
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
-        for s0, s1 in _slabs(streams):
-            rc = entry(x2[s0].data_ptr(), *(t.data_ptr() for t in ops),
-                       fbp.data_ptr(), out[s0].data_ptr(),
+        # the filterbank as the kernel reads it: the band pass's buffer or
+        # the padded copy (held until the launch)
+        if route == "fft":
+            fb_buf, bands = _mel_bands(filterbank, ft_count, m_pad, True,
+                                       stream)
+            ops = (*(t.data_ptr() for t in _fft_consts_on(
+                x2.device, fft_length, win_key, win_length)), *bands[:3])
+            entry, mid = lib.tac_fused_mel_fft_fwd, ()
+            # the card counts a banded launch once, in the first slab
+            ends = [(banded, _card_counter(0))] + [(banded, None)] * (
+                len(slabs) - 1)
+        else:
+            fb_buf = _fb_padded(filterbank, ft_count, m_pad).contiguous()
+            ops = (_basis_on(x2.device, fft_length, win_key,
+                             win_length)[0].data_ptr(), fb_buf.data_ptr())
+            entry, mid = lib.tac_fused_mel_fwd, (ft_count,)
+            ends = [()] * len(slabs)
+        for (s0, s1), end in zip(slabs, ends):
+            rc = entry(x2[s0].data_ptr(), *ops, out[s0].data_ptr(),
                        reim[s0].data_ptr() if save_spec else None,
                        s1 - s0, n_samples, fft_length, hop_length, n_frames,
-                       *mid, *tail, stream)
+                       *mid, *tail, *end, stream)
             _launch_check(lib, rc, f"forward ({route})")
     KERNEL_LAUNCHES += 1
     FFT_KERNEL_LAUNCHES += int(route == "fft")
@@ -633,13 +849,15 @@ def _dfb_grid(rows: int, n_freqs: int, m_pad: int):
 
 def _fused_mel_bwd_cuda(dmel, reim, filterbank, fft_length, window,
                         win_length, need_dx, need_dfb, _route=None,
-                        hop_length=None, n_samples=None):
+                        hop_length=None, n_samples=None, _banded=None):
     """Launch the backward kernel; arguments and results as
     :func:`_bwd_plain`.  The frame-gradient passes run only when
     ``need_dx``: as one kernel around an inverse FFT when
-    :func:`_fft_kernel_supported` (``dreim`` stays in registers), else as
-    pass A and the product with the basis (``_route`` names one of the
-    two).  The filterbank-gradient pass runs only when ``need_dfb``.
+    :func:`_fft_kernel_supported` (``dreim`` stays in registers; after the
+    band pass, its dp product banded where the bands decide so, or as
+    ``_banded`` forces), else as pass A and the product with the basis
+    (``_route`` names one of the two).  The filterbank-gradient pass runs
+    only when ``need_dfb``, and reads no filterbank.
 
     Given ``hop_length`` and ``n_samples`` (:func:`_dx_fusable`, FFT route
     only), the frame pass overlap-adds the frame gradient onto the waveform
@@ -650,6 +868,9 @@ def _fused_mel_bwd_cuda(dmel, reim, filterbank, fft_length, window,
     global BWD_KERNEL_LAUNCHES, BWD_DFRAMES_LAUNCHES, BWD_FFT_LAUNCHES
     global BWD_DX_FUSED_LAUNCHES, BWD_DFB_LAUNCHES, BWD_DFB_ONE_READ_LAUNCHES
     route = _route_for(fft_length, _route)
+    banded = _banded_flag(_banded)
+    if route == "dft" and _banded is not None:
+        raise ValueError("the banded products are the FFT kernels'")
     for name, t in (("dmel", dmel), ("reim", reim)):
         if not (t.is_cuda and t.dtype == torch.float32 and t.ndim == 2
                 and t.is_contiguous()):
@@ -688,22 +909,22 @@ def _fused_mel_bwd_cuda(dmel, reim, filterbank, fft_length, window,
                              f"{hop_length}")
     if not (need_dx or need_dfb):
         return None, None
-    fbp = _fb_padded(filterbank, ft_count, m_pad).contiguous()
     dev = dict(dtype=torch.float32, device=dmel.device)
     dframes = dx = None
     if need_dx and fuse_dx:
         dx = torch.empty((rows // n_frames, n_samples), **dev)
     elif need_dx:
         dframes = torch.empty((rows, fft_length), **dev)
-    # the frame passes' operands: the transposed filterbank, the window and
-    # the twiddles (one kernel), or the dreim scratch and the basis (two)
-    fbt = w = tw = dreim = basis = None
+    # the frame passes' operands: the transposed filterbank, its bins' bands,
+    # the window and the twiddles (one kernel), or the padded filterbank,
+    # the dreim scratch and the basis (two)
+    fbp = w = tw = dreim = basis = None
     k_pad = 0
     win_key = _hashable_window(window)
     if need_dx and route == "fft":
-        fbt = fbp.t().contiguous()
         w, tw = _fft_consts_on(dmel.device, fft_length, win_key, win_length)
     elif need_dx:
+        fbp = _fb_padded(filterbank, ft_count, m_pad).contiguous()
         dreim = torch.empty_like(reim)
         basis, _, _ = _basis_on(dmel.device, fft_length, win_key, win_length)
         k_pad = basis.shape[0]
@@ -719,13 +940,18 @@ def _fused_mel_bwd_cuda(dmel, reim, filterbank, fft_length, window,
     lib = _kernel_lib()
     with torch.cuda.device(dmel.device):
         stream = torch.cuda.current_stream(dmel.device).cuda_stream
+        # the FFT frame pass's transposed filterbank and its bins' bands
+        fbt = bin_band = counter = None
+        if need_dx and route == "fft":
+            fb_buf, (_, fbt, _, bin_band) = _mel_bands(
+                filterbank, ft_count, m_pad, False, stream)
+            counter = _card_counter(1)
         rc = lib.tac_fused_mel_bwd(
-            dmel.data_ptr(), reim.data_ptr(), fbp.data_ptr(), ptr(fbt),
+            dmel.data_ptr(), reim.data_ptr(), ptr(fbp), fbt, bin_band,
             ptr(basis), ptr(w), ptr(tw), ptr(dreim), ptr(dframes), ptr(dx),
-            ptr(dfb), ptr(part),
-            rows, fft_length, k_pad, ft_count, m_pad, n_splits, per,
-            hop_length if fuse_dx else 0, n_samples if fuse_dx else 0,
-            stream)
+            ptr(dfb), ptr(part), rows, fft_length, k_pad, ft_count, m_pad,
+            n_splits, per, hop_length if fuse_dx else 0,
+            n_samples if fuse_dx else 0, banded, counter, stream)
     _launch_check(lib, rc, f"backward ({route})")
     BWD_KERNEL_LAUNCHES += 1
     BWD_DFRAMES_LAUNCHES += int(need_dx)
