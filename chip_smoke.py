@@ -51,7 +51,10 @@ imports no JAX.  Phases, each printing its lines:
    residual and the backward timed on both routes against their plain
    versions;
 10. config 3's losses and parameters checked against the CPU copy's
-    (the plain path), and ms per step timed on both;
+    (the plain path; the card's steps after the first are replayed from
+    the step's CUDA graph), and ms per step timed on both: on the card
+    the eager step and the replayed one, by CUDA events, each call alone
+    and 20 queued, with the step graph's counters;
 11. the fused Griffin-Lim kernels vs their plain version at small shapes
     (fft 1024 / hop 256, 2048 / 512, 1024 / 512, 1024 / 1024, fft 400 / hop
     160, stereo, ``center=False``, a Hamming window), in both state
@@ -1370,18 +1373,40 @@ def phase_config3(model, xb_c, labels_c, snaps, cpu_losses, cpu_ms, losses,
     _check(cnn_worst <= STEP_PARITY,
            f"config 3 CNN parameters differ: {cnn_worst}")
 
-    # lr 0 runs every kernel of a step and leaves the parameters as they are
+    # lr 0 runs every kernel of a step and leaves the parameters as they
+    # are.  The eager step is the body train_step runs on a signature's
+    # first call; train_step at lr 0 is a new signature: its first call
+    # runs eagerly, its second captures, the rest replay the graph.
+    from torchaudio_contrib_tpu_torch.models._common import _fp32_cudnn
+    from torchaudio_contrib_tpu_torch.utils import trace
+    eager = _fp32_cudnn(type(model)._sgd_step)
+    eager_ms = _time_ms(lambda: eager(model, xb_c, labels_c, 0.0), 2, 8)
+    eager_queued = _queued_ms(lambda: eager(model, xb_c, labels_c, 0.0))
+    before = trace.counts()
     ms = _time_ms(lambda: model.train_step(xb_c, labels_c, 0.0), 2, 8)
+    queued = _queued_ms(lambda: model.train_step(xb_c, labels_c, 0.0))
+    graphs = {k: v for k, v in trace.delta(before).items()
+              if k.startswith("STEP_GRAPH")}
     plain = tac.MelFrontendClassifier(
         num_classes=CFG3["classes"], num_mels=CFG3["mels"],
         sample_rate=CFG3["sr"], fft_length=CFG3["fft"],
         hop_length=CFG3["hop"], fused=False, trainable_frontend=True,
         generator=torch.Generator().manual_seed(1)).cuda()
+    before = trace.counts()
     plain_ms = _time_ms(lambda: plain.train_step(xb_c, labels_c, 0.0), 2, 8)
-    print(f"timing [{card}]: config 3 train step, fused kernels "
-          f"{ms:.3f} ms; plain STFT pipeline (fused=False) on the card "
-          f"{plain_ms:.3f} ms; plain path on the CPU {cpu_ms:.1f} ms "
-          f"(host clock)", flush=True)
+    plain_graphs = {k: v for k, v in trace.delta(before).items()
+                    if k.startswith("STEP_GRAPH")}
+    print(f"timing [{card}]: config 3 train step, fused kernels: eager "
+          f"{eager_ms:.3f} ms a call, {eager_queued:.3f} ms queued; "
+          f"replayed from a CUDA graph {ms:.3f} ms a call, {queued:.3f} ms "
+          f"queued (CUDA events; counters {graphs}); plain STFT pipeline "
+          f"(fused=False) on the card {plain_ms:.3f} ms ({plain_graphs}); "
+          f"plain path on the CPU {cpu_ms:.1f} ms (host clock)", flush=True)
+    # 2 + 8 timed calls and 3 + 20 x 5 queued: the first eager, the second
+    # captured and replayed
+    _check(graphs == {"STEP_GRAPH_CAPTURES": 1, "STEP_GRAPH_REPLAYS": 112,
+                      "STEP_GRAPH_REFUSED": 0},
+           f"config 3's step was not replayed from one graph: {graphs}")
 
 
 def _convergence(y, mag, n_fft: int, hop: int, window="hann",

@@ -1719,6 +1719,164 @@ def test_pipeline_and_tp_fsdp_step_on_card(cuda_device, tmp_path):
         assert torch.equal(p.detach(), q.full_tensor().detach()), n
 
 
+# ---- the classifier's training step replayed from a CUDA graph ------------
+
+# BASELINE config 3, as the benchmark's c3_train cell runs it
+C3 = dict(num_classes=10, num_mels=64, sample_rate=16000, fft_length=512,
+          hop_length=128, channels=(32, 64, 128), fused=True,
+          trainable_frontend=True)
+STEP_GRAPH = ("STEP_GRAPH_CAPTURES", "STEP_GRAPH_REPLAYS",
+              "STEP_GRAPH_REFUSED")
+
+
+@pytest.fixture()
+def deterministic_cudnn(cuda_device):
+    """cuDNN's deterministic algorithms.  With its default ones two eager
+    runs of config 3's steps differ by 9e-6 of the filterbank's norm after
+    the second step and by 3e-2 after the fifth: its weight gradients sum
+    in no fixed order, and from the second step on the filterbank's
+    gradient turns last-bit differences into large ones.  With these, the
+    eager steps repeat bit for bit, so a replay must match them."""
+    kept = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield cuda_device
+    torch.backends.cudnn.deterministic = kept
+
+
+def _c3_pair():
+    """Two config-3 classifiers on the card from one seed."""
+    model = tat.MelFrontendClassifier(
+        **C3, generator=torch.Generator().manual_seed(1)).cuda()
+    return model, copy.deepcopy(model)
+
+
+def _c3_batch(seed, clips=32, seconds=10):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = 0.1 * torch.randn((clips, 1, seconds * 16000), generator=gen,
+                          device="cuda")
+    return x, torch.randint(0, 10, (clips,), generator=gen, device="cuda")
+
+
+def _eager_step(model, waveform, labels, lr):
+    """``train_step``'s body before it was replayed from a graph: every
+    call eager."""
+    from torchaudio_contrib_tpu_torch.models._common import _fp32_cudnn
+
+    @_fp32_cudnn
+    def step(waveform, labels):
+        params = [p for p in model.parameters() if p.requires_grad]
+        loss = model.loss_fn(waveform, labels)
+        grads = torch.autograd.grad(loss, params)
+        with torch.no_grad():
+            for p, g in zip(params, grads):
+                p.sub_(lr * g)
+        return loss.detach()
+    return step(waveform, labels)
+
+
+def _step_gaps(params, twin, loss, want):
+    """The loss's relative gap and each of ``params``' to ``twin``'s, in
+    l2."""
+    gaps = {"loss": abs(float(loss) - float(want)) / abs(float(want))}
+    for p, (name, q) in zip(params, twin.named_parameters()):
+        gaps[name] = (torch.linalg.norm((p - q).double())
+                      / torch.linalg.norm(q.double())).item()
+    return gaps
+
+
+def _graph_moves(before):
+    from torchaudio_contrib_tpu_torch.utils import trace
+    moved = trace.delta(before)
+    return tuple(moved[k] for k in STEP_GRAPH)
+
+
+@pytest.mark.cuda
+def test_train_step_replays_as_the_eager_step(deterministic_cudnn):
+    """Config 3: five ``train_step``s (eager, captured and replayed, three
+    replays) against five eager steps of the old body from the same
+    weights: every loss and parameter within 1e-6 relative after every
+    step; the losses returned at steps 1-3 unchanged after step 5; one
+    capture, four replays, nothing refused; the launch counters moved as
+    the eager steps moved them."""
+    from torchaudio_contrib_tpu_torch.ops import _launches
+    from torchaudio_contrib_tpu_torch.utils import trace
+    model, twin = _c3_pair()
+    batches = [_c3_batch(seed) for seed in range(5)]
+    before, launches = trace.counts(), _launches.counts()
+    losses, kept, params = [], [], []
+    for x, labels in batches:
+        losses.append(model.train_step(x, labels, 1e-3))
+        kept.append(losses[-1].clone())
+        params.append([p.detach().clone() for p in model.parameters()])
+    torch.cuda.synchronize()
+    graph_launches = _launches.delta(launches)
+    assert _graph_moves(before) == (1, 4, 0)
+    launches = _launches.counts()
+    for i, (x, labels) in enumerate(batches):
+        want = _eager_step(twin, x, labels, 1e-3)
+        gaps = _step_gaps(params[i], twin, losses[i], want)
+        assert max(gaps.values()) <= 1e-6, (i, gaps)
+    torch.cuda.synchronize()
+    assert _launches.delta(launches) == graph_launches
+    for got, first in zip(losses[:3], kept):
+        assert torch.equal(got, first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("change", ["lr", "batch shape", "assigned weights"])
+def test_train_step_captures_again_on_a_new_signature(deterministic_cudnn,
+                                                      change):
+    """Two steps at one signature (eager, then captured), then three at
+    another: eager, captured, replayed; every step within 1e-6 of the
+    eager body's."""
+    from torchaudio_contrib_tpu_torch.utils import trace
+    model, twin = _c3_pair()
+    x, labels = _c3_batch(0)
+    lr = 1e-3
+    before = trace.counts()
+    for step in range(5):
+        if step == 2:
+            if change == "lr":
+                lr = 2e-3
+            elif change == "batch shape":
+                x, labels = _c3_batch(1, clips=16)
+            else:
+                for m in (model, twin):
+                    m.load_state_dict({k: v.clone() for k, v
+                                       in m.state_dict().items()},
+                                      assign=True)
+        loss = model.train_step(x, labels, lr)
+        gaps = _step_gaps(model.parameters(), twin, loss,
+                          _eager_step(twin, x, labels, lr))
+        assert max(gaps.values()) <= 1e-6, (step, gaps)
+    assert _graph_moves(before) == (2, 3, 0)
+
+
+@pytest.mark.cuda
+def test_train_step_stays_eager_where_its_capture_fails(deterministic_cudnn):
+    """A host sync in the head: the second call's capture fails, is counted
+    and leaves the signature eager; every step is the eager body's and the
+    card's generator still draws."""
+    from torchaudio_contrib_tpu_torch.utils import trace
+    model, twin = _c3_pair()
+    head = model.head.forward
+
+    def syncing(v):
+        v.sum().item()
+        return head(v)
+
+    model.head.forward = syncing
+    x, labels = _c3_batch(0, clips=4)
+    before = trace.counts()
+    for _ in range(3):
+        loss = model.train_step(x, labels, 1e-3)
+        gaps = _step_gaps(model.parameters(), twin, loss,
+                          _eager_step(twin, x, labels, 1e-3))
+        assert max(gaps.values()) <= 1e-6, gaps
+    assert _graph_moves(before) == (0, 0, 1)
+    torch.randn(4, device="cuda")
+
+
 # ---- utils.timing: the device loop as one CUDA graph replay ---------------
 
 def _fold(s, k):

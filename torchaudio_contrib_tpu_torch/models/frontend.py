@@ -12,7 +12,8 @@ GPU the filterbank's gradient runs through the backward kernel.
 
 ``forward`` and ``train_step`` mark their parts for a recording
 ``torch.profiler`` (``tac::classifier.step`` > ``.forward`` (``.frontend``,
-``.conv0``–``.conv2``, ``.head``), ``.loss``, ``.grad``, ``.update``; see
+``.conv0``–``.conv2``, ``.head``), ``.loss``, ``.grad``, ``.update``, and
+``.replay`` where the step is replayed from a CUDA graph; see
 :mod:`..utils.trace`).
 """
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.trace import span
+from . import _step_graph
 from ._common import _fp32_cudnn
 from .layers import (AmplitudeToDb, FusedMelspectrogram, Melspectrogram,
                      Pipeline)
@@ -127,13 +129,21 @@ class MelFrontendClassifier(nn.Module):
                    lr: float = 1e-3) -> torch.Tensor:
         """One plain SGD step, ``p ← p − lr·∂loss/∂p``, on every parameter
         (the filterbank too when it is trainable), in place.  Returns the
-        loss before the step, detached."""
+        loss before the step, detached.  On the card, from the second call
+        of an input signature on, the step is replayed from a CUDA graph
+        (:mod:`._step_graph`)."""
         with span("classifier.step"):
-            params = [p for p in self.parameters() if p.requires_grad]
-            loss = self.loss_fn(waveform, labels)
-            with span("classifier.grad"):
-                grads = torch.autograd.grad(loss, params)
-            with span("classifier.update"), torch.no_grad():
-                for p, g in zip(params, grads):
-                    p.sub_(lr * g)
-            return loss.detach()
+            return _step_graph.run(self, self._sgd_step, waveform, labels,
+                                   lr)
+
+    def _sgd_step(self, waveform: torch.Tensor, labels: torch.Tensor,
+                  lr: float) -> torch.Tensor:
+        """The step itself, run eagerly or recorded into a capture."""
+        params = [p for p in self.parameters() if p.requires_grad]
+        loss = self.loss_fn(waveform, labels)
+        with span("classifier.grad"):
+            grads = torch.autograd.grad(loss, params)
+        with span("classifier.update"), torch.no_grad():
+            for p, g in zip(params, grads):
+                p.sub_(lr * g)
+        return loss.detach()

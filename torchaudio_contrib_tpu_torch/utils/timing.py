@@ -104,8 +104,8 @@ class _Loop:
     def _capture(self, x: torch.Tensor) -> _Capture:
         """Warm ``f`` up on a side stream (every first-use cache, the
         kernels' build among them, is filled outside the graph), then
-        capture the ``k`` applications and their sum into one graph with a
-        private memory pool, and instantiate it."""
+        capture the ``k`` applications and their sum into one graph
+        (:func:`capture_graph`)."""
         dev = x.device
         static = x.clone()
         side = torch.cuda.Stream(dev)
@@ -113,30 +113,56 @@ class _Loop:
         with torch.cuda.stream(side):
             self.f(static)
         torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        from ..ops import _launches
-        before = _launches.counts()
-        t0 = time.perf_counter()
+
+        def applications():
+            total = torch.zeros((), dtype=torch.float32, device=dev)
+            for _ in range(self.k):
+                total = total + _sum(self.f(static))
+            return total
+
         try:
-            with torch.cuda.graph(graph, stream=side):
-                total = torch.zeros((), dtype=torch.float32, device=dev)
-                for _ in range(self.k):
-                    total = total + _sum(self.f(static))
+            graph, total, moves, capture_s, instantiate_s = capture_graph(
+                applications, dev, side)
         except RuntimeError as e:
-            _release_generators(dev)
             first = e.__context__ or e
             raise RuntimeError(
                 f"device_loop: {_name(self.f)} cannot be captured into a "
                 f"CUDA graph: {str(first).splitlines()[0]}"
                 + ("" if first is e else
                    f" (then: {str(e).splitlines()[0]})")) from e
-        finally:
-            moves = _launches.delta(before)
-            _launches.add(moves, -1)    # the capture launched nothing
-        t1 = time.perf_counter()
-        graph.instantiate()
-        return _Capture(graph, static, total, moves, t1 - t0,
-                        time.perf_counter() - t1)
+        return _Capture(graph, static, total, moves, capture_s,
+                        instantiate_s)
+
+
+def capture_graph(fn, device: torch.device, stream=None) -> tuple:
+    """``fn()`` captured on ``stream`` (a new side stream by default) into
+    a ``CUDAGraph(keep_graph=True)`` with a private memory pool, and
+    instantiated: ``(graph, out, moves, capture_s, instantiate_s)``, where
+    ``out`` is ``fn``'s output, which each replay writes anew, and
+    ``moves`` the launch counters' moves a replay stands for
+    (``ops._launches.add(moves)`` at each replay; the capture launched
+    nothing, so they are taken off again here).  A failed capture raises
+    CUDA's error after giving the card's default generator a fresh state
+    (:func:`_release_generators`)."""
+    from ..ops import _launches     # ops imports utils (its spans)
+    side = stream or torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    before = _launches.counts()
+    t0 = time.perf_counter()
+    try:
+        with torch.cuda.graph(graph, stream=side):
+            out = fn()
+    except RuntimeError:
+        _release_generators(device)
+        raise
+    finally:
+        moves = _launches.delta(before)
+        _launches.add(moves, -1)
+    t1 = time.perf_counter()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph.instantiate()
+    return graph, out, moves, t1 - t0, time.perf_counter() - t1
 
 
 def device_loop(f, k: int = 16):

@@ -31,7 +31,11 @@ family's forward and the greedy CTC decode:
 ``classifier.step``        ``MelFrontendClassifier.train_step``, with
                            ``classifier.forward``, ``classifier.loss``,
                            ``classifier.grad`` (``torch.autograd.grad``) and
-                           ``classifier.update`` (the SGD loop)
+                           ``classifier.update`` (the SGD loop) where the
+                           step runs eagerly or is captured, and
+                           ``classifier.replay`` where it is replayed from
+                           a CUDA graph (the input copies, the graph's
+                           launch and the loss's copy)
 ``classifier.forward``     ``MelFrontendClassifier.forward``, with
                            ``classifier.frontend``, ``classifier.conv<i>``
                            (pad, convolution and ReLU of block ``i``) and
@@ -55,7 +59,8 @@ family's forward and the greedy CTC decode:
 =========================  ===================================================
 
 Layers, as ``PERF.md`` names them: ``fused_mel``, ``classifier.step``,
-``classifier.forward`` and ``w2v2.forward`` are the entry and dispatch;
+``classifier.replay``, ``classifier.forward`` and ``w2v2.forward`` are the
+entry and dispatch;
 ``fused_mel.fwd`` and ``fused_mel.bwd*`` launch the fused kernels;
 ``classifier.conv<i>``, ``classifier.grad``, ``w2v2.extract``,
 ``w2v2.pos_conv`` and the encoder's spans (``w2v2.project``, ``.layer``,
@@ -73,10 +78,17 @@ Counters are host integers, read as one by :func:`counts` and
   fused op's caches of constants (DFT basis, window, twiddles) copy from
   the host to a device.  They move only when a cache fills, so a move over
   a steady run means the caches thrash.
+* ``STEP_GRAPH_CAPTURES``, ``STEP_GRAPH_REFUSED``: the training steps
+  ``MelFrontendClassifier.train_step`` captured into a CUDA graph, and the
+  signatures it left eager because their capture failed
+  (``models/_step_graph.py``).  A capture moves once a signature, in
+  set-up, so a move over a steady run means the graphs thrash.
+* ``STEP_GRAPH_REPLAYS``: the steps replayed from those graphs.  It moves
+  by one a replayed call, so over a steady run it reads the calls, the one
+  counter of :func:`counts` that is work and not a fault.
 
-A counter of work moves on every call, by the work done, and is read as the
-module's attribute (it is not one of :func:`counts`, whose moves over a
-steady run are faults):
+Another counter of work, read as the module's attribute and not one of
+:func:`counts`:
 
 * ``W2V2_FRAMES``: the encoder frames a wav2vec2-family forward computed,
   ``batch · T'`` a call, padded frames included; counted from the shapes
@@ -96,7 +108,11 @@ PREFIX = "tac::"
 
 CONST_UPLOADS = 0
 CONST_UPLOAD_BYTES = 0
-_COUNTERS = ("CONST_UPLOADS", "CONST_UPLOAD_BYTES")
+STEP_GRAPH_CAPTURES = 0
+STEP_GRAPH_REPLAYS = 0
+STEP_GRAPH_REFUSED = 0
+_COUNTERS = ("CONST_UPLOADS", "CONST_UPLOAD_BYTES", "STEP_GRAPH_CAPTURES",
+             "STEP_GRAPH_REPLAYS", "STEP_GRAPH_REFUSED")
 W2V2_FRAMES = 0
 
 _OFF = contextlib.nullcontext()
