@@ -1877,6 +1877,89 @@ def test_train_step_stays_eager_where_its_capture_fails(deterministic_cudnn):
     torch.randn(4, device="cuda")
 
 
+def _device_rows(fn):
+    """Device rows (kernels, copies, fills) the profiler lists for
+    ``fn()``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.device_type == cuda for e in prof.events())
+
+
+@pytest.mark.cuda
+def test_train_step_replay_issues_the_eager_launches_and_three(cuda_device):
+    """Config 3 as ``c3_train`` runs it: a replayed step lists the eager
+    step's device rows and three more (the two input copies and the
+    loss's copy), as it did before the stream pool's steps shared its
+    graph machinery (89 and 92 rows on the benchmark's trace)."""
+    model, _ = _c3_pair()
+    x, labels = _c3_batch(0)
+    eager = _device_rows(lambda: model.train_step(x, labels, 1e-3))
+    model.train_step(x, labels, 1e-3)             # captured, replayed
+    replayed = _device_rows(lambda: model.train_step(x, labels, 1e-3))
+    assert replayed == eager + 3, (eager, replayed)
+
+
+# ---- the transducer's stream pool replayed from two CUDA graphs ----------
+
+def _stream_calls(pool, audio, calls):
+    """``calls`` steps of a pool of 16 slots over 1.2–6 s utterances of
+    ``audio``, slots beginning at staggered calls and recycled."""
+    rng = np.random.default_rng(3)
+    lengths = rng.integers(19200, 96000, size=(16, 4))
+    starts = rng.integers(0, audio.shape[0] - 96000, size=(16, 4))
+    seg = np.zeros(16, dtype=np.int64) - np.arange(16) % 3
+    k = np.zeros(16, dtype=np.int64)
+    outs = []
+    for _ in range(calls):
+        n = lengths[np.arange(16), k]
+        nseg = -(-pool.frames(torch.from_numpy(n)).numpy() // 16)
+        cur = np.maximum(seg, 0)
+        out = pool.step(audio, starts[np.arange(16), k], n, cur,
+                        (seg == 0).astype(np.int64))
+        outs.append(tuple(o.clone() for o in out))
+        seg += 1
+        done = seg >= nseg
+        k[done] = (k[done] + 1) % 4
+        seg[done] = 0
+    return outs, pool.state
+
+
+@pytest.mark.cuda
+def test_stream_pool_replays_as_the_eager_step(cuda_device, monkeypatch):
+    """``EMFORMER_RNNT_BASE_LIBRISPEECH`` at its published widths, 16
+    slots, eight steps with staggered starts and recycled slots: the steps
+    replayed from the two graphs (eager, captured, then replayed) give the
+    grids, lengths, encodings and final state of eight eager steps bit for
+    bit; one capture, seven replays, nothing refused."""
+    from torchaudio_contrib_tpu_torch import pipelines
+    from torchaudio_contrib_tpu_torch.models import _step_graph
+    from torchaudio_contrib_tpu_torch.utils import trace
+    bundle = pipelines.EMFORMER_RNNT_BASE_LIBRISPEECH
+    model = bundle.get_model(torch.Generator().manual_seed(2)).eval()
+    audio = 0.1 * torch.randn(400000, device="cuda",
+                              generator=torch.Generator("cuda").manual_seed(4))
+    before = trace.counts()
+    replayed, state = _stream_calls(bundle.get_stream_pool(model, 16),
+                                    audio, 8)
+    moved = trace.delta(before)
+    assert (moved["STEP_GRAPH_CAPTURES"], moved["STEP_GRAPH_REPLAYS"],
+            moved["STEP_GRAPH_REFUSED"]) == (1, 7, 0)
+    monkeypatch.setattr(_step_graph, "_stages_engage", lambda *a: False)
+    eager, eager_state = _stream_calls(bundle.get_stream_pool(model, 16),
+                                       audio, 8)
+    for i, (got, want) in enumerate(zip(replayed, eager)):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), i
+    from torchaudio_contrib_tpu_torch.models.rnnt import _leaves
+    for g, w in zip(_leaves(state), _leaves(eager_state)):
+        assert torch.equal(g, w)
+
+
 # ---- utils.timing: the device loop as one CUDA graph replay ---------------
 
 def _fold(s, k):

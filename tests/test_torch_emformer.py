@@ -154,7 +154,7 @@ def test_infer_matches_jax_and_leaves_its_state(pair, rng):
                         jax.tree_util.tree_leaves(tstate)):
             assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
         tstate = new
-    assert tstate["seg"] == 2
+    assert tstate["seg"].tolist() == [2, 2]
     assert tstate["seen"].tolist() == (2 * utt_len).tolist()
 
 

@@ -17,9 +17,10 @@ from torchaudio_contrib_tpu_torch.utils import trace
 torch.set_num_threads(2)
 
 FFT, HOP, MELS, SR = 256, 64, 16, 8000
-# the step graph's counters, which no CPU call moves
+# the step graph's counters and the stream pool's resets, which no
+# constant cache moves
 STEP_GRAPH_STILL = {"STEP_GRAPH_CAPTURES": 0, "STEP_GRAPH_REPLAYS": 0,
-                    "STEP_GRAPH_REFUSED": 0}
+                    "STEP_GRAPH_REFUSED": 0, "RNNT_SLOT_RESETS": 0}
 
 
 def _spans(prof):

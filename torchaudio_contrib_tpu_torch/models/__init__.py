@@ -23,7 +23,8 @@ from .frontend import MelFrontendClassifier
 from .asr import Wav2Letter, DeepSpeech
 from .emformer import Emformer, ConvEmformer, EmformerTranscriber
 from .conformer import Conformer, ConformerTranscriber
-from .rnnt import RNNTPredictor, LayerNormLSTMPredictor, RNNT, RNNTBeamSearch
+from .rnnt import (RNNTPredictor, LayerNormLSTMPredictor, RNNT, RNNTBeamSearch,
+                   RNNTStreamPool)
 from .factories import (emformer_rnnt_model, emformer_rnnt_base,
                         conformer_rnnt_model, conformer_rnnt_base,
                         wav2vec2_model, hubert_pretrain_base,
@@ -84,6 +85,7 @@ __all__ = [
     "Emformer", "ConvEmformer", "EmformerTranscriber",
     "Conformer", "ConformerTranscriber",
     "RNNTPredictor", "LayerNormLSTMPredictor", "RNNT", "RNNTBeamSearch",
+    "RNNTStreamPool",
     "emformer_rnnt_model", "emformer_rnnt_base",
     "conformer_rnnt_model", "conformer_rnnt_base",
     "Wav2Vec2", "Wav2Vec2Model", "WavLM", "wavlm_buckets",

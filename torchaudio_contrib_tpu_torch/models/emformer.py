@@ -23,9 +23,13 @@ memory taken from the context before ``out_proj``), and the
 
 Each module takes ``device=`` (the card unless the caller asks for the
 CPU) and draws its weights from ``generator`` (Glorot-uniform, zero
-biases).  Streaming state is a dict of tensors and a segment counter;
+biases).  Streaming state is a dict of tensors, a segment counter ``seg``
+and a count of frames ``seen`` among them, both per stream, so that the
+streams of one batch may have begun at different steps;
 :meth:`Emformer.infer` returns a new state and never writes into the one
-it was given, so a caller may replay a chunk.
+it was given, so a caller may replay a chunk, and
+:meth:`Emformer.reset_state` starts chosen streams afresh with no host
+sync (a server recycling a slot, inside a CUDA graph).
 """
 from __future__ import annotations
 
@@ -261,8 +265,8 @@ class Emformer(nn.Module):
 
     # -- streaming --------------------------------------------------------
     def init_state(self, batch_size: int, device=None) -> dict:
-        """Zeroed streaming state; validity comes from the segment counter
-        ``seg`` and the per-sample frames ``seen`` so far."""
+        """Zeroed streaming state; validity comes from the per-stream
+        segment counter ``seg`` and frames ``seen`` so far."""
         dev = self._device() if device is None else device
         L, M, D = max(self.L, 1), max(self.M, 1), self.d
         return {"layers": [{"lc": torch.zeros((batch_size, L, D),
@@ -270,9 +274,22 @@ class Emformer(nn.Module):
                             "bank": torch.zeros((batch_size, M, D),
                                                 device=dev)}
                            for _ in range(self.n_layers)],
-                "seg": 0,
+                "seg": torch.zeros((batch_size,), dtype=torch.long,
+                                   device=dev),
                 "seen": torch.zeros((batch_size,), dtype=torch.long,
                                     device=dev)}
+
+    def reset_state(self, state: dict, mask: torch.Tensor) -> dict:
+        """A new state in which the streams where ``mask (B,)`` is set hold
+        what :meth:`init_state` gives (zeros) and the others are unchanged
+        bit for bit; no host sync and no shape that depends on ``mask``."""
+        def keep(t):
+            m = mask.reshape((-1,) + (1,) * (t.dim() - 1))
+            return torch.where(m, torch.zeros((), dtype=t.dtype,
+                                              device=t.device), t)
+        return {"layers": [{k: keep(v) for k, v in st.items()}
+                           for st in state["layers"]],
+                "seg": keep(state["seg"]), "seen": keep(state["seen"])}
 
     @_fp32_cudnn
     def infer(self, chunk: torch.Tensor, state: dict,
@@ -300,9 +317,9 @@ class Emformer(nn.Module):
         seg_m = torch.arange(S, device=dev)[None] < utt_len[:, None]
         rc_m = (torch.arange(max(R, 1), device=dev)[None]
                 < rc_len[:, None]) if R else empty
-        lc_c = i * S - L + torch.arange(max(L, 1), device=dev)[None]
+        lc_c = i[:, None] * S - L + torch.arange(max(L, 1), device=dev)
         lc_m = ((lc_c >= 0) & (lc_c < seen[:, None])) if L else empty
-        mem_j = i - M + torch.arange(max(M, 1), device=dev)[None]
+        mem_j = i[:, None] - M + torch.arange(max(M, 1), device=dev)
         mem_m = ((mem_j >= 0) & (mem_j * S < seen[:, None])) if M \
             else empty
         masks = (lc_m, seg_m, rc_m, mem_m)
@@ -483,6 +500,9 @@ class EmformerTranscriber(nn.Module):
 
     def init_state(self, batch_size: int, device=None) -> dict:
         return self.transformer.init_state(batch_size, device)
+
+    def reset_state(self, state: dict, mask: torch.Tensor) -> dict:
+        return self.transformer.reset_state(state, mask)
 
     def infer(self, chunk: torch.Tensor, state: dict,
               utt_lengths=None, rc_lengths=None):

@@ -23,6 +23,13 @@ encodings or ``(encodings, lengths)``; :class:`~.emformer.Emformer`,
   equal label sequences merged by logsumexp into their first occurrence,
   empty slots at ``-inf``).  ``torch.topk`` may order equal scores
   otherwise than ``lax.top_k``; the finite n-best is the same.
+* Streaming: :meth:`RNNT.stream_greedy_step` (:meth:`RNNT.stream_encode`
+  then :meth:`RNNT.stream_decode`) advances every stream of a batch by one
+  chunk; :meth:`RNNT.reset_stream_slots` starts chosen streams afresh on
+  the device, so a batch's streams may begin at different steps.
+  :class:`RNNTStreamPool` serves a fixed number of slots from raw audio,
+  its state in buffers of its own and its step replayed from two CUDA
+  graphs (the port's own: the JAX package has none).
 
 ``state_dict`` names are torchaudio's ``models.RNNT``: ``transcriber``,
 ``predictor`` (``embedding``, ``input_layer_norm``,
@@ -35,6 +42,7 @@ Emformer-RNNT has none: build it with ``enc_proj=False``).  Modules take
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -42,11 +50,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import _step_graph
 from ._common import _dense, _fp32_cudnn, _glorot_
 from ..ops.rnnt import rnnt_loss_fused
+from ..utils import trace
+from ..utils.trace import span
 
 __all__ = ["RNNTPredictor", "LayerNormLSTMPredictor", "RNNT",
-           "RNNTBeamSearch"]
+           "RNNTBeamSearch", "RNNTStreamPool"]
 
 
 def _state_map(fn, *states):
@@ -362,14 +373,37 @@ class RNNT(nn.Module):
 
     # -- streaming ----------------------------------------------------------
     def init_stream_state(self, batch_size: int) -> dict:
-        """The transcriber's streaming state and the greedy carry; the
-        transcriber must have ``init_state``/``infer``."""
+        """The transcriber's streaming state, the greedy carry, and the
+        carry a stream starts from (``dec_init``, kept for
+        :meth:`reset_stream_slots`); the transcriber must have
+        ``init_state``/``infer``."""
         if not hasattr(self.transcriber, "init_state"):
             raise TypeError(
                 "streaming needs a transcriber with init_state/infer "
                 f"(got {type(self.transcriber).__name__})")
+        pred, carry = self.greedy_init_state(batch_size)
+        # its own tensors: a pool updates the carry in place
+        fresh = (pred.clone(), _state_map(torch.clone, carry))
         return {"enc": self.transcriber.init_state(batch_size),
-                "dec": self.greedy_init_state(batch_size)}
+                "dec": (pred, carry), "dec_init": fresh}
+
+    def reset_stream_slots(self, state: dict, mask: torch.Tensor) -> dict:
+        """A new state in which the streams where ``mask (B,)`` is set are
+        fresh (their encoder state what ``init_state`` gives, their greedy
+        carry what :meth:`greedy_init_state` gives) and the others are
+        unchanged bit for bit: one masked select a tensor, no host sync,
+        so that a server starts an utterance in a recycled slot inside a
+        CUDA graph."""
+        with span("rnnt.reset"):
+            m = mask[:, None]
+
+            def pick(fresh, kept):
+                return torch.where(m, fresh, kept)
+            (pred0, carry0), (pred, carry) = state["dec_init"], state["dec"]
+            return {"enc": self.transcriber.reset_state(state["enc"], mask),
+                    "dec": (pick(pred0, pred),
+                            _state_map(pick, carry0, carry)),
+                    "dec_init": state["dec_init"]}
 
     def stream_transcribe(self, chunk, enc_state, **infer_kwargs):
         """One transcriber step and the projection: ``chunk`` in the
@@ -379,17 +413,188 @@ class RNNT(nn.Module):
             chunk, enc_state, **infer_kwargs)
         return self._project(feats), out_lengths, enc_state
 
+    @torch.no_grad()
+    def stream_encode(self, chunk, state: dict, reset=None, **infer_kwargs):
+        """The first half of :meth:`stream_greedy_step`: the streams where
+        ``reset`` is set started afresh (:meth:`reset_stream_slots`), then
+        one transcriber step → ``(feats, out_lengths, state)``, the state's
+        greedy carry not yet advanced."""
+        if reset is not None:
+            state = self.reset_stream_slots(state, reset)
+        with span("rnnt.encode"):
+            feats, out_lengths, enc = self.stream_transcribe(
+                chunk, state["enc"], **infer_kwargs)
+        return feats, out_lengths, dict(state, enc=enc)
+
+    def stream_decode(self, feats, out_lengths, state: dict,
+                      max_symbols: int = 4):
+        """The second half: greedy decoding of one chunk's encodings →
+        ``(grid (B, S, max_symbols), state)``."""
+        with span("rnnt.decode"):
+            grid, dec = self._greedy_on_enc(feats, out_lengths, max_symbols,
+                                            state["dec"])
+        return grid, dict(state, dec=dec)
+
     def stream_greedy_step(self, chunk, state: dict, max_symbols: int = 4,
-                           **infer_kwargs):
+                           reset=None, **infer_kwargs):
         """Streaming greedy decoding, one chunk a call → ``(grid (B, S,
         max_symbols), out_lengths, state)``; every chunk fed reproduces
-        :meth:`greedy_decode`'s grid."""
+        :meth:`greedy_decode`'s grid.  ``reset (B,)`` bool starts the
+        streams where it is set afresh before the chunk (a new utterance
+        in a recycled slot; :meth:`reset_stream_slots`)."""
+        feats, out_lengths, state = self.stream_encode(chunk, state, reset,
+                                                       **infer_kwargs)
+        grid, state = self.stream_decode(feats, out_lengths, state,
+                                         max_symbols)
+        return grid, out_lengths, state
+
+
+class RNNTStreamPool:
+    """``slots`` concurrent streams of one transducer, each advanced by one
+    segment a call and decoded greedily, with every stream's state held on
+    the device in buffers of its own: a streaming ASR server's step.
+
+    ``step(audio, start, length, segment, reset)`` takes ``audio (N,)`` on
+    the model's device, holding every slot's current utterance, and per
+    slot on the host: where its utterance lies in ``audio`` (``start``,
+    ``length`` samples), which segment of it this call advances
+    (``segment``), and whether the utterance begins in this call
+    (``reset``: the slot's state starts afresh, on the device).  It
+    returns ``(grid (slots, S', max_symbols), out_lengths, encodings
+    (slots, S', J))`` for the segment, ``S'`` its encoder frames.
+
+    A slot's features at segment ``i`` are frames ``S·i … S·i + S + R −
+    1`` of its whole utterance's features as ``extractor`` computes them
+    (``center=True``, ``fft_length`` and ``hop_length`` its own): the
+    window of samples the extractor is given reaches ``fft_length // 2``
+    past each side of them, and the utterance's own edges are padded by
+    reflection, as the whole utterance's computation pads them, so that the
+    streamed encodings are the whole utterance's.  An utterance has
+    ``stride · ((1 + length // hop) // stride)`` frames (whole reduced
+    frames); the segments it does not fill and the lookahead past its end
+    are masked (``utt_lengths``, ``rc_lengths``).
+
+    A step is two stages, ``encode`` (the window, the features, the
+    resets, ``Emformer.infer`` and the projection) and ``decode`` (the
+    greedy frames and symbols), replayed from two CUDA graphs on the card
+    from a signature's second call on (``_step_graph.run_stages``).  The
+    step counts ``trace.RNNT_VALID_FRAMES`` (utterance frames advanced) and
+    ``trace.RNNT_SLOT_RESETS`` (utterances begun) from the host's
+    arguments.  ``mark``, if given, is called with each stage's name as
+    it begins and with None after the last, in the order the card runs
+    them (a caller timing the stages records a CUDA event there)."""
+
+    STAGING = 4      # pinned host buffers the per-slot arguments cycle
+
+    def __init__(self, model: RNNT, extractor: nn.Module, slots: int, *,
+                 fft_length: int, hop_length: int, max_symbols: int = 4):
+        tr = model.transcriber
+        if not hasattr(tr, "stride"):
+            raise TypeError("RNNTStreamPool needs an EmformerTranscriber-"
+                            f"like transcriber (got {type(tr).__name__})")
+        self.model, self.extractor = model, extractor
+        self.slots, self.max_symbols = int(slots), int(max_symbols)
+        self.hop, self.stride = int(hop_length), tr.stride
+        self.S, self.R = tr.S_in, tr.R_in
+        # frames of the window before the segment's first: its samples
+        # reach fft_length // 2 before that frame's centre
+        self.lead = -(-(fft_length // 2) // self.hop)
+        self.window = (self.hop * (self.lead + self.S + self.R - 1)
+                       + fft_length // 2)
+        self.device = model.joiner.linear.weight.device
         with torch.no_grad():
-            feats, out_lengths, enc_state = self.stream_transcribe(
-                chunk, state["enc"], **infer_kwargs)
-        grid, dec = self._greedy_on_enc(feats, out_lengths, max_symbols,
-                                        state["dec"])
-        return grid, out_lengths, {"enc": enc_state, "dec": dec}
+            self.state = model.init_stream_state(self.slots)
+        self._staged, self._turn = [], 0
+
+    def frames(self, length) -> torch.Tensor:
+        """Utterance frames of ``length`` samples (whole reduced frames)."""
+        n = torch.as_tensor(length).long()
+        return self.stride * ((1 + n // self.hop) // self.stride)
+
+    def _meta(self, start, length, segment, reset) -> torch.Tensor:
+        """The per-slot arguments and the frames they imply as one
+        ``(6, slots)`` long tensor on the device, counted on the host."""
+        start, length, segment = (torch.as_tensor(v).long()
+                                  for v in (start, length, segment))
+        reset = torch.as_tensor(reset).long()
+        frames = self.frames(length)
+        utt = (frames - self.S * segment).clamp(0, self.S)
+        rc = (frames - self.S * (segment + 1)).clamp(0, self.R)
+        meta = torch.stack([start, length, segment, utt, rc, reset])
+        trace.RNNT_VALID_FRAMES += int(utt.sum())
+        trace.RNNT_SLOT_RESETS += int(reset.sum())
+        if self.device.type != "cuda":
+            return meta.to(self.device)
+        # a pinned buffer is written again only once its copy has run
+        if len(self._staged) < self.STAGING:
+            self._staged.append((torch.empty(meta.shape, dtype=meta.dtype,
+                                             pin_memory=True),
+                                 torch.cuda.Event()))
+        host, done = self._staged[self._turn]
+        self._turn = (self._turn + 1) % self.STAGING
+        done.synchronize()
+        host.copy_(meta)
+        out = host.to(self.device, non_blocking=True)
+        done.record()
+        return out
+
+    def _windows(self, audio, start, length, segment):
+        """Each slot's window of samples, its utterance's edges reflected
+        (``torch.nn.functional.pad``'s ``reflect``)."""
+        pos = (segment[:, None] * (self.S * self.hop) - self.lead * self.hop
+               + torch.arange(self.window, device=audio.device))
+        last = length[:, None] - 1
+        pos = torch.where(pos < 0, -pos, pos)
+        pos = torch.where(pos > last, 2 * last - pos, pos)
+        # past the reflected margin: frames masked as past the utterance
+        pos = torch.minimum(pos.clamp(min=0), last)
+        return audio[start[:, None] + pos]
+
+    def _encode(self, audio, meta):
+        start, length, segment, utt, rc, reset = meta.unbind(0)
+        with span("rnnt.features"):
+            x = self._windows(audio, start, length, segment)
+            chunk = self.extractor(x)[:, self.lead:self.lead + self.S
+                                      + self.R]
+        feats, out_lengths, state = self.model.stream_encode(
+            chunk, self.state, reset.bool(), utt_lengths=utt,
+            rc_lengths=rc)
+        _copy_into(self.state, state)
+        return feats, out_lengths
+
+    def _decode(self, feats, out_lengths):
+        grid, state = self.model.stream_decode(feats, out_lengths,
+                                               self.state, self.max_symbols)
+        _copy_into(self.state["dec"], state["dec"])
+        return grid, out_lengths, feats
+
+    def _held(self):
+        return (*self.model.parameters(), *self.model.buffers(),
+                *self.extractor.buffers(), *_leaves(self.state))
+
+    def step(self, audio: torch.Tensor, start, length, segment, reset,
+             mark=None):
+        with span("rnnt.step"), torch.no_grad():
+            meta = self._meta(start, length, segment, reset)
+            return _step_graph.run_stages(
+                self, (("encode", functools.partial(self._encode, audio)),
+                       ("decode", self._decode)),
+                (meta,), (audio, *self._held()), "rnnt", mark)
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [t for item in items for t in _leaves(item)]
+
+
+def _copy_into(dst, src) -> None:
+    """Copy the tensors of ``src`` into those of ``dst``, a state of the
+    same structure (dicts, lists and tuples)."""
+    for d, s in zip(_leaves(dst), _leaves(src)):
+        if d is not s:
+            d.copy_(s)
 
 
 class RNNTBeamSearch:

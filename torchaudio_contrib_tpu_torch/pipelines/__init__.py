@@ -37,7 +37,7 @@ from torch import nn
 
 from .. import models as M
 from ..datasets import CMUDict
-from ..models import RNNTBeamSearch, emformer_rnnt_model
+from ..models import RNNTBeamSearch, RNNTStreamPool, emformer_rnnt_model
 from ..models.layers import Melspectrogram
 from ..ops.align import forced_align, merge_tokens
 from ..ops.filters import create_mel_filter
@@ -133,6 +133,9 @@ def _resolve(build: Callable, generator, checkpoint, torch_checkpoint,
     return model.to(device)
 
 
+_RNNT_FFT = 400
+
+
 class _RNNTFeatureExtractor(nn.Module):
     """``waveform (B, T)`` → ``(B, 1 + T // hop, n_mels)``: the mel
     spectrogram (fft 400) times the int16 gain, through torchaudio's
@@ -141,7 +144,8 @@ class _RNNTFeatureExtractor(nn.Module):
     def __init__(self, n_mels: int, sample_rate: int, hop_length: int):
         super().__init__()
         self.mel = Melspectrogram(num_mels=n_mels, sample_rate=sample_rate,
-                                  fft_length=400, hop_length=hop_length)
+                                  fft_length=_RNNT_FFT,
+                                  hop_length=hop_length)
         self.gain = float(32767 ** 2)    # 10^(0.05 · 2·20·log10(2^15 − 1))
 
     def forward(self, waveform: torch.Tensor) -> torch.Tensor:
@@ -208,6 +212,17 @@ class RNNTBundle:
 
     def get_decoder(self, model, beam_width: int = 8) -> RNNTBeamSearch:
         return RNNTBeamSearch(model, beam_width=beam_width)
+
+    def get_stream_pool(self, model, slots: int,
+                        max_symbols: int = 4) -> RNNTStreamPool:
+        """``slots`` concurrent streams of ``model`` (:meth:`get_model`'s)
+        advanced a segment a call and decoded greedily, their features by
+        this bundle's extractor on the model's device
+        (:class:`~..models.RNNTStreamPool`)."""
+        device = model.joiner.linear.weight.device
+        return RNNTStreamPool(model, self.get_feature_extractor(
+            device=device), slots, fft_length=_RNNT_FFT,
+            hop_length=self.hop_length, max_symbols=max_symbols)
 
 
 EMFORMER_RNNT_BASE_LIBRISPEECH = RNNTBundle()

@@ -14,7 +14,7 @@ function scope, so that:
 
 Spans never synchronise and change no result or launch order.  The port
 marks the fused log-mel op, the classifier's training step, the wav2vec2
-family's forward and the greedy CTC decode:
+family's forward, the greedy CTC decode and the transducer stream pool's step:
 
 =========================  ===================================================
 ``fused_mel``              ``ops.fused_melspectrogram`` on a CUDA tensor
@@ -56,6 +56,18 @@ family's forward and the greedy CTC decode:
 ``w2v2.head``              the CTC head (``aux``), where there is one
 ``ctc.greedy``             ``ops.ctc_greedy_decode``: argmax, collapse and
                            compaction
+``rnnt.step``              ``RNNTStreamPool.step``: the per-slot arguments
+                           staged and copied to the card, then either
+                           ``rnnt.features`` (each slot's window of
+                           samples and the extractor), ``rnnt.reset``
+                           (``RNNT.reset_stream_slots``), ``rnnt.encode``
+                           (``Emformer.infer`` and the projection) and
+                           ``rnnt.decode`` (the greedy frames and symbols)
+                           where the step runs eagerly or is captured, or
+                           ``rnnt.replay.encode`` (the input copy and the
+                           encode graph's launch) and ``rnnt.replay.decode``
+                           (the decode graph's launch and the outputs'
+                           copies) where it is replayed
 =========================  ===================================================
 
 Layers, as ``PERF.md`` names them: ``fused_mel``, ``classifier.step``,
@@ -65,7 +77,10 @@ entry and dispatch;
 ``classifier.conv<i>``, ``classifier.grad``, ``w2v2.extract``,
 ``w2v2.pos_conv`` and the encoder's spans (``w2v2.project``, ``.layer``,
 ``.attention``, ``.ffn``, ``.head``) run the library kernels (cuDNN,
-cuBLAS); ``ctc.greedy`` is the decode, aten kernels only.
+cuBLAS); ``ctc.greedy`` is the decode, aten kernels only; ``rnnt.step``
+and ``rnnt.replay.*`` are the entry and dispatch, ``rnnt.features``,
+``rnnt.encode`` and ``rnnt.decode`` run the library kernels (cuFFT,
+cuBLAS) and aten's, ``rnnt.reset`` aten's alone.
 
 The CPU path of the fused op takes no span.  A backward runs on autograd's
 own thread on the card, so ``fused_mel.bwd`` opens there, inside whatever
@@ -85,7 +100,12 @@ Counters are host integers, read as one by :func:`counts` and
   set-up, so a move over a steady run means the graphs thrash.
 * ``STEP_GRAPH_REPLAYS``: the steps replayed from those graphs.  It moves
   by one a replayed call, so over a steady run it reads the calls, the one
-  counter of :func:`counts` that is work and not a fault.
+  counter of :func:`counts` that is work and not a fault.  The stream
+  pool's steps (``RNNTStreamPool``) are captured, replayed and refused
+  under the same three counters.
+* ``RNNT_SLOT_RESETS``: the utterances ``RNNTStreamPool.step`` began in a
+  slot, its state reset on the card; over a steady run, the utterances
+  that ended and were followed in their slot.
 
 Another counter of work, read as the module's attribute and not one of
 :func:`counts`:
@@ -95,6 +115,10 @@ Another counter of work, read as the module's attribute and not one of
   the host holds (:func:`encoded`), never from a device value.  Over the
   valid frames of the requests it gives the share of the encoder's work
   that padding took.
+* ``RNNT_VALID_FRAMES``: the utterance frames (10 ms feature frames)
+  ``RNNTStreamPool.step`` advanced its slots by, counted from the host's
+  arguments; segments past an utterance's end and the lookahead are not
+  counted.
 """
 from __future__ import annotations
 
@@ -111,9 +135,11 @@ CONST_UPLOAD_BYTES = 0
 STEP_GRAPH_CAPTURES = 0
 STEP_GRAPH_REPLAYS = 0
 STEP_GRAPH_REFUSED = 0
+RNNT_SLOT_RESETS = 0
 _COUNTERS = ("CONST_UPLOADS", "CONST_UPLOAD_BYTES", "STEP_GRAPH_CAPTURES",
-             "STEP_GRAPH_REPLAYS", "STEP_GRAPH_REFUSED")
+             "STEP_GRAPH_REPLAYS", "STEP_GRAPH_REFUSED", "RNNT_SLOT_RESETS")
 W2V2_FRAMES = 0
+RNNT_VALID_FRAMES = 0
 
 _OFF = contextlib.nullcontext()
 _recording = torch._C._autograd._profiler_enabled
